@@ -6,16 +6,28 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
   1. print the card's name and power limit, build the port's CUDA kernels
      from the checkout's sources and print the build time;
-  2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, in bf16 and f32, and time both with CUDA events;
+  2. hold each kernel (A: CSR segment sum, B: masked GRU scan, C: its
+     backward) against its plain PyTorch version on the card at the main
+     paths' shapes, in bf16 and f32; time kernel, plain version and one
+     PyTorch library call of the same function (a yardstick only, never on
+     the port's path) with CUDA events; work out each kernel's bound on
+     this card from the bytes and operations of this run's inputs;
   3. serve the flagship RouteNet (hs=32, 8 message-passing iterations,
      256-256-1 selu readout, random weights from a seed, bf16 compute)
      through `ServingModel.predict_samples`: three requests at the flagship
      size (2,048 links, 16,384 paths of length 8) and one at 4x that
      (8,192 links, 65,536 paths). Check that the predictions are finite and
-     of the right shape, that both kernels ran on that path (launch
+     of the right shape, that kernels A and B ran on that path (launch
      counts), and that the kernel path agrees with the plain path (the same
-     model on the CPU) in f32 and in bf16; then time the requests.
+     model on the CPU) in f32 and in bf16; then time the requests;
+  4. train it through `Trainer` (bf16 compute over f32 masters, MSE + L2,
+     Adam with ExponentialDecay): 5 steps on one batch at the flagship size
+     and 2 at 4x. Check that every loss is finite and the last below the
+     first, that the step-0 gradients of the kernel path agree leaf by leaf
+     with the plain path (the same model and batch on the CPU, f32), that
+     kernels A, B and C all ran in every step (launch counts), and the
+     evaluation step; then time the step (median of 20, CUDA events), print
+     edge-messages per second and profile one step by kernel.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -37,6 +49,7 @@ SEED = 0
 FLAGSHIP = dict(n_links=2048, n_paths=16384, path_len=8)
 FLAGSHIP_X4 = dict(n_links=8192, n_paths=65536, path_len=8)
 N_FLAGSHIP_REQUESTS = 3
+TRAIN_STEPS = {"flagship": 5, "flagship_x4": 2}
 ITERATIONS = 8
 HS = 32
 
@@ -159,6 +172,21 @@ def make_sample(rng, n_links, n_paths, path_len):
 # helpers
 # --------------------------------------------------------------------------
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): device
+# memory 3.35 TB/s; 989 TFLOP/s bf16 in the tensor cores; 67 TFLOP/s f32
+# outside them. A bound is the larger of bytes / memory rate and operations
+# / peak rate of the operands' type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
+    """(bound_ms, "bytes" | "operations") for a call that must move
+    `n_bytes` and do `n_ops` floating-point operations on `dtype` operands."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds per call of `fn` on the card, from CUDA events."""
@@ -191,17 +219,17 @@ def forward_ms(server, batch, runs: int = 20, warmup: int = 3) -> list:
     return out
 
 
-def device_time_by_kernel(server, batch, runs: int = 5) -> tuple:
-    """({kernel name: device ms per forward}, kernels launched per forward)
-    from torch.profiler's CUDA activity over `runs` forwards."""
+def device_time_by_kernel(fn, runs: int = 5) -> tuple:
+    """({kernel name: device ms per call of `fn`}, kernels launched per call)
+    from torch.profiler's CUDA activity over `runs` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    server.forward_device(batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
-            server.forward_device(batch)
+            fn()
         torch.cuda.synchronize()
     per_name, count = {}, 0
     for e in prof.events():
@@ -209,6 +237,37 @@ def device_time_by_kernel(server, batch, runs: int = 5) -> tuple:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / runs
             count += 1
     return per_name, count / runs
+
+
+def yardstick_diff(name: str, lib: torch.Tensor, ref: torch.Tensor) -> None:
+    """Print how far a library call's result lies from the port's: the call
+    is timed as a yardstick and is not the port's code, so only its shape and
+    finiteness are held (it must compute the same function, not round alike)."""
+    lib = lib.detach().to("cpu", torch.float32)
+    ref = ref.detach().to("cpu", torch.float32)
+    if lib.shape != ref.shape or not torch.isfinite(lib).all():
+        raise AssertionError(f"{name}: shape {tuple(lib.shape)} or non-finite values")
+    print(f"    {name}: max abs difference from the port {float((lib - ref).abs().max()):.3e}"
+          f" (max |value| {float(ref.abs().max()):.3e})")
+
+
+def print_profile(what: str, fn, wall_ms: float) -> dict:
+    """Profile `fn` by kernel, print the ten largest, and return the busy
+    time, launches per call and idle share of `wall_ms` (empty when the
+    profiler saw no device activity)."""
+    per_kernel, n_kernels = device_time_by_kernel(fn)
+    busy = sum(per_kernel.values())
+    if busy == 0.0:
+        print(f"[profile] {what}: the profiler saw no device activity; "
+              "device busy share not measured")
+        return {}
+    print(f"[profile] {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+          f"({busy / wall_ms:.1%}), {n_kernels:.0f} kernel launches per call "
+          f"(torch.profiler, 5 calls)")
+    for kname, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
+    return dict(device_busy_ms=busy, kernels_per_call=n_kernels,
+                device_idle_share=max(0.0, 1.0 - busy / wall_ms))
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float,
@@ -237,48 +296,88 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol:
 # --------------------------------------------------------------------------
 
 
-def check_segment_sum(dev, rng) -> dict:
+def check_segment_sum(dev, rng, what: str, e: int, n: int, gathered: bool) -> dict:
+    """Kernel A on [e, HS] rows into n segments. `gathered`: the rows come
+    through a row gather by a permutation first, as `_gss_bwd` feeds it."""
     from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
 
-    e, n, d = 524_288, FLAGSHIP_X4["n_links"], HS
+    d = HS
     e_real = e - 1_000  # the tail is padding, past row_ptr[-1]
     live = np.sort(rng.choice(n, size=n - n // 20, replace=False))  # 5% rows empty
     ids = np.sort(rng.choice(live, size=e_real))
     row_ptr = np.searchsorted(ids, np.arange(n + 1)).astype(np.int32)
     rp = torch.from_numpy(row_ptr).to(dev)
+    offsets = rp.to(torch.int64)
+    perm = torch.from_numpy(rng.permutation(e)).to(dev)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dev, dtype)
+        if gathered:
+            data = data[perm]
         got = sk.sorted_segment_sum_csr(data, rp)
         want = sk.sorted_segment_sum_csr_plain(data, rp)
         torch.cuda.synchronize()
         if got.dtype != torch.float32:
             raise AssertionError(f"kernel A returned {got.dtype}, the contract is f32")
         err = compare(
-            f"kernel A csr_segment_sum [{e}x{d}] -> [{n}x{d}] {str(dtype)[6:]}",
+            f"kernel A csr_segment_sum ({what}) [{e}x{d}] -> [{n}x{d}] {str(dtype)[6:]}",
             got, want, atol=1e-4, rtol=1e-5,
-            why="f32 sums of ~64 rows in another order (plain uses atomics)",
+            why=f"f32 sums of ~{e // n} rows in another order (plain uses atomics)",
         )
         ms = cuda_ms(lambda: sk.sorted_segment_sum_csr(data, rp))
         plain_ms = cuda_ms(lambda: sk.sorted_segment_sum_csr_plain(data, rp))
-        print(f"    time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({e * d * data.element_size() / ms / 1e6:.1f} GB/s of input read by the kernel)")
-        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        # the library's segmented reduction over the same real rows (output
+        # in the data's type)
+        real = data[:e_real]
+        lib = torch.segment_reduce(real, "sum", offsets=offsets, axis=0)
+        yardstick_diff(f"library torch.segment_reduce {str(dtype)[6:]} (sums in the "
+                       f"data's type)", lib, want)
+        library_ms = cuda_ms(lambda: torch.segment_reduce(real, "sum", offsets=offsets, axis=0))
+        n_bytes = e_real * d * data.element_size() + (n + 1) * 4 + n * d * 4
+        bound_ms, bound_by = bound(n_bytes, e_real * d, torch.float32)  # f32 adds
+        print(f"    time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.segment_reduce {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({n_bytes / ms / 1e6:.1f} GB/s moved by the kernel)")
+        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
     return out
+
+
+def _gru_inputs(dev, rng, L, n, d, u):
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    lens_np = rng.integers(0, L + 1, size=n).astype(np.int32)
+    lens_np[:2] = (0, L)
+    lens = torch.from_numpy(lens_np).to(dev)
+    p32 = {"kernel": 0.2 * f(d, 3 * u), "recurrent_kernel": 0.2 * f(u, 3 * u),
+           "bias": 0.1 * f(2, 3 * u)}
+    return f(L, n, d), lens, torch.full_like(lens, L), 0.5 * f(n, u), p32, f(n, u)
+
+
+def _library_gru(params, d, u, dtype, dev) -> torch.nn.GRU:
+    """`torch.nn.GRU` (cuDNN's reset-after GRU) holding the Keras params: the
+    gate columns go from Keras's z, r, h to PyTorch's r, z, n."""
+    gru = torch.nn.GRU(d, u, num_layers=1, bias=True).to(dev, dtype)
+    order = lambda w: torch.cat([w[..., u:2 * u], w[..., :u], w[..., 2 * u:]], dim=-1)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(order(params["kernel"]).T)
+        gru.weight_hh_l0.copy_(order(params["recurrent_kernel"]).T)
+        gru.bias_ih_l0.copy_(order(params["bias"][0]))
+        gru.bias_hh_l0.copy_(order(params["bias"][1]))
+    gru.flatten_parameters()
+    return gru
+
+
+def _gru_bytes(L, n, d, u, es):
+    """Bytes of the scan's inputs (xs, lens, h0, weights) and of one [n, u]
+    state in the working type."""
+    return L * n * d * es + n * 4 + n * u * es + (d + u + 2) * 3 * u * es, n * u * es
 
 
 def check_gru_scan(dev, rng) -> dict:
     from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
 
     L, n, d, u = FLAGSHIP["path_len"], FLAGSHIP["n_paths"], HS, HS
-    lens_np = rng.integers(0, L + 1, size=n).astype(np.int32)
-    lens_np[:2] = (0, L)
-    lens = torch.from_numpy(lens_np).to(dev)
-    full = torch.full_like(lens, L)
-    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
-    xs32, h032 = f(L, n, d), 0.5 * f(n, u)
-    p32 = {"kernel": 0.2 * f(d, 3 * u), "recurrent_kernel": 0.2 * f(u, 3 * u),
-           "bias": 0.1 * f(2, 3 * u)}
+    xs32, lens, full, h032, p32, _ = _gru_inputs(dev, rng, L, n, d, u)
     tols = {
         torch.float32: (1e-5, 1e-5, "f32 dot products of 32 terms in another order"),
         torch.bfloat16: (3e-2, 0.0, "a 1-ulp flip of the bf16-rounded carry at one "
@@ -301,10 +400,91 @@ def check_gru_scan(dev, rng) -> dict:
         # timed at full lengths: every flagship path has path_len links
         ms = cuda_ms(lambda: rk.masked_gru_scan(xs, full, h0, p))
         plain_ms = cuda_ms(lambda: rk.masked_gru_scan_plain(xs, full, h0, p))
+        gru = _library_gru(p, d, u, dtype, dev)
+        with torch.no_grad():
+            lib = gru(xs, h0[None])[1][0]
+            yardstick_diff(f"library torch.nn.GRU (cuDNN) at full lengths {str(dtype)[6:]}",
+                           lib, rk.masked_gru_scan(xs, full, h0, p))
+            library_ms = cuda_ms(lambda: gru(xs, h0[None]))
         flops = 2 * L * n * (d + u) * 3 * u
-        print(f"    time at full lengths: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} GFLOP/s by the kernel)")
-        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        in_bytes, state_bytes = _gru_bytes(L, n, d, u, xs.element_size())
+        bound_ms, bound_by = bound(in_bytes + state_bytes, flops, dtype)
+        print(f"    time at full lengths: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.nn.GRU {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flops / ms / 1e9:.1f} TFLOP/s by the kernel)")
+        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+    return out
+
+
+GRAD_NAMES = ("d_xs", "d_h0", "d_kernel", "d_recurrent_kernel", "d_bias")
+
+
+def check_gru_scan_bwd(dev, rng) -> dict:
+    """Kernel C through `masked_gru_scan`'s autograd against the gradients of
+    the plain version, at random lengths 0..L and at full lengths."""
+    from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
+
+    L, n, d, u = FLAGSHIP["path_len"], FLAGSHIP["n_paths"], HS, HS
+    xs32, lens, full, h032, p32, ct32 = _gru_inputs(dev, rng, L, n, d, u)
+    # d_xs and d_h0 are per-row values of order 1: absolute limits. The weight
+    # and bias gradients sum L * n = 131,072 row-steps: limits relative to the
+    # leaf's largest entry.
+    tols = {
+        torch.float32: (1e-4, 1e-5, "f32 sums in another order"),
+        torch.bfloat16: (3e-2, 2e-2, "gate gradients and the carry round to bf16 at "
+                                     "other places than autograd's"),
+    }
+    names = ("kernel", "recurrent_kernel", "bias")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xs, h0, ct = xs32.to(dtype), h032.to(dtype), ct32.to(dtype)
+        p = {k: v.to(dtype) for k, v in p32.items()}
+        row_tol, sum_tol, why = tols[dtype]
+        err = 0.0
+        for which, ln in (("random lengths", lens), ("full lengths", full)):
+            leaves = [xs.clone().requires_grad_(True), h0.clone().requires_grad_(True)]
+            leaves += [p[k].clone().requires_grad_(True) for k in names]
+            before = rk.bwd_launch_count
+            h = rk.masked_gru_scan(leaves[0], ln, leaves[1], dict(zip(names, leaves[2:])))
+            got = torch.autograd.grad(h, leaves, ct)
+            torch.cuda.synchronize()
+            if rk.bwd_launch_count != before + 1:
+                raise AssertionError("the backward did not launch kernel C")
+            want = rk.masked_gru_scan_bwd_plain(xs, ln, h0, p, ct)
+            for name, g, w in zip(GRAD_NAMES, got, want):
+                if g.dtype != dtype:
+                    raise AssertionError(f"kernel C returned {name} in {g.dtype}")
+                per_row = name in ("d_xs", "d_h0")
+                atol = row_tol if per_row else sum_tol * float(w.float().abs().max())
+                e = compare(
+                    f"kernel C {name} [{L},{n},{d}] u={u} {str(dtype)[6:]}, {which}",
+                    g, w, atol=atol, rtol=0.0,
+                    why=why + ("" if per_row else f"; {sum_tol:g} of the leaf's largest entry"),
+                )
+                if per_row:
+                    err = max(err, e)
+        wx, wh, b = (p[k].contiguous() for k in names)
+        ms = cuda_ms(lambda: rk._launch_backward(xs, full, h0, wx, wh, b, ct))
+        plain_ms = cuda_ms(lambda: rk.masked_gru_scan_bwd_plain(xs, full, h0, p, ct), iters=5)
+        gru = _library_gru(p, d, u, dtype, dev)
+        x_lib = xs.clone().requires_grad_(True)
+        h_lib = h0[None].clone().requires_grad_(True)
+        h_n = gru(x_lib, h_lib)[1][0]
+        lib_leaves = [x_lib, h_lib, *gru.parameters()]
+        library_ms = cuda_ms(
+            lambda: torch.autograd.grad(h_n, lib_leaves, ct, retain_graph=True))
+        flops = 3 * 2 * L * n * (d + u) * 3 * u  # recompute, transposed products, weight grads
+        in_bytes, state_bytes = _gru_bytes(L, n, d, u, xs.element_size())
+        # read the inputs and ct; write d_xs, d_h0 and the f32 weight gradients
+        n_bytes = (in_bytes + state_bytes + L * n * d * xs.element_size() + n * u * 4
+                   + (d + u + 2) * 3 * u * 4)
+        bound_ms, bound_by = bound(n_bytes, flops, dtype)
+        print(f"    time at full lengths: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.nn.GRU backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({flops / ms / 1e9:.1f} TFLOP/s by the kernel)")
+        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
     return out
 
 
@@ -416,20 +596,161 @@ def serve(dev, card: str) -> dict:
               f"{np.median(e2e):.1f} ms (5 runs, host clock) on {card}")
 
         # ---- where the device time goes ----
-        per_kernel, n_kernels = device_time_by_kernel(server, to_device(inputs, dev))
-        busy = sum(per_kernel.values())
-        if busy == 0.0:
-            print(f"[profile] {name}: the profiler saw no device activity; "
-                  "device busy share not measured")
-            continue
-        latency[name].update(device_busy_ms=busy, kernels_per_forward=n_kernels,
-                             device_idle_share=max(0.0, 1.0 - busy / latency[name]["forward_ms"]))
-        print(f"[profile] {name}: device busy {busy:.3f} ms per forward of "
-              f"{latency[name]['forward_ms']:.3f} ms ({busy / latency[name]['forward_ms']:.1%}), "
-              f"{n_kernels:.0f} kernel launches per forward (torch.profiler, 5 forwards)")
-        for kname, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"    {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
+        dev_batch = to_device(inputs, dev)
+        latency[name].update(print_profile(
+            f"{name} forward", lambda: server.forward_device(dev_batch),
+            latency[name]["forward_ms"]))
     return dict(launches=launches, latency=latency)
+
+
+# --------------------------------------------------------------------------
+# phase 4: training
+# --------------------------------------------------------------------------
+
+
+def train(dev, card: str) -> dict:
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params
+    from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+    from ignnition_tpu_torch.training.metrics import MetricAccumulator
+
+    ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    rng = np.random.default_rng(SEED + 1)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    launches = {"csr_segment_sum": 0, "masked_gru_scan": 0, "masked_gru_scan_bwd": 0}
+    result = {}
+    for name, size in (("flagship", FLAGSHIP), ("flagship_x4", FLAGSHIP_X4)):
+        t0 = time.perf_counter()
+        arrays, meta = igt.build_batch([make_sample(rng, **size)], ir, padding, training=True)
+        print(f"[train] {name}: build_batch(training=True) {time.perf_counter() - t0:.2f} s "
+              f"(host, numpy routines)")
+        # bf16 compute over f32 masters; no device argument: the card is the default
+        trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+        if trainer.device.type != "cuda":
+            raise AssertionError(f"the trainer chose {trainer.device}, not the card")
+        batch = to_device(arrays, trainer.device)
+        state = trainer.init_state(torch.Generator().manual_seed(SEED))
+        init_params = {k: v.detach().cpu().clone() for k, v in flatten_params(state.params).items()}
+
+        # ---- step-0 gradients: kernel path (card) vs plain path (CPU), f32 ----
+        f32_card = igt.Trainer(igt.build(ir), padding, compute_dtype=None)
+        g_card, m_card = f32_card.grads_fn(meta)(state.params, batch)
+        f32_cpu = igt.Trainer(igt.build(ir), padding, compute_dtype=None, device="cpu")
+        cpu_state = f32_cpu.init_state(params=init_params)
+        t1 = time.perf_counter()
+        g_cpu, m_cpu = f32_cpu.grads_fn(meta)(cpu_state.params, to_device(arrays, "cpu"))
+        cpu_s = time.perf_counter() - t1
+        compare(f"{name} step-0 loss, kernels vs plain (CPU, {cpu_s:.1f} s) f32",
+                m_card["total"], m_cpu["total"], atol=1e-4, rtol=1e-4,
+                why="f32 sums in another order on each device")
+        want = flatten_params(g_cpu)
+        for k, g in flatten_params(g_card).items():
+            top = float(want[k].abs().max())
+            compare(f"{name} step-0 gradient {k}", g, want[k], atol=1e-4 * top, rtol=1e-3,
+                    why="f32 sums over up to 131,072 rows in another order; "
+                        "1e-4 of the leaf's largest entry")
+        # the training dtype: kernel path against plain path, both in bf16
+        # (printed, not held: bf16 roundings fall differently on the two paths)
+        g_bf16, _ = trainer.grads_fn(meta)(state.params, batch)
+        bf16_cpu = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16,
+                               device="cpu")
+        g_bf16_cpu, _ = bf16_cpu.grads_fn(meta)(cpu_state.params, to_device(arrays, "cpu"))
+        for (k, gb), gc in zip(flatten_params(g_bf16).items(),
+                               flatten_params(g_bf16_cpu).values()):
+            top = max(float(gc.abs().max()), 1e-30)
+            print(f"      bf16 compute, {k}: kernels vs plain (CPU) "
+                  f"{float((gb.cpu() - gc).abs().max()) / top:.2e}, plain bf16 vs plain f32 "
+                  f"{float((gc - want[k]).abs().max()) / top:.2e} of the leaf's largest entry")
+
+        # ---- the main path: training steps, counting kernel launches ----
+        step = trainer.train_step_fn(meta)
+        a = "adj_links_paths"
+        windows = (arrays[f"slice_sort_row_ptr_{a}"].shape[0] - 1) // meta.nodes("link")
+        dense = any(k.startswith(("dense_inc_", "inc_blocks_")) for k in arrays)
+        sliced = any(k.startswith("bwd_slice_dst_") for k in arrays)
+        # kernel A: `_gss_bwd` once per window and iteration, but for the
+        # first iteration, whose link states come from the features alone and
+        # need no gradient; past the dense cap also stage 2's forward and,
+        # without the slice map, its backward
+        want_a = (ITERATIONS - 1) * windows + (
+            0 if dense else ITERATIONS * (1 if sliced else 2))
+        sk.launch_count = rk.launch_count = rk.bwd_launch_count = 0
+        metrics = []
+        for i in range(TRAIN_STEPS[name]):
+            before = (sk.launch_count, rk.launch_count, rk.bwd_launch_count)
+            state, m = step(state, batch)
+            da, db, dc = (now - was for now, was in zip(
+                (sk.launch_count, rk.launch_count, rk.bwd_launch_count), before))
+            if (da, db, dc) != (want_a, ITERATIONS, ITERATIONS):
+                raise AssertionError(
+                    f"{name} step {i}: expected kernel A +{want_a}, B +{ITERATIONS}, "
+                    f"C +{ITERATIONS} launches, got +{da}, +{db}, +{dc}")
+            metrics.append(m)
+        torch.cuda.synchronize()
+        launches["csr_segment_sum"] += sk.launch_count
+        launches["masked_gru_scan"] += rk.launch_count
+        launches["masked_gru_scan_bwd"] += rk.bwd_launch_count
+        totals = [float(m["total"]) for m in metrics]
+        losses = [float(m["loss"]) for m in metrics]
+        print(f"  {name}: {len(totals)} steps, loss+reg " + " ".join(f"{t:.5f}" for t in totals)
+              + "; loss " + " ".join(f"{t:.5f}" for t in losses)
+              + f"; per step kernel A +{want_a} ({windows} slice-sort windows), "
+              f"B +{ITERATIONS}, C +{ITERATIONS}")
+        if not all(np.isfinite(totals + losses)):
+            raise AssertionError(f"{name}: a loss is not finite")
+        if not totals[-1] < totals[0]:
+            raise AssertionError(f"{name}: the loss did not fall: {totals}")
+        if state.step != len(totals) or state.opt_state["count"] != len(totals):
+            raise AssertionError(f"{name}: the state counts {state.step} steps")
+        moved = max(float((v.detach().cpu() - init_params[k]).abs().max())
+                    for k, v in flatten_params(state.params).items())
+        if not 0.0 < moved < 0.1:
+            raise AssertionError(f"{name}: parameters moved by {moved}")
+
+        # ---- evaluation step (f32 compute, no graph) ----
+        preds, loss = trainer.eval_step_fn(meta)(state.params, batch)
+        n_pad = meta.nodes("path")
+        if preds.shape != (n_pad,) or preds.requires_grad or not torch.isfinite(preds).all():
+            raise AssertionError(f"{name}: eval predictions {tuple(preds.shape)} or non-finite")
+        acc = MetricAccumulator()
+        acc.update(arrays["label"], preds.cpu().numpy(), arrays["label_mask"])
+        print(f"  {name}: eval loss {float(loss):.5f}; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in acc.result().items()))
+
+        # ---- step time ----
+        times = []
+        for i in range(3 + 20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+        step_ms = float(np.median(times))
+        edges = sum(int(np.sum(arrays[f"edge_mask_{adj}"] > 0))
+                    for adj in ("adj_links_paths", "adj_paths_links"))
+        rate = ITERATIONS * edges / (step_ms / 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        print(f"[train] {name}: step median {step_ms:.3f} ms (min {min(times):.3f}, max "
+              f"{max(times):.3f}, 20 steps after 3, CUDA events), {rate / 1e6:.1f} M "
+              f"edge-messages/s ({ITERATIONS} iterations x {edges} edges), peak device "
+              f"memory {peak:.0f} MiB, bf16 compute, on {card}")
+        result[name] = dict(step_ms=step_ms, edge_messages_per_s=rate, peak_mib=peak,
+                            losses=totals)
+        result[name].update(print_profile(f"{name} training step",
+                                          lambda: step(state, batch), step_ms))
+    print(f"[train] main path launch counts: kernel A {launches['csr_segment_sum']}, "
+          f"kernel B {launches['masked_gru_scan']}, kernel C {launches['masked_gru_scan_bwd']}")
+    if min(launches.values()) == 0:
+        raise AssertionError("a kernel of the training path was never launched")
+    return dict(launches=launches, steps=result)
 
 
 def main() -> None:
@@ -461,31 +782,44 @@ def main() -> None:
 
     # ---- phase 2: kernels against their plain versions ----
     rng = np.random.default_rng(SEED)
-    print(f"[kernels] at the main path's shapes on {card}")
-    seg = check_segment_sum(dev, rng)
+    print(f"[kernels] at the main paths' shapes on {card}")
+    e_slices = FLAGSHIP["n_paths"] * FLAGSHIP["path_len"]
+    seg = check_segment_sum(dev, rng, "stage 2 forward at x4", 524_288,
+                            FLAGSHIP_X4["n_links"], gathered=False)
+    seg_bwd = check_segment_sum(dev, rng, "slice-gather backward", e_slices,
+                                FLAGSHIP["n_links"], gathered=True)
     gru = check_gru_scan(dev, rng)
+    gru_bwd = check_gru_scan_bwd(dev, rng)
 
     # ---- phase 3: serving ----
     served = serve(dev, card)
 
+    # ---- phase 4: training ----
+    trained = train(dev, card)
+
     bf16 = torch.bfloat16
-    kernels = [
-        dict(name="csr_segment_sum", route="cuda",
-             source="ignnition_tpu_torch/csrc/segment_sum.cu",
-             replaces="ignnition_tpu/ops/pallas/segment_kernels.py:337",
-             launches=served["launches"]["csr_segment_sum"],
-             max_abs_err=seg[bf16]["max_abs_err"], ms=seg[bf16]["ms"],
-             plain_ms=seg[bf16]["plain_ms"],
-             f32=seg[torch.float32]),
-        dict(name="masked_gru_scan", route="cuda",
-             source="ignnition_tpu_torch/csrc/gru_scan.cu",
-             replaces="ignnition_tpu/ops/pallas/rnn_kernels.py:260",
-             launches=served["launches"]["masked_gru_scan"],
-             max_abs_err=gru[bf16]["max_abs_err"], ms=gru[bf16]["ms"],
-             plain_ms=gru[bf16]["plain_ms"],
-             f32=gru[torch.float32]),
-    ]
-    print(json.dumps({"kernels": kernels, "latency": served["latency"], "card": card}))
+    sources = {
+        "csr_segment_sum": ("ignnition_tpu_torch/csrc/segment_sum.cu",
+                            "ignnition_tpu/ops/pallas/segment_kernels.py:337", seg),
+        "masked_gru_scan": ("ignnition_tpu_torch/csrc/gru_scan.cu",
+                            "ignnition_tpu/ops/pallas/rnn_kernels.py:260", gru),
+        "masked_gru_scan_bwd": ("ignnition_tpu_torch/csrc/gru_scan_bwd.cu",
+                                "ignnition_tpu/ops/pallas/rnn_kernels.py:279", gru_bwd),
+    }
+    kernels = []
+    for name, (source, replaces, checked) in sources.items():
+        on_serving = served["launches"].get(name, 0)
+        on_training = trained["launches"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=on_serving + on_training,
+            launches_serving=on_serving, launches_training=on_training,
+            **checked[bf16], f32=checked[torch.float32],
+        ))
+    kernels[0]["at_slice_gather_backward_shape"] = dict(
+        bf16=seg_bwd[bf16], f32=seg_bwd[torch.float32])
+    print(json.dumps({"kernels": kernels, "latency": served["latency"],
+                      "training": trained["steps"], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

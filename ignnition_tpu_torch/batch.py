@@ -35,6 +35,19 @@ def _to_tensor(key: str, a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: `device`, or by default the current
+    CUDA device. Without one it raises rather than settle for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available and none was asked for: the default "
+            'device is the GPU; pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def to_device(arrays: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """Tensors on `device` for every array of a `build_batch` result."""
     device = torch.device(device)

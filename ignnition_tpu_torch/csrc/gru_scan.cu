@@ -30,15 +30,13 @@
 // Each step reads one x_t row, coalesced (lane k holds x[k]), and
 // broadcasts its elements with __shfl_sync; the rounded carry is broadcast
 // the same way. The L loop runs inside the kernel; no per-step tensors
-// touch device memory.
-#include "common.cuh"
+// touch device memory. The per-step gate projections are in gru_step.cuh,
+// shared with the backward kernel (gru_scan_bwd.cu).
+#include "gru_step.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
 template <typename T, int UC>
 __global__ void __launch_bounds__(kThreads)
@@ -51,9 +49,7 @@ masked_gru_scan_kernel(const T* __restrict__ xs, const int* __restrict__ lens,
   float* s_wx = smem;            // [D][3U]
   float* s_wh = s_wx + D * G;    // [U][3U]
   float* s_b = s_wh + U * G;     // [2][3U]
-  for (int i = threadIdx.x; i < D * G; i += blockDim.x) s_wx[i] = ign::to_f32(wx[i]);
-  for (int i = threadIdx.x; i < U * G; i += blockDim.x) s_wh[i] = ign::to_f32(wh[i]);
-  for (int i = threadIdx.x; i < 2 * G; i += blockDim.x) s_b[i] = ign::to_f32(bias[i]);
+  ign::stage_gru_weights(wx, wh, bias, s_wx, s_wh, s_b, D, U, G);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -69,54 +65,12 @@ masked_gru_scan_kernel(const T* __restrict__ xs, const int* __restrict__ lens,
     for (int t = 0; t < len; ++t) {
       const T* x = xs + ((long long)t * N + n) * D;
       float az[UC], ar[UC], ac[UC], gz[UC], gr[UC], gc[UC];
-#pragma unroll
-      for (int c = 0; c < UC; ++c) {
-        const int j = min(lane + 32 * c, U - 1);
-        az[c] = s_b[j];
-        ar[c] = s_b[U + j];
-        ac[c] = s_b[2 * U + j];
-        gz[c] = s_b[G + j];
-        gr[c] = s_b[G + U + j];
-        gc[c] = s_b[G + 2 * U + j];
-      }
-      // input projection: x_t @ wx
-      for (int k0 = 0; k0 < D; k0 += 32) {
-        const float xv = k0 + lane < D ? ign::to_f32(x[k0 + lane]) : 0.f;
-        const int kn = min(32, D - k0);
-        for (int kk = 0; kk < kn; ++kk) {
-          const float xk = __shfl_sync(kFull, xv, kk);
-          const float* w = s_wx + (k0 + kk) * G;
-#pragma unroll
-          for (int c = 0; c < UC; ++c) {
-            const int j = min(lane + 32 * c, U - 1);
-            az[c] = fmaf(xk, w[j], az[c]);
-            ar[c] = fmaf(xk, w[U + j], ar[c]);
-            ac[c] = fmaf(xk, w[2 * U + j], ac[c]);
-          }
-        }
-      }
-      // recurrent projection: round(h) @ wh
-#pragma unroll
-      for (int kc = 0; kc < UC; ++kc) {
-        const float hv = ign::round_to<T>(h[kc]);
-        const int kn = min(32, U - 32 * kc);
-        for (int kk = 0; kk < kn; ++kk) {
-          const float hk = __shfl_sync(kFull, hv, kk);
-          const float* w = s_wh + (32 * kc + kk) * G;
-#pragma unroll
-          for (int c = 0; c < UC; ++c) {
-            const int j = min(lane + 32 * c, U - 1);
-            gz[c] = fmaf(hk, w[j], gz[c]);
-            gr[c] = fmaf(hk, w[U + j], gr[c]);
-            gc[c] = fmaf(hk, w[2 * U + j], gc[c]);
-          }
-        }
-      }
+      ign::gru_project<T, UC>(x, h, s_wx, s_wh, s_b, D, U, G, lane, az, ar, ac, gz, gr, gc);
 #pragma unroll
       for (int c = 0; c < UC; ++c) {
         if (lane + 32 * c < U) {
-          const float z = sigmoidf_(az[c] + gz[c]);
-          const float r = sigmoidf_(ar[c] + gr[c]);
+          const float z = ign::sigmoidf_(az[c] + gz[c]);
+          const float r = ign::sigmoidf_(ar[c] + gr[c]);
           const float hc = tanhf(ac[c] + r * gc[c]);
           h[c] = z * h[c] + (1.f - z) * hc;
         }

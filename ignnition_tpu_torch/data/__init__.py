@@ -1,16 +1,7 @@
-"""Dataset reading and batch building: the JAX package's sources, loaded here.
+"""Dataset reading and batch building. `build_batch` returns numpy arrays;
+`ignnition_tpu_torch.batch.to_device` moves them to tensors."""
 
-See `ignnition_tpu_torch._shared`: this package's `__path__` is
-`ignnition_tpu/data/`, so `dataset`, `graph`, `native_loader` and `synthetic`
-are the same files. `build_batch` returns numpy arrays;
-`ignnition_tpu_torch.batch.to_device` moves them to tensors.
-"""
-
-from .._shared import shared_path
-
-__path__ = shared_path("data")
-
-from .dataset import (  # noqa: E402
+from .dataset import (
     DatasetError,
     GraphSample,
     SampleSpec,
@@ -20,12 +11,7 @@ from .dataset import (  # noqa: E402
     iter_samples,
     make_indices,
 )
-from .graph import (  # noqa: E402
-    BatchMeta,
-    PaddingConfig,
-    build_batch,
-    infer_label_domain,
-)
+from .graph import BatchMeta, PaddingConfig, build_batch, infer_label_domain
 
 __all__ = [
     "DatasetError",

@@ -1,20 +1,8 @@
-"""Model-description front end: the JAX package's sources, loaded here.
+"""Model-description front end: schema validation, parsing and the IR."""
 
-See `ignnition_tpu_torch._shared`: this package's `__path__` is
-`ignnition_tpu/frontend/`, so `ir`, `parser` and `schema` are the same files.
-"""
-
-from .._shared import shared_path
-
-__path__ = shared_path("frontend")
-
-from . import ir  # noqa: E402
-from .parser import (  # noqa: E402
-    load_description,
-    parse_model_description,
-    parse_model_file,
-)
-from .schema import ModelDescriptionError, validate_structure  # noqa: E402
+from . import ir
+from .parser import load_description, parse_model_description, parse_model_file
+from .schema import ModelDescriptionError, validate_structure
 
 __all__ = [
     "ir",

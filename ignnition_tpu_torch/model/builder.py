@@ -1,16 +1,22 @@
-"""Compiler back-end for the serving slice: ModelIR -> `GnnModel`
-(counterpart of `ignnition_tpu/model/builder.py`), forward only.
+"""Compiler back-end for the flagship slice: ModelIR -> `GnnModel`
+(counterpart of `ignnition_tpu/model/builder.py`), serving and training.
 
 Ported: the flagship RouteNet path. Each message passing has one source
 with direct-assignation messages and a recurrent update; its aggregation is
 either
   * `ordered`: the time slices are gathered from the source state table
     through the host slice map (`seg.gather_state_slices`) and run through
-    the masked scan (`RNN.masked_update_stacked`, kernel B for GRU), or
+    the masked scan (`RNN.masked_update_stacked`, kernels B and C for GRU), or
   * `sum`: the best of the block-diagonal / dense incidence products and
     the CSR sums (`_one_source_sum`, kernel A), then one cell step.
 The readout is `predict` through a Dense feed-forward network. Any other
 DSL feature raises NotImplementedError naming it, when the model is built.
+
+`apply(params, batch, meta)` is a function of a parameter tree, which the
+trainer differentiates (its leaves require grad; the batch's training
+companions route each backward through the hand-written transposes of
+`ops/segment.py`). `forward(batch, meta)` applies the module's own
+parameters, which never require grad: serving records no graph.
 
 Parameters keep the JAX package's tree and key paths
 (`update/{dst}_update/{kernel,recurrent_kernel,bias}`,
@@ -98,8 +104,9 @@ def params_from_jax(tree) -> Dict[str, Any]:
 
 
 class GnnModel(nn.Module):
-    """A model compiled from IR for inference. Parameters live in
-    `self.params` (flat, JAX key paths); `forward` reads a device batch."""
+    """A model compiled from IR. Serving parameters live in `self.params`
+    (flat, JAX key paths); `forward` reads a device batch with them and
+    `apply` with any parameter tree."""
 
     def __init__(self, model_ir):
         super().__init__()
@@ -181,15 +188,23 @@ class GnnModel(nn.Module):
             }
         )
 
-    def param_tree(self, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-        """The nested parameter tree, cast to `dtype` when given."""
-        return unflatten_params(
-            {k: (v if dtype is None else v.to(dtype)) for k, v in self.params.items()}
-        )
+    def param_tree(self) -> Dict[str, Any]:
+        """The module's parameters as the nested tree."""
+        return unflatten_params(dict(self.params.items()))
 
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
+
+    def regularization_loss(self, params) -> torch.Tensor:
+        """Sum of all layers' l2 kernel penalties over a parameter tree (the
+        readout networks: message and feed-forward update networks are not
+        ported)."""
+        total = None
+        for i, op in enumerate(self.ir.readout):
+            part = MLP.l2_loss(op.mlp, params["readout"][f"op{i}"])
+            total = part if total is None else total + part
+        return total
 
     def forward(
         self,
@@ -197,13 +212,28 @@ class GnnModel(nn.Module):
         meta: BatchMeta,
         compute_dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
-        """Predictions [rows] (last dim squeezed when 1), float32.
+        """`apply` with the module's own parameters."""
+        return self.apply(self.param_tree(), batch, meta, compute_dtype=compute_dtype)
+
+    def apply(
+        self,
+        params,
+        batch: Mapping[str, torch.Tensor],
+        meta: BatchMeta,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> torch.Tensor:
+        """Predictions [rows] (last dim squeezed when 1), float32, from the
+        parameter tree `params` (JAX layout, float32 tensors).
 
         compute_dtype (e.g. torch.bfloat16): parameters and hidden states are
-        cast to it, as the JAX `apply(compute_dtype=)` does with explicit
-        casts; predictions come back as float32."""
+        cast to it with explicit casts, as the JAX `apply(compute_dtype=)`
+        does, so gradients arrive in float32 on the tree's leaves;
+        predictions come back as float32."""
         ir = self.ir
-        params = self.param_tree(compute_dtype)
+        if compute_dtype is not None:
+            params = unflatten_params(
+                {k: v.to(compute_dtype) for k, v in flatten_params(params).items()}
+            )
 
         # ---- hidden state initialization ----
         states: Dict[str, torch.Tensor] = {}
@@ -252,7 +282,13 @@ class GnnModel(nn.Module):
                             "the ordered update without the host slice map "
                             "(masked_update_from_edges)"
                         )
-                    xs = seg.gather_state_slices(table, batch[f"slice_src_{a}"])
+                    xs = seg.gather_state_slices(
+                        table,
+                        batch[f"slice_src_{a}"],
+                        batch.get(f"slice_sort_perm_{a}"),
+                        batch.get(f"slice_sort_ids_{a}"),
+                        batch.get(f"slice_sort_row_ptr_{a}"),
+                    )
                     new_state = RNN.masked_update_stacked(
                         mp.update.rnn, up, xs, batch[f"lens_{a}"], dst_states
                     )
@@ -286,15 +322,21 @@ class GnnModel(nn.Module):
             return seg.direct_segment_sum_dense(table, inc)
         row_ptr = batch.get(f"row_ptr_{a}")
         if row_ptr is not None and f"bwd_slice_dst_{a}" in batch:
-            return seg.direct_segment_sum_sliced(table, batch[f"src_{a}"], row_ptr, n_dst)
+            return seg.direct_segment_sum_sliced(
+                table, batch[f"src_{a}"], row_ptr, n_dst,
+                batch[f"bwd_slice_dst_{a}"], batch[f"out_lens_{a}"],
+            )
         if row_ptr is not None and f"dst_in_src_order_{a}" in batch:
-            return seg.direct_segment_sum(table, batch[f"src_{a}"], row_ptr, n_dst)
+            return seg.direct_segment_sum(
+                table, batch[f"src_{a}"], row_ptr, n_dst,
+                batch[f"dst_in_src_order_{a}"], batch[f"src_row_ptr_{a}"],
+            )
         messages = table[batch[f"src_{a}"]]
         messages = messages * batch[f"edge_mask_{a}"][:, None].to(messages.dtype)
         return seg.segment_sum(messages, batch[f"dst_{a}"], n_dst, row_ptr=row_ptr)
 
     def _readout(self, params, states):
-        """The predict op (the JAX `_readout` in inference mode)."""
+        """The predict op over the final entity states."""
         result = None
         for i, op in enumerate(self.ir.readout):
             xs = [states[name] for name in op.inputs]

@@ -1,5 +1,6 @@
-"""Feed-forward model: init/apply from an MLPSpec (counterpart of
-`ignnition_tpu/nn/mlp.py`), inference only.
+"""Feed-forward model: init/apply/l2_loss from an MLPSpec (counterpart of
+`ignnition_tpu/nn/mlp.py`). Only Dense layers are ported, so `apply` is the
+same function in training and in inference.
 
 Params keep the JAX tree: {"layers": ({"kernel": ..., "bias": ...}, ...)}.
 """
@@ -50,9 +51,20 @@ def init(
 
 
 def apply(spec, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """Forward in inference mode (the JAX `apply` with training=False)."""
+    """Forward (Dense layers behave alike in training and inference)."""
     for layer, p in zip(spec.layers, params["layers"]):
         if layer.kind != "Dense":
             raise unsupported_layer(layer.kind, spec.name)
         x = dense(layer, p, x)
     return x
+
+
+def l2_loss(spec, params: Dict[str, Any]) -> torch.Tensor:
+    """Sum of kernel_regularizer * sum(kernel**2) over the Dense layers, the
+    Keras `regularizers.l2` semantics; a float32 scalar on the params' device."""
+    first = params["layers"][0]["kernel"]
+    total = torch.zeros((), dtype=torch.float32, device=first.device)
+    for layer, p in zip(spec.layers, params["layers"]):
+        if layer.kind == "Dense" and layer.kernel_regularizer > 0.0:
+            total = total + layer.kernel_regularizer * torch.sum(p["kernel"] ** 2)
+    return total

@@ -1,8 +1,10 @@
-"""Recurrent cells (GRU / LSTM) and the masked sequence update, forward
-only (counterpart of `ignnition_tpu/nn/rnn.py`).
+"""Recurrent cells (GRU / LSTM) and the masked sequence update
+(counterpart of `ignnition_tpu/nn/rnn.py`).
 
 GRU follows Keras v2 with `reset_after=True` (bias [2, 3u]); LSTM uses
-`unit_forget_bias=True`. Params keep the JAX tree.
+`unit_forget_bias=True`. Params keep the JAX tree. `cell_step` and the
+step loop differentiate by autograd; the GRU scan goes through kernel B
+and, in the backward, kernel C (`ops/cuda/rnn_kernels.masked_gru_scan`).
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ def masked_update_stacked(
     step_fn=None,
 ) -> torch.Tensor:
     """Masked recurrent scan over time-major slices; masked steps carry the
-    state through. GRU without a per-slice `step_fn` is kernel B
-    (`ops/cuda/rnn_kernels.masked_gru_scan`); the rest runs step by step."""
+    state through. GRU without a per-slice `step_fn` is kernel B with kernel
+    C as its backward (`ops/cuda/rnn_kernels.masked_gru_scan`); the rest runs
+    step by step."""
     if spec.cell_type == "GRU" and step_fn is None:
         return masked_gru_scan(xs, lengths.to(torch.int32), init_state, params)
     h = init_state

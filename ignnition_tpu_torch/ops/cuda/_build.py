@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 `library()` compiles every `ignnition_tpu_torch/csrc/*.cu` with nvcc for
-Hopper (`-gencode arch=compute_90a,code=sm_90a`) into one shared library with
-a plain C interface, at first use, and loads it with ctypes. The library goes
+Hopper (`-gencode arch=compute_90a,code=sm_90a`), one nvcc per source and all
+started together, links the objects into one shared library with a plain C
+interface, at first use, and loads it with ctypes. The library goes
 into `ignnition_tpu_torch/_build/` (listed in .gitignore) under a name that
 hashes the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the earlier build. Nothing is built when the module is imported.
@@ -33,7 +34,7 @@ BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # dtype codes of csrc/common.cuh
@@ -84,18 +85,38 @@ def build() -> Path:
         return out
     srcs, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SOURCE_DIR), "-o", str(tmp)]
-    cmd += [str(s) for s in srcs]
+    nvcc = _nvcc()
+    stem = f"{out.name}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{stem}.{s.stem}.o" for s in srcs]
+    tmp = BUILD_DIR / f"{stem}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
+    try:
+        compiles = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(SOURCE_DIR), "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(srcs, objects)
+        ]
+        logs = [p.communicate()[0] for p in compiles]
+        build_log = "".join(logs)
+        failed = [str(s) for s, p in zip(srcs, compiles) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True,
         )
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link the kernel library:\n{build_log}")
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+        build_seconds = time.perf_counter() - t0
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return out
 
@@ -113,6 +134,12 @@ def library() -> ctypes.CDLL:
                 [ptr] * 7 + [i32] * 5 + [ptr]
             )
             lib.ign_masked_gru_scan.restype = i32
+            lib.ign_masked_gru_scan_bwd.argtypes = (
+                [ptr] * 15 + [i32] * 9 + [ptr]
+            )
+            lib.ign_masked_gru_scan_bwd.restype = i32
+            lib.ign_masked_gru_scan_bwd_smem.argtypes = [i32] * 4
+            lib.ign_masked_gru_scan_bwd_smem.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

@@ -9,6 +9,8 @@ and what its design does about that.
 Contract, the TPU kernel's: `out[n] = sum(data[row_ptr[n]:row_ptr[n+1]])`
 for `n < len(row_ptr) - 1`; edges outside `[row_ptr[0], row_ptr[-1])` are
 padding and never read; bf16 or f32 in, accumulated in f32, **f32 out**.
+The backward is the TPU function's (`_csr_bwd`): a row gather of the
+cotangent by segment id, cast to the data's dtype, plain tensor code.
 """
 
 from __future__ import annotations
@@ -31,13 +33,8 @@ def sorted_segment_sum_csr_plain(data: torch.Tensor, row_ptr: torch.Tensor) -> t
     return out.index_add_(0, ids, rows)
 
 
-def sorted_segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """[E, D] bf16/f32 rows summed into len(row_ptr) - 1 segments -> f32.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and raises if it cannot)."""
-    if data.device.type == "cpu":
-        return sorted_segment_sum_csr_plain(data, row_ptr)
+def _launch(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """The kernel on a CUDA tensor."""
     global launch_count
     _build.check_device(data, "sorted_segment_sum_csr")
     if data.dim() != 2 or data.dtype not in _build.DTYPE_CODES:
@@ -62,3 +59,39 @@ def sorted_segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.T
     _build.check(code, "csr_segment_sum")
     launch_count += 1
     return out
+
+
+def _segment_ids(row_ptr: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """The segment of each of `num_edges` edges under `row_ptr`; edges outside
+    [row_ptr[0], row_ptr[-1]) (padding) get -1."""
+    e = torch.arange(num_edges, device=row_ptr.device, dtype=row_ptr.dtype)
+    ids = torch.searchsorted(row_ptr[1:].contiguous(), e, right=True)
+    live = (e >= row_ptr[0]) & (e < row_ptr[-1])
+    return torch.where(live, ids, torch.full_like(ids, -1))
+
+
+class _CsrSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, row_ptr):
+        ctx.save_for_backward(row_ptr)
+        ctx.data_dtype, ctx.num_edges = data.dtype, data.shape[0]
+        return _launch(data, row_ptr)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (row_ptr,) = ctx.saved_tensors
+        ids = _segment_ids(row_ptr, ctx.num_edges)
+        grad = ct[ids.clamp_min(0)] * (ids >= 0)[:, None].to(ct.dtype)
+        return grad.to(ctx.data_dtype), None
+
+
+def sorted_segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """[E, D] bf16/f32 rows summed into len(row_ptr) - 1 segments -> f32.
+    Differentiable in `data`: the backward gathers the cotangent row of each
+    edge's segment (ids derived from `row_ptr`); padding edges get zero.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and raises if it cannot)."""
+    if data.device.type == "cpu":
+        return sorted_segment_sum_csr_plain(data, row_ptr)
+    return _CsrSegmentSum.apply(data, row_ptr)

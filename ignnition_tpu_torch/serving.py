@@ -4,7 +4,8 @@ JAX package's `ServingModel`, `ignnition_tpu/serving.py`).
 `ServingModel` holds the model, its parameters on one device and the
 `BatchMeta` its shapes are pinned to. `build_batch` pads raw samples to that
 meta, `predict` runs the forward and applies the registered
-denormalization, `trim` drops padding rows. Exporting and loading an
+denormalization, `trim` drops padding rows. The forward runs under
+`torch.inference_mode` and records no graph. Exporting and loading an
 artifact are not ported yet.
 """
 
@@ -15,10 +16,9 @@ from typing import Callable, Mapping, Optional
 import numpy as np
 import torch
 
-from .batch import to_device
+from .batch import resolve_device, to_device
 from .data.graph import BatchMeta, infer_label_domain
 from .data.graph import build_batch as _build_batch
-from .model.builder import flatten_params
 
 _NON_INPUT_KEYS = ("label", "label_mask", "label_perm")
 
@@ -34,11 +34,10 @@ class ServingModel:
         device=None,
     ):
         """`params`: the model's parameter tree (JAX layout, tensors or
-        arrays). `device`: where the model runs; by default where `params`
-        lie. `compute_dtype=None` computes in float32."""
-        if device is None:
-            device = torch.as_tensor(next(iter(flatten_params(params).values()))).device
-        self.device = torch.device(device)
+        arrays). `device`: where the model runs; by default the current CUDA
+        device (pass device="cpu" for the CPU; without a CUDA device the
+        default raises). `compute_dtype=None` computes in float32."""
+        self.device = resolve_device(device)
         self.model = model
         self.model.load_params(params, device=self.device)
         self.meta = meta

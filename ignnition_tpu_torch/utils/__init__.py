@@ -1,17 +1,5 @@
-"""Normalization registry: the JAX package's `utils/registry.py`, loaded here.
+"""Utilities: the normalization registry."""
 
-See `ignnition_tpu_torch._shared`. Only `registry` is imported; the other
-modules of that directory are not part of the port yet.
-"""
-
-from .._shared import shared_path
-
-__path__ = shared_path("utils")
-
-from .registry import (  # noqa: E402
-    get_normalization,
-    normalizations,
-    register_normalization,
-)
+from .registry import get_normalization, normalizations, register_normalization
 
 __all__ = ["get_normalization", "normalizations", "register_normalization"]

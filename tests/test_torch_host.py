@@ -1,6 +1,7 @@
-"""The port's host layer against the JAX package's: imports without JAX,
-the same IR and the same `build_batch` arrays, device conversion, and the
-chip smoke script's refusal to run without a GPU."""
+"""The port's host layer against the JAX package's: imports without JAX and
+without the JAX package, its own host code giving the same IR and the same
+`build_batch` arrays, device conversion, the entry points' default device,
+and the chip smoke script's refusal to run without a GPU."""
 
 import copy
 import os
@@ -64,6 +65,10 @@ def test_port_imports_with_jax_blocked():
         "import ignnition_tpu_torch.ops.cuda.segment_kernels\n"
         "import ignnition_tpu_torch.ops.cuda.rnn_kernels\n"
         "import ignnition_tpu_torch.batch\n"
+        "import ignnition_tpu_torch.training, ignnition_tpu_torch.training.trainer\n"
+        "import ignnition_tpu_torch.training.losses, ignnition_tpu_torch.training.metrics\n"
+        "import ignnition_tpu_torch.training.optimizers\n"
+        "import ignnition_tpu_torch.data.kdn, ignnition_tpu_torch.data.native_loader\n"
         "bad = [m for m in sys.modules if m == 'ignnition_tpu' or m.startswith('ignnition_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -79,6 +84,47 @@ def test_no_jax_import_in_port_sources():
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
     assert not pattern.search((REPO / "chip_smoke.py").read_text())
+
+
+def test_port_modules_live_in_the_port():
+    """No module of the port is loaded from, or searches, the JAX package's
+    directory: the host code is the port's own files."""
+    import importlib
+    import pkgutil
+
+    jax_pkg = (REPO / "ignnition_tpu").resolve()
+    names = [m.name for m in pkgutil.walk_packages(igt.__path__, "ignnition_tpu_torch.")]
+    assert "ignnition_tpu_torch.frontend.parser" in names
+    assert "ignnition_tpu_torch.data.graph" in names
+    assert "ignnition_tpu_torch._shared" not in names
+    for name in ["ignnition_tpu_torch"] + names:
+        mod = importlib.import_module(name)
+        places = [mod.__file__] + list(getattr(mod, "__path__", []))
+        for place in places:
+            assert jax_pkg not in pathlib.Path(place).resolve().parents, (name, place)
+            assert pathlib.Path(place).resolve() != jax_pkg, (name, place)
+    # nor reads source from there
+    for f in (REPO / "ignnition_tpu_torch").rglob("*.py"):
+        assert "JAX_PACKAGE_DIR" not in f.read_text(), f
+
+
+def test_entry_points_default_to_the_gpu_and_raise_without_one():
+    """Here there is no CUDA device: `ServingModel` and `Trainer` without
+    `device` raise and name the argument for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without a CUDA device")
+    ir = igt.parse_model_description(flagship_dict(), DIMS)
+    model = igt.build(ir)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    sample = igt.convert_sample(make_routenet_sample(rng, 32, 24, 6), igt.SampleSpec.from_ir(ir))
+    _, meta = igt.build_batch([sample], ir)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        igt.ServingModel(model, params, meta, ir)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        igt.Trainer(model)
+    assert igt.ServingModel(model, params, meta, ir, device="cpu").device.type == "cpu"
+    assert igt.Trainer(model, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", sorted(DESCRIPTIONS))

@@ -3,7 +3,9 @@
 On a CPU tensor each kernel wrapper runs its plain PyTorch version, so these
 hold the plain versions (the kernels' references) to the JAX functions
 they replace, with inputs made by seeded numpy. f32 cases use
-atol = rtol = 1e-5: the same sums in another order. The kernel-vs-plain
+atol = rtol = 1e-5: the same sums in another order. Kernel C's reference
+(the gradients of kernel B's plain version) is held to `jax.grad` through
+the Pallas kernel's own backward in interpret mode. The kernel-vs-plain
 cases need a CUDA device (marker `cuda`) and skip here."""
 
 import jax
@@ -180,6 +182,82 @@ def test_gru_scan_plain_matches_pallas_kernel_bf16(pallas_interpret):
     _close(got, want, atol=1.6e-2, rtol=0)
 
 
+# --------------------------------------------------------------------------
+# kernel C: masked GRU scan, backward
+# --------------------------------------------------------------------------
+
+GRAD_NAMES = ("d_xs", "d_h0", "d_kernel", "d_recurrent_kernel", "d_bias")
+
+
+def _pallas_scan_grads(xs, lens, h0, p, ct, dtype):
+    """jax.grad through the Pallas kernel pair (its custom backward is the
+    TPU kernel that kernel C replaces)."""
+    cast = lambda a: jnp.asarray(a).astype(dtype)
+
+    def loss(xs_, h0_, p_):
+        out = j_rk.masked_gru_scan(xs_, lens, h0_, p_)
+        return jnp.sum(out.astype(jnp.float32) * ct)
+
+    g = jax.grad(loss, argnums=(0, 1, 2))(
+        cast(xs), cast(h0), {k: cast(v) for k, v in p.items()}
+    )
+    return g[0], g[1], g[2]["kernel"], g[2]["recurrent_kernel"], g[2]["bias"]
+
+
+def _port_scan_grads(xs, lens, h0, p, ct, dtype):
+    """Autograd through the port's `masked_gru_scan` (its plain version on
+    the CPU) and the explicit reference `masked_gru_scan_bwd_plain`."""
+    args = (_t(xs, dtype), _t(lens), _t(h0, dtype), {k: _t(v, dtype) for k, v in p.items()})
+    leaves = [args[0].requires_grad_(True), args[2].requires_grad_(True)]
+    params = {k: v.requires_grad_(True) for k, v in args[3].items()}
+    leaves += [params["kernel"], params["recurrent_kernel"], params["bias"]]
+    before = t_rk.bwd_launch_count
+    out = t_rk.masked_gru_scan(leaves[0], args[1], leaves[1], params)
+    auto = torch.autograd.grad(out, leaves, _t(ct, dtype))
+    assert t_rk.bwd_launch_count == before  # CPU tensors never reach the kernel
+    plain = t_rk.masked_gru_scan_bwd_plain(*args, _t(ct, dtype))
+    for a, b in zip(auto, plain):
+        assert a.dtype == b.dtype == dtype
+        assert torch.equal(a, b)
+    return plain
+
+
+@pytest.mark.parametrize("shape", [(5, 256, 8, 8), (3, 512, 16, 8), (8, 256, 32, 32)])
+def test_gru_scan_bwd_plain_matches_pallas_kernel_f32(pallas_interpret, shape):
+    L, n, d, u = shape
+    xs, lens, h0, p = _gru_case(10, L, n, d, u)  # rows 0 and 1: lengths 0 and L
+    ct = np.random.default_rng(11).standard_normal((n, u)).astype(np.float32)
+    want = _pallas_scan_grads(xs, lens, h0, p, ct, jnp.float32)
+    got = _port_scan_grads(xs, lens, h0, p, ct, torch.float32)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        w = np.asarray(w)
+        # the weight gradients sum L * n products in another order: their
+        # absolute limit scales with the leaf's largest entry
+        scale = 1.0 if name in ("d_xs", "d_h0") else max(1.0, np.abs(w).max())
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, atol=1e-5 * scale, rtol=1e-5)
+    # a zero-length row passes its cotangent through and gives no d_xs
+    assert lens[0] == 0
+    np.testing.assert_array_equal(got[1][0].numpy(), ct[0])
+    assert not got[0][:, 0].any()
+    assert not got[0][int(lens[5]):, 5].any()  # steps past a row's length
+
+
+def test_gru_scan_bwd_plain_matches_pallas_kernel_bf16(pallas_interpret):
+    """bf16: both round the operands of every product to bf16 and sum in f32,
+    but autograd rounds the carry's gradient to bf16 at each step where the
+    TPU kernel keeps it in f32. d_xs and d_h0 (|values| < 4): a few bf16 ulps,
+    atol 6e-2. The weight gradients sum 256 rows x 5 steps: 3e-2 of the
+    leaf's largest entry."""
+    xs, lens, h0, p = _gru_case(12)
+    ct = np.random.default_rng(13).standard_normal(h0.shape).astype(np.float32)
+    want = _pallas_scan_grads(xs, lens, h0, p, ct, jnp.bfloat16)
+    got = _port_scan_grads(xs, lens, h0, p, ct, torch.bfloat16)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        g, w = g.float().numpy(), np.asarray(w.astype(jnp.float32))
+        tol = 6e-2 if name in ("d_xs", "d_h0") else 3e-2 * np.abs(w).max()
+        assert np.abs(g - w).max() <= tol, (name, np.abs(g - w).max(), tol)
+
+
 @pytest.mark.parametrize("cell", ["GRU", "LSTM"])
 def test_masked_update_stacked_matches_lax_scan(cell):
     xs, lens, h0, p = _gru_case(2)
@@ -278,3 +356,37 @@ def test_gru_kernel_matches_plain_on_cuda(cuda_device, dtype, tol):
     torch.testing.assert_close(
         got.float(), t_rk.masked_gru_scan_plain(*args).float(), atol=tol, rtol=tol
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_gru_bwd_kernel_matches_plain_on_cuda(cuda_device, dtype, tol):
+    xs, lens, h0, p = _gru_case(14, L=8, n=1024, d=32, u=32)
+    ct = np.random.default_rng(15).standard_normal(h0.shape).astype(np.float32)
+    args = (
+        _t(xs).to(cuda_device, dtype), _t(lens).to(cuda_device),
+        _t(h0).to(cuda_device, dtype),
+        {k: _t(v).to(cuda_device, dtype) for k, v in p.items()},
+    )
+    ct = _t(ct).to(cuda_device, dtype)
+    leaves = [args[0].requires_grad_(True), args[2].requires_grad_(True)]
+    params = {k: v.requires_grad_(True) for k, v in args[3].items()}
+    leaves += [params["kernel"], params["recurrent_kernel"], params["bias"]]
+    before = t_rk.bwd_launch_count
+    got = torch.autograd.grad(t_rk.masked_gru_scan(leaves[0], args[1], leaves[1], params),
+                              leaves, ct)
+    torch.cuda.synchronize()
+    assert t_rk.bwd_launch_count == before + 1
+    want = t_rk.masked_gru_scan_bwd_plain(*args, ct)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert g.dtype == w.dtype == dtype
+        g, w = g.float(), w.float()
+        if name in ("d_xs", "d_h0"):
+            # per-row values: absolute for those of order 1, and two ulps of
+            # the working type for the larger ones (bf16: 2**-6 relative)
+            rtol = 2.0**-6 if dtype == torch.bfloat16 else 1e-5
+            assert bool(((g - w).abs() <= tol + rtol * w.abs()).all()), name
+        else:
+            # weight gradients sum 8,192 row-steps: relative to the leaf's
+            # largest entry
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max()), name
