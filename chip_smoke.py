@@ -6,11 +6,14 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
   1. print the card's name and power limit, build the port's CUDA kernels
      from the checkout's sources and print the build time;
-  2. hold each kernel (A: CSR segment sum, B: masked GRU scan, C: its
-     backward) against its plain PyTorch version on the card at the main
-     paths' shapes, in bf16 and f32; time kernel, plain version and one
-     PyTorch library call of the same function (a yardstick only, never on
-     the port's path) with CUDA events; work out each kernel's bound on
+  2. hold each kernel (A: CSR segment sum and the id-keyed sum over it,
+     B: masked GRU scan, C: its backward, D and E: flash-GAT attention
+     forward and backward) against its plain PyTorch version on the card at
+     the main paths' shapes, in bf16 and f32 (D and E also with a bf16
+     incidence matrix, over 4 graph blocks and at a ragged shape; E twice,
+     compared bitwise); time kernel, plain version and, where there is one,
+     one PyTorch library call of the same function (a yardstick only, never
+     on the port's path) with CUDA events; work out each kernel's bound on
      this card from the bytes and operations of this run's inputs;
   3. serve the flagship RouteNet (hs=32, 8 message-passing iterations,
      256-256-1 selu readout, random weights from a seed, bf16 compute)
@@ -27,7 +30,16 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      with the plain path (the same model and batch on the CPU, f32), that
      kernels A, B and C all ran in every step (launch counts), and the
      evaluation step; then time the step (median of 20, CUDA events), print
-     edge-messages per second and profile one step by kernel.
+     edge-messages per second and profile one step by kernel;
+  5. the attention family (stage 2 aggregating by attention): serve three
+     requests at the flagship size (dense attention over the int8 incidence
+     matrix: kernel D 8 times per forward) and train 3 steps (D 8 and E 7
+     times per step: the last iteration's link states reach no prediction;
+     a falling L2 term, step-0 gradients against the plain
+     path leaf by leaf in f32), one request at 4x (per-edge attention:
+     kernel A 16 times per forward) and one of a small model at hs=48 (the
+     id-keyed sum 8 times per forward), each against the plain path, and the
+     small model's step-0 gradients (the per-edge backward through kernel A).
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -50,6 +62,10 @@ FLAGSHIP = dict(n_links=2048, n_paths=16384, path_len=8)
 FLAGSHIP_X4 = dict(n_links=8192, n_paths=65536, path_len=8)
 N_FLAGSHIP_REQUESTS = 3
 TRAIN_STEPS = {"flagship": 5, "flagship_x4": 2}
+ATTENTION_TRAIN_STEPS = 3
+# under the data layer's floor of 16,384 edges for a dense incidence matrix,
+# so the model takes per-edge attention
+SMALL_PER_EDGE = dict(n_links=256, n_paths=2000, path_len=8)
 ITERATIONS = 8
 HS = 32
 
@@ -131,6 +147,14 @@ def flagship_description(num_iterations: int = ITERATIONS, hs: int = HS) -> dict
             },
         },
     }
+
+
+def attention_description(num_iterations: int = ITERATIONS, hs: int = HS) -> dict:
+    """The flagship with stage 2 aggregating by attention (`_mutate_attention`
+    in `bench.py`)."""
+    desc = flagship_description(num_iterations, hs)
+    desc["message_passing"]["stages"][1]["stage_mp"][0]["aggregation"] = {"type": "attention"}
+    return desc
 
 
 FEATURE_DIMS = {"link_capacity": 1, "traffic": 1}
@@ -296,12 +320,12 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol:
 # --------------------------------------------------------------------------
 
 
-def check_segment_sum(dev, rng, what: str, e: int, n: int, gathered: bool) -> dict:
-    """Kernel A on [e, HS] rows into n segments. `gathered`: the rows come
+def check_segment_sum(dev, rng, what: str, e: int, n: int, gathered: bool,
+                      d: int = HS) -> dict:
+    """Kernel A on [e, d] rows into n segments. `gathered`: the rows come
     through a row gather by a permutation first, as `_gss_bwd` feeds it."""
     from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
 
-    d = HS
     e_real = e - 1_000  # the tail is padding, past row_ptr[-1]
     live = np.sort(rng.choice(n, size=n - n // 20, replace=False))  # 5% rows empty
     ids = np.sort(rng.choice(live, size=e_real))
@@ -488,6 +512,181 @@ def check_gru_scan_bwd(dev, rng) -> dict:
     return out
 
 
+def check_segment_sum_ids(dev, rng, e: int, n: int, d: int) -> dict:
+    """The id-keyed sum on [e, d] rows into n segments (every edge counts),
+    beside `index_add_`."""
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+    ids = torch.from_numpy(np.sort(rng.integers(0, n, size=e))).to(dev)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dev, dtype)
+        before = sk.ids_launch_count
+        got = sk.sorted_segment_sum_ids(data, ids, n)
+        torch.cuda.synchronize()
+        if sk.ids_launch_count != before + 1 or got.dtype != torch.float32:
+            raise AssertionError("sorted_segment_sum_ids did not launch kernel A into f32")
+        want = sk.sorted_segment_sum_ids_plain(data, ids, n)
+        err = compare(
+            f"id-keyed segment sum [{e}x{d}] -> [{n}x{d}] {str(dtype)[6:]}",
+            got, want, atol=1e-4, rtol=1e-5,
+            why=f"f32 sums of ~{e // n} rows in another order (plain uses atomics)",
+        )
+        ms = cuda_ms(lambda: sk.sorted_segment_sum_ids(data, ids, n))
+        plain_ms = cuda_ms(lambda: sk.sorted_segment_sum_ids_plain(data, ids, n))
+        # the library's scatter-add of the same rows, in the data's type
+        lib = torch.zeros((n, d), dtype=dtype, device=dev).index_add_(0, ids, data)
+        yardstick_diff(f"library index_add_ {str(dtype)[6:]} (sums in the data's type)",
+                       lib, want)
+        library_ms = cuda_ms(
+            lambda: torch.zeros((n, d), dtype=dtype, device=dev).index_add_(0, ids, data))
+        n_bytes = e * d * data.element_size() + e * ids.element_size() + n * d * 4
+        bound_ms, bound_by = bound(n_bytes, e * d, torch.float32)  # f32 adds
+        print(f"    time: searchsorted + kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+    return out
+
+
+def incidence_of(sample, n_links: int, n_paths: int) -> np.ndarray:
+    """The int8 multiplicity matrix [links, paths] of a sample's path -> link
+    edges, as `build_batch` stores it."""
+    adj = sample.adjacencies["adj_paths_links"]
+    m = np.zeros((n_links, n_paths), np.int32)
+    np.add.at(m, (adj.dst_idx, adj.src_idx), 1)
+    if m.max() > 127:
+        raise AssertionError("a multiplicity above 127 does not fit int8")
+    return m.astype(np.int8)
+
+
+def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m_dtype,
+                    timed: bool) -> dict:
+    """Kernels D and E on `blocks` [G, bd, bs] at width d against their plain
+    versions, through the wrappers; E twice, compared bitwise."""
+    from ignnition_tpu_torch.ops import segment as seg
+    from ignnition_tpu_torch.ops.cuda import attention_kernels as ak
+
+    g, bd, bs = blocks.shape
+    nnz = int(np.count_nonzero(blocks))
+    m = torch.from_numpy(blocks).to(dev).to(m_dtype)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+    ssrc, sdst, x32, ct32 = f(g, bs), f(g, bd), f(g, bs, d), f(g, bd, d)
+    stab = seg._flash_stab(ssrc, sdst)
+    fwd, bwd = {}, {}
+    for dtype in x_dtypes:
+        name = f"[{g},{bd},{bs}] D={d} m {str(m_dtype)[6:]} x {str(dtype)[6:]} ({what})"
+        x, ct = x32.to(dtype), ct32.to(dtype)
+        before = (ak.fwd_launch_count, ak.bwd_launch_count)
+        out, den = ak.flash_gat_forward(ssrc, sdst, x, m, stab)
+        srow = (ct.float() * out.float()).sum(dim=2)
+        got = ak.flash_gat_backward(ssrc, sdst, x, m, stab, den, ct, srow)
+        again = ak.flash_gat_backward(ssrc, sdst, x, m, stab, den, ct, srow)
+        torch.cuda.synchronize()
+        if (ak.fwd_launch_count, ak.bwd_launch_count) != (before[0] + 1, before[1] + 2):
+            raise AssertionError("the wrappers did not launch kernels D and E")
+        if out.dtype != dtype or den.dtype != torch.float32:
+            raise AssertionError(f"kernel D returned {out.dtype}, {den.dtype}")
+        for a, b, which in zip(got, again, ("dtab_plus", "d_sdst")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"kernel E {which} differs between two runs")
+        w_out, w_den = ak.flash_gat_forward_plain(ssrc, sdst, x, m, stab)
+        want = ak.flash_gat_backward_plain(ssrc, sdst, x, m, stab, den, ct, srow)
+        bf16 = dtype == torch.bfloat16
+        # bf16: the f32 sums differ in their order, so the rounding of out to
+        # bf16 may flip by one ulp, at most 2**-7 of the value
+        atol, rtol = (1e-4, 2.0**-7) if bf16 else (1e-5, 1e-5)
+        err = compare(f"kernel D out {name}", out, w_out, atol=atol, rtol=rtol,
+                      why="one bf16 ulp of the rounded output" if bf16
+                      else "f32 sums of a row's entries in another order")
+        compare(f"kernel D den {name}", den, w_den, atol=1e-6, rtol=1e-5,
+                why="f32 sums in another order")
+        if bool((den == 0).any()) and bool(out[den == 0].any()):
+            raise AssertionError("a row without support is not exactly 0")
+        err_b = 0.0
+        for which, a, w in zip(("dtab_plus", "d_sdst"), got, want):
+            top = float(w.abs().max())
+            if bf16:
+                # an f32 ulp in a = z / den can flip a's bf16 rounding, 2**-8 of
+                # one term: such entries are few and stay within 2**-7 of the
+                # output's largest entry
+                off = float(((a - w).abs() > 1e-5 * top + 1e-4 * w.abs()).float().mean())
+                print(f"    kernel E {which}: {off:.2e} of the entries beyond the f32 limit "
+                      f"(flips of a's bf16 rounding; at most 1e-4 of them may be)")
+                if off > 1e-4:
+                    raise AssertionError(f"kernel E {which}: too many entries off")
+            err_b = max(err_b, compare(
+                f"kernel E {which} {name}, bitwise repeatable", a, w,
+                atol=(2.0**-7 if bf16 else 1e-5) * top, rtol=1e-4,
+                why="rare flips of a's bf16 rounding" if bf16
+                else "f32 sums in another order; 1e-5 of the largest entry"))
+        if not timed:
+            continue
+        es, ms_ = x.element_size(), m.element_size()
+        vectors = 4 * g * (bs + 3 * bd)
+        fwd_bytes = g * bd * bs * ms_ + g * bs * d * es + vectors + g * bd * (d * es + 4)
+        bwd_bytes = (g * bd * bs * ms_ + g * (bs + bd) * d * es + vectors + 8 * g * bd
+                     + 4 * g * (bs * (d + 1) + bd))
+        # operations of this run's data: only the non-zero entries do work
+        fwd_bound = bound(fwd_bytes, nnz * (2 * d + 8), dtype)
+        bwd_bound = bound(bwd_bytes, nnz * (6 * d + 16), dtype)
+        fwd_ms = cuda_ms(lambda: ak.flash_gat_forward(ssrc, sdst, x, m, stab))
+        bwd_ms = cuda_ms(
+            lambda: ak.flash_gat_backward(ssrc, sdst, x, m, stab, den, ct, srow))
+        fwd_plain = cuda_ms(lambda: ak.flash_gat_forward_plain(ssrc, sdst, x, m, stab),
+                            iters=5, warmup=1)
+        bwd_plain = cuda_ms(
+            lambda: ak.flash_gat_backward_plain(ssrc, sdst, x, m, stab, den, ct, srow),
+            iters=5, warmup=1)
+        # the matrix-materializing route with library products (never on the
+        # port's path): no single PyTorch call computes this function
+        leaves = [ssrc[0].clone().requires_grad_(True), sdst[0].clone().requires_grad_(True),
+                  x[0].clone().requires_grad_(True)]
+        dense_fwd = cuda_ms(lambda: seg._blocks_masked_softmax_matmul(
+            ssrc.reshape(-1), sdst.reshape(-1), x.reshape(g * bs, d), m), iters=5, warmup=1)
+        if g == 1:
+            routed = seg._dense_masked_softmax_matmul(*leaves, m[0])
+            dense_bwd = cuda_ms(lambda: torch.autograd.grad(
+                routed, leaves, ct[0], retain_graph=True), iters=5, warmup=1)
+        else:
+            dense_bwd = None
+        print(f"    time {name}: D {fwd_ms:.4f} ms (plain {fwd_plain:.3f}, materializing "
+              f"route {dense_fwd:.3f}, bound {fwd_bound[0]:.4f} by {fwd_bound[1]}, "
+              f"{fwd_bytes / fwd_ms / 1e6:.0f} GB/s); E {bwd_ms:.4f} ms (plain "
+              f"{bwd_plain:.3f}, materializing route "
+              f"{'-' if dense_bwd is None else format(dense_bwd, '.3f')}, bound "
+              f"{bwd_bound[0]:.4f} by {bwd_bound[1]}); {nnz} non-zeros of {g * bd * bs}")
+        fwd[dtype] = dict(max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain,
+                          bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None,
+                          materializing_route_ms=dense_fwd)
+        bwd[dtype] = dict(max_abs_err=err_b, ms=bwd_ms, plain_ms=bwd_plain,
+                          bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None,
+                          materializing_route_ms=dense_bwd)
+    return dict(fwd=fwd, bwd=bwd)
+
+
+def check_attention_kernels(dev, rng) -> dict:
+    """Kernels D and E at the flagship's [2048, 16384] int8 incidence (D=32,
+    bf16 and f32), with a bf16 incidence, over 4 graph blocks of the
+    `blocks_g4` size, and at a shape the TPU tiles would refuse."""
+    both = (torch.bfloat16, torch.float32)
+    size = FLAGSHIP
+    m = incidence_of(make_sample(rng, **size), size["n_links"], size["n_paths"])
+    main = check_flash_gat(dev, rng, "flagship stage 2", m[None], HS, both, torch.int8, True)
+    check_flash_gat(dev, rng, "bf16 incidence", m[None], HS, (torch.bfloat16,),
+                    torch.bfloat16, False)
+    blocks = np.stack([incidence_of(make_sample(rng, 512, 4096, 8), 512, 4096)
+                       for _ in range(4)])
+    main["blocks"] = check_flash_gat(dev, rng, "4 graph blocks", blocks, HS,
+                                     (torch.bfloat16,), torch.int8, True)
+    ragged = incidence_of(make_sample(rng, 1003, 5001, 8), 1003, 5001)
+    check_flash_gat(dev, rng, "ragged, unaligned rows", ragged[None], 48, both,
+                    torch.int8, False)
+    check_flash_gat(dev, rng, "ragged, bf16 incidence", ragged[None], 48,
+                    (torch.float32,), torch.bfloat16, False)
+    return main
+
+
 # --------------------------------------------------------------------------
 # phase 3: serving
 # --------------------------------------------------------------------------
@@ -551,29 +750,10 @@ def serve(dev, card: str) -> dict:
         raise AssertionError("a kernel of the main path was never launched")
 
     # ---- kernel path vs plain path (the same model on the CPU) ----
-    tols = {
-        None: (1e-4, 1e-4, "f32: sums and products in another order on each device"),
-        torch.bfloat16: (3e-2, 3e-2, "bf16: roundings of the bf16 states and "
-                                     "matmul outputs fall differently over 8 iterations"),
-    }
     for name in sizes:
-        server = servers[name]
         sample = next(s for n, s in requests if n == name)
-        arrays = server.build_batch([sample])
-        inputs = {k: v for k, v in arrays.items() if k not in ("label", "label_mask")}
-        cpu_model = igt.build(ir)
-        cpu_model.load_params(params)
-        b_dev, b_cpu = to_device(inputs, dev), to_device(inputs, "cpu")
-        for cd, (atol, rtol, why) in tols.items():
-            with torch.inference_mode():
-                got = server.model(b_dev, server.meta, compute_dtype=cd)
-                t1 = time.perf_counter()
-                want = cpu_model(b_cpu, server.meta, compute_dtype=cd)
-                cpu_s = time.perf_counter() - t1
-            mask = torch.from_numpy(arrays["node_mask_path"] > 0)
-            compare(f"{name} predictions, kernels vs plain (CPU, {cpu_s:.1f} s) "
-                    f"{'f32' if cd is None else 'bf16'}",
-                    got.cpu()[mask], want[mask], atol=atol, rtol=rtol, why=why)
+        kernels_vs_plain_forward(name, servers[name], ir, params, sample, dev,
+                                 (None, torch.bfloat16))
 
     # ---- latency ----
     latency = {}
@@ -607,6 +787,66 @@ def serve(dev, card: str) -> dict:
 # phase 4: training
 # --------------------------------------------------------------------------
 
+def step0_gradients_vs_plain(name, ir, padding, arrays, meta, state, batch, noise=0.0):
+    """Hold the loss and every gradient leaf of the kernel path (the card) to
+    the plain path (the same model and batch on the CPU) in f32, before any
+    step. Returns the initial parameters as a CPU tree, the CPU state and the
+    CPU gradients by name."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params, map_params
+
+    init_tree = map_params(lambda v: v.detach().cpu().clone(), state.params)
+    f32_card = igt.Trainer(igt.build(ir), padding, compute_dtype=None)
+    g_card, m_card = f32_card.grads_fn(meta)(state.params, batch)
+    f32_cpu = igt.Trainer(igt.build(ir), padding, compute_dtype=None, device="cpu")
+    cpu_state = f32_cpu.init_state(params=init_tree)
+    t1 = time.perf_counter()
+    g_cpu, m_cpu = f32_cpu.grads_fn(meta)(cpu_state.params, to_device(arrays, "cpu"))
+    cpu_s = time.perf_counter() - t1
+    compare(f"{name} step-0 loss, kernels vs plain (CPU, {cpu_s:.1f} s) f32",
+            m_card["total"], m_cpu["total"], atol=1e-4, rtol=1e-4,
+            why="f32 sums in another order on each device")
+    want = flatten_params(g_cpu)
+    for k, g in flatten_params(g_card).items():
+        top = float(want[k].abs().max())
+        compare(f"{name} step-0 gradient {k} (largest entry {top:.3e})", g, want[k],
+                atol=1e-4 * top + noise, rtol=1e-3,
+                why="f32 sums over up to 131,072 rows in another order; 1e-4 of the "
+                    "leaf's largest entry" + (f" and {noise:g} of f32 noise" if noise else ""))
+    return init_tree, cpu_state, want
+
+
+def time_training_step(name, step, state, batch, arrays, card) -> dict:
+    """Median of 20 steps after 3 (CUDA events), edge-messages per second,
+    peak device memory and the profile of one step by kernel."""
+    times = []
+    for i in range(3 + 20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    step_ms = float(np.median(times))
+    edges = sum(int(np.sum(arrays[f"edge_mask_{adj}"] > 0))
+                for adj in ("adj_links_paths", "adj_paths_links"))
+    rate = ITERATIONS * edges / (step_ms / 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[train] {name}: step median {step_ms:.3f} ms (min {min(times):.3f}, max "
+          f"{max(times):.3f}, 20 steps after 3, CUDA events), {rate / 1e6:.1f} M "
+          f"edge-messages/s ({ITERATIONS} iterations x {edges} edges), peak device "
+          f"memory {peak:.0f} MiB, bf16 compute, on {card}")
+    out = dict(step_ms=step_ms, edge_messages_per_s=rate, peak_mib=peak)
+    out.update(print_profile(f"{name} training step", lambda: step(state, batch), step_ms))
+    return out
+
+
 
 def train(dev, card: str) -> dict:
     import ignnition_tpu_torch as igt
@@ -632,25 +872,12 @@ def train(dev, card: str) -> dict:
             raise AssertionError(f"the trainer chose {trainer.device}, not the card")
         batch = to_device(arrays, trainer.device)
         state = trainer.init_state(torch.Generator().manual_seed(SEED))
-        init_params = {k: v.detach().cpu().clone() for k, v in flatten_params(state.params).items()}
 
         # ---- step-0 gradients: kernel path (card) vs plain path (CPU), f32 ----
-        f32_card = igt.Trainer(igt.build(ir), padding, compute_dtype=None)
-        g_card, m_card = f32_card.grads_fn(meta)(state.params, batch)
-        f32_cpu = igt.Trainer(igt.build(ir), padding, compute_dtype=None, device="cpu")
-        cpu_state = f32_cpu.init_state(params=init_params)
-        t1 = time.perf_counter()
-        g_cpu, m_cpu = f32_cpu.grads_fn(meta)(cpu_state.params, to_device(arrays, "cpu"))
-        cpu_s = time.perf_counter() - t1
-        compare(f"{name} step-0 loss, kernels vs plain (CPU, {cpu_s:.1f} s) f32",
-                m_card["total"], m_cpu["total"], atol=1e-4, rtol=1e-4,
-                why="f32 sums in another order on each device")
-        want = flatten_params(g_cpu)
-        for k, g in flatten_params(g_card).items():
-            top = float(want[k].abs().max())
-            compare(f"{name} step-0 gradient {k}", g, want[k], atol=1e-4 * top, rtol=1e-3,
-                    why="f32 sums over up to 131,072 rows in another order; "
-                        "1e-4 of the leaf's largest entry")
+        init_tree, cpu_state, want = step0_gradients_vs_plain(
+            name, ir, padding, arrays, meta, state, batch)
+        init_params = flatten_params(init_tree)
+
         # the training dtype: kernel path against plain path, both in bf16
         # (printed, not held: bf16 roundings fall differently on the two paths)
         g_bf16, _ = trainer.grads_fn(meta)(state.params, batch)
@@ -720,37 +947,243 @@ def train(dev, card: str) -> dict:
               + ", ".join(f"{k} {v:.4f}" for k, v in acc.result().items()))
 
         # ---- step time ----
-        times = []
-        for i in range(3 + 20):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            step(state, batch)
-            end.record()
-            torch.cuda.synchronize()
-            if i >= 3:
-                times.append(start.elapsed_time(end))
-        step_ms = float(np.median(times))
-        edges = sum(int(np.sum(arrays[f"edge_mask_{adj}"] > 0))
-                    for adj in ("adj_links_paths", "adj_paths_links"))
-        rate = ITERATIONS * edges / (step_ms / 1e3)
-        torch.cuda.reset_peak_memory_stats()
-        step(state, batch)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        print(f"[train] {name}: step median {step_ms:.3f} ms (min {min(times):.3f}, max "
-              f"{max(times):.3f}, 20 steps after 3, CUDA events), {rate / 1e6:.1f} M "
-              f"edge-messages/s ({ITERATIONS} iterations x {edges} edges), peak device "
-              f"memory {peak:.0f} MiB, bf16 compute, on {card}")
-        result[name] = dict(step_ms=step_ms, edge_messages_per_s=rate, peak_mib=peak,
-                            losses=totals)
-        result[name].update(print_profile(f"{name} training step",
-                                          lambda: step(state, batch), step_ms))
+        result[name] = dict(losses=totals, **time_training_step(
+            name, step, state, batch, arrays, card))
     print(f"[train] main path launch counts: kernel A {launches['csr_segment_sum']}, "
           f"kernel B {launches['masked_gru_scan']}, kernel C {launches['masked_gru_scan_bwd']}")
     if min(launches.values()) == 0:
         raise AssertionError("a kernel of the training path was never launched")
     return dict(launches=launches, steps=result)
+
+
+# --------------------------------------------------------------------------
+# phase 5: the attention family
+# --------------------------------------------------------------------------
+
+
+class Counts:
+    """Launch counts of every kernel wrapper: `reset()` sets them to 0,
+    `read()` returns them by kernel name."""
+
+    def __init__(self):
+        from ignnition_tpu_torch.ops.cuda import attention_kernels as ak
+        from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
+        from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+        self.ak, self.rk, self.sk = ak, rk, sk
+
+    def reset(self) -> None:
+        self.sk.launch_count = self.sk.ids_launch_count = 0
+        self.rk.launch_count = self.rk.bwd_launch_count = 0
+        self.ak.fwd_launch_count = self.ak.bwd_launch_count = 0
+
+    def read(self) -> dict:
+        return {
+            "csr_segment_sum": self.sk.launch_count,
+            "segment_sum_ids": self.sk.ids_launch_count,
+            "masked_gru_scan": self.rk.launch_count,
+            "masked_gru_scan_bwd": self.rk.bwd_launch_count,
+            "flash_gat_fwd": self.ak.fwd_launch_count,
+            "flash_gat_bwd": self.ak.bwd_launch_count,
+        }
+
+
+def expect_counts(what: str, got: dict, **want) -> None:
+    """Raise unless the launch counts `got` are `want` (0 where not named)."""
+    wrong = {k: (v, want.get(k, 0)) for k, v in got.items() if v != want.get(k, 0)}
+    print(f"  {what}: launches " + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+    if wrong:
+        raise AssertionError(f"{what}: launch counts (got, expected) {wrong}")
+
+
+def serve_one_size(dev, ir, params, samples, padding, compute_dtype=torch.bfloat16):
+    """A `ServingModel` at the shapes that fit `samples`."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.data.graph import merge_metas
+
+    meta = merge_metas([igt.build_batch([s], ir, padding, training=False)[1] for s in samples])
+    return igt.ServingModel(igt.build(ir), params, meta, ir, compute_dtype=compute_dtype,
+                            device=dev)
+
+
+def kernels_vs_plain_forward(name, server, ir, params, sample, dev, dtypes) -> None:
+    """One request's predictions on the card against the same model on the
+    CPU (every kernel's plain version)."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+
+    tols = {
+        None: (1e-4, 1e-4, "f32: sums and products in another order on each device"),
+        torch.bfloat16: (3e-2, 3e-2, "bf16: roundings of the bf16 states and "
+                                     "matmul outputs fall differently over the iterations"),
+    }
+    arrays = server.build_batch([sample])
+    inputs = {k: v for k, v in arrays.items() if k not in ("label", "label_mask")}
+    cpu_model = igt.build(ir)
+    cpu_model.load_params(params)
+    b_dev, b_cpu = to_device(inputs, dev), to_device(inputs, "cpu")
+    mask = torch.from_numpy(arrays["node_mask_path"] > 0)
+    for cd in dtypes:
+        atol, rtol, why = tols[cd]
+        with torch.inference_mode():
+            got = server.model(b_dev, server.meta, compute_dtype=cd)
+            t1 = time.perf_counter()
+            want = cpu_model(b_cpu, server.meta, compute_dtype=cd)
+            cpu_s = time.perf_counter() - t1
+        compare(f"{name} predictions, kernels vs plain (CPU, {cpu_s:.1f} s) "
+                f"{'f32' if cd is None else 'bf16'}",
+                got.cpu()[mask], want[mask], atol=atol, rtol=rtol, why=why)
+
+
+def attention(dev, card: str) -> dict:
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params
+
+    counts = Counts()
+    total = {k: 0 for k in counts.read()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    ir = igt.parse_model_description(attention_description(), FEATURE_DIMS)
+    params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+    leaves = [k for k in flatten_params(params) if k.startswith("aggregation/")]
+    if leaves != [f"aggregation/s1/m0/{k}" for k in ("kernel1", "kernel2", "attn_kernel")]:
+        raise AssertionError(f"attention leaves {leaves}")
+    rng = np.random.default_rng(SEED + 2)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    result = {}
+
+    # ---- serving at the flagship size: dense attention, kernel D ----
+    samples = [make_sample(rng, **FLAGSHIP) for _ in range(N_FLAGSHIP_REQUESTS)]
+    server = serve_one_size(dev, ir, params, samples, padding)
+    inc = server.build_batch([samples[0]])["dense_inc_adj_paths_links"]
+    print(f"[attention] flagship incidence {inc.dtype} {inc.shape}, "
+          f"{int(np.count_nonzero(inc))} non-zeros")
+    for i, sample in enumerate(samples):
+        counts.reset()
+        preds = server.predict_samples([sample])
+        got = counts.read()
+        add(got)
+        if preds.shape != (FLAGSHIP["n_paths"],) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"attention request {i}: {preds.shape} or non-finite")
+        expect_counts(f"attention request {i} ({preds.shape[0]} predictions, mean "
+                      f"{preds.mean():.5f})", got,
+                      masked_gru_scan=ITERATIONS, flash_gat_fwd=ITERATIONS)
+    kernels_vs_plain_forward("attention flagship", server, ir, params, samples[0], dev,
+                             (None, torch.bfloat16))
+    arrays = server.build_batch([samples[0]])
+    inputs = to_device({k: v for k, v in arrays.items()
+                        if k not in ("label", "label_mask")}, dev)
+    fwd = forward_ms(server, inputs)
+    e2e = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        server.predict_samples([samples[0]])
+        e2e.append((time.perf_counter() - t1) * 1e3)
+    result["serving"] = dict(forward_ms=float(np.median(fwd)), request_ms=float(np.median(e2e)))
+    print(f"[latency] attention flagship: device forward median {np.median(fwd):.3f} ms "
+          f"(min {min(fwd):.3f}, max {max(fwd):.3f}, 20 runs, CUDA events); whole request "
+          f"median {np.median(e2e):.1f} ms (3 runs, host clock) on {card}")
+    result["serving"].update(print_profile(
+        "attention flagship forward", lambda: server.forward_device(inputs),
+        result["serving"]["forward_ms"]))
+
+    # ---- training at the flagship size: kernels D and E ----
+    t0 = time.perf_counter()
+    arrays, meta = igt.build_batch([make_sample(rng, **FLAGSHIP)], ir, padding, training=True)
+    print(f"[attention] build_batch(training=True) {time.perf_counter() - t0:.2f} s (host)")
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+    batch = to_device(arrays, trainer.device)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    init_tree, _, _ = step0_gradients_vs_plain(
+        "attention", ir, padding, arrays, meta, state, batch, noise=1e-7)
+    init_params = flatten_params(init_tree)
+    step = trainer.train_step_fn(meta)
+    metrics = []
+    for i in range(ATTENTION_TRAIN_STEPS):
+        counts.reset()
+        state, m = step(state, batch)
+        got = counts.read()
+        add(got)
+        # kernel A: the slice gather's backward, but for the first iteration,
+        # whose link states need no gradient. Kernel E: but for the last
+        # iteration, whose link states the readout (over paths) never reads,
+        # so autograd has nothing to send back through that attention.
+        expect_counts(f"attention training step {i}", got,
+                      csr_segment_sum=ITERATIONS - 1, masked_gru_scan=ITERATIONS,
+                      masked_gru_scan_bwd=ITERATIONS, flash_gat_fwd=ITERATIONS,
+                      flash_gat_bwd=ITERATIONS - 1)
+        metrics.append({k: float(v) for k, v in m.items()})
+    print("  attention training: " + "; ".join(
+        f"{k} " + " ".join(f"{m[k]:.5f}" for m in metrics) for k in ("total", "loss", "reg")))
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("attention training: a loss is not finite")
+    regs = [m["reg"] for m in metrics]
+    if not all(b < a for a, b in zip(regs, regs[1:])):
+        raise AssertionError(f"attention training: the L2 term did not fall: {regs}")
+    moved = {k: float((v.detach().cpu() - init_params[k]).abs().max())
+             for k, v in flatten_params(state.params).items()}
+    if not all(0.0 < v < 0.1 for v in moved.values()):
+        raise AssertionError(f"attention training: parameters moved by {moved}")
+    result["training"] = dict(
+        losses=[m["total"] for m in metrics], regs=regs,
+        **time_training_step("attention flagship", step, state, batch, arrays, card))
+
+    # ---- 4x: past the dense cap, per-edge attention through kernel A ----
+    sample = make_sample(rng, **FLAGSHIP_X4)
+    server = serve_one_size(dev, ir, params, [sample], padding)
+    counts.reset()
+    preds = server.predict_samples([sample])
+    got = counts.read()
+    add(got)
+    if preds.shape != (FLAGSHIP_X4["n_paths"],) or not np.all(np.isfinite(preds)):
+        raise AssertionError(f"attention x4: {preds.shape} or non-finite")
+    expect_counts(f"attention x4 request ({preds.shape[0]} predictions)", got,
+                  csr_segment_sum=2 * ITERATIONS, masked_gru_scan=ITERATIONS)
+    kernels_vs_plain_forward("attention x4 (per-edge)", server, ir, params, sample, dev,
+                             (None,))
+    arrays = server.build_batch([sample])
+    inputs = to_device({k: v for k, v in arrays.items()
+                        if k not in ("label", "label_mask")}, dev)
+    fwd = forward_ms(server, inputs, runs=10)
+    result["serving_x4"] = dict(forward_ms=float(np.median(fwd)))
+    print(f"[latency] attention x4 (per-edge): device forward median {np.median(fwd):.3f} ms "
+          f"(10 runs, CUDA events) on {card}")
+    result["serving_x4"].update(print_profile(
+        "attention x4 forward", lambda: server.forward_device(inputs),
+        result["serving_x4"]["forward_ms"]))
+
+    # ---- hs=48: a width off 128, the id-keyed sum on a model path ----
+    ir48 = igt.parse_model_description(attention_description(hs=48), FEATURE_DIMS)
+    params48 = igt.build(ir48).init(torch.Generator().manual_seed(SEED))
+    sample = make_sample(rng, **SMALL_PER_EDGE)
+    server = serve_one_size(dev, ir48, params48, [sample], padding, compute_dtype=None)
+    counts.reset()
+    preds = server.predict_samples([sample])
+    got = counts.read()
+    add(got)
+    if preds.shape != (SMALL_PER_EDGE["n_paths"],) or not np.all(np.isfinite(preds)):
+        raise AssertionError(f"attention hs=48: {preds.shape} or non-finite")
+    # per iteration: the numerator (width 48) by ids, the denominator (width 8)
+    # by row pointers; both are launches of kernel A
+    expect_counts(f"attention hs=48 request ({preds.shape[0]} predictions)", got,
+                  csr_segment_sum=2 * ITERATIONS, segment_sum_ids=ITERATIONS,
+                  masked_gru_scan=ITERATIONS)
+    kernels_vs_plain_forward("attention hs=48 (per-edge)", server, ir48, params48, sample,
+                             dev, (None,))
+    # the per-edge backward on the card: `gather_by_dst` and the id-keyed sum
+    # under autograd, both through kernel A
+    arrays, meta = igt.build_batch([sample], ir48, padding, training=True)
+    trainer = igt.Trainer(igt.build(ir48), padding, compute_dtype=None)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    step0_gradients_vs_plain("attention hs=48", ir48, padding, arrays, meta, state,
+                             to_device(arrays, trainer.device), noise=1e-7)
+    print("[attention] main path launch counts: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, **result)
 
 
 def main() -> None:
@@ -782,14 +1215,20 @@ def main() -> None:
 
     # ---- phase 2: kernels against their plain versions ----
     rng = np.random.default_rng(SEED)
-    print(f"[kernels] at the main paths' shapes on {card}")
     e_slices = FLAGSHIP["n_paths"] * FLAGSHIP["path_len"]
+    print(f"[kernels] at the main paths' shapes on {card}")
     seg = check_segment_sum(dev, rng, "stage 2 forward at x4", 524_288,
                             FLAGSHIP_X4["n_links"], gathered=False)
     seg_bwd = check_segment_sum(dev, rng, "slice-gather backward", e_slices,
                                 FLAGSHIP["n_links"], gathered=True)
+    # per-edge attention at x4: the softmax denominator is [E, 8] -> [N, 8]
+    seg_w8 = check_segment_sum(dev, rng, "attention x4 denominator", 524_288,
+                               FLAGSHIP_X4["n_links"], gathered=False, d=8)
+    seg_ids = check_segment_sum_ids(dev, rng, e_slices, FLAGSHIP["n_links"], 48)
+    seg_ids32 = check_segment_sum_ids(dev, rng, e_slices, FLAGSHIP["n_links"], HS)
     gru = check_gru_scan(dev, rng)
     gru_bwd = check_gru_scan_bwd(dev, rng)
+    gat = check_attention_kernels(dev, rng)
 
     # ---- phase 3: serving ----
     served = serve(dev, card)
@@ -797,29 +1236,48 @@ def main() -> None:
     # ---- phase 4: training ----
     trained = train(dev, card)
 
+    # ---- phase 5: the attention family ----
+    attended = attention(dev, card)
+
     bf16 = torch.bfloat16
+    csrc = "ignnition_tpu_torch/csrc/"
+    pallas = "ignnition_tpu/ops/pallas/"
     sources = {
-        "csr_segment_sum": ("ignnition_tpu_torch/csrc/segment_sum.cu",
-                            "ignnition_tpu/ops/pallas/segment_kernels.py:337", seg),
-        "masked_gru_scan": ("ignnition_tpu_torch/csrc/gru_scan.cu",
-                            "ignnition_tpu/ops/pallas/rnn_kernels.py:260", gru),
-        "masked_gru_scan_bwd": ("ignnition_tpu_torch/csrc/gru_scan_bwd.cu",
-                                "ignnition_tpu/ops/pallas/rnn_kernels.py:279", gru_bwd),
+        "csr_segment_sum": (csrc + "segment_sum.cu", pallas + "segment_kernels.py:337", seg),
+        "segment_sum_ids": (csrc + "segment_sum.cu", pallas + "segment_kernels.py:150",
+                            seg_ids),
+        "masked_gru_scan": (csrc + "gru_scan.cu", pallas + "rnn_kernels.py:260", gru),
+        "masked_gru_scan_bwd": (csrc + "gru_scan_bwd.cu", pallas + "rnn_kernels.py:279",
+                                gru_bwd),
+        "flash_gat_fwd": (csrc + "flash_gat.cu", pallas + "attention_kernels.py:136",
+                          gat["fwd"]),
+        "flash_gat_bwd": (csrc + "flash_gat.cu", pallas + "attention_kernels.py:212",
+                          gat["bwd"]),
     }
     kernels = []
     for name, (source, replaces, checked) in sources.items():
         on_serving = served["launches"].get(name, 0)
-        on_training = trained["launches"][name]
+        on_training = trained["launches"].get(name, 0)
+        on_attention = attended["launches"][name]
+        if on_serving + on_training + on_attention == 0:
+            raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=on_serving + on_training,
+            launches=on_serving + on_training + on_attention,
             launches_serving=on_serving, launches_training=on_training,
+            launches_attention=on_attention,
             **checked[bf16], f32=checked[torch.float32],
         ))
     kernels[0]["at_slice_gather_backward_shape"] = dict(
         bf16=seg_bwd[bf16], f32=seg_bwd[torch.float32])
+    kernels[0]["at_width_8"] = dict(bf16=seg_w8[bf16], f32=seg_w8[torch.float32])
+    kernels[1]["at_width_32"] = dict(bf16=seg_ids32[bf16], f32=seg_ids32[torch.float32])
+    for k, which in ((kernels[4], "fwd"), (kernels[5], "bwd")):
+        k["over_4_graph_blocks"] = gat["blocks"][which][bf16]
     print(json.dumps({"kernels": kernels, "latency": served["latency"],
-                      "training": trained["steps"], "card": card}))
+                      "training": trained["steps"],
+                      "attention": {k: v for k, v in attended.items() if k != "launches"},
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,8 @@ NVCC_FLAGS = (
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# storage types of an incidence matrix (kernels D and E)
+INCIDENCE_DTYPE_CODES = {torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -140,6 +142,10 @@ def library() -> ctypes.CDLL:
             lib.ign_masked_gru_scan_bwd.restype = i32
             lib.ign_masked_gru_scan_bwd_smem.argtypes = [i32] * 4
             lib.ign_masked_gru_scan_bwd_smem.restype = ctypes.c_longlong
+            lib.ign_flash_gat_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+            lib.ign_flash_gat_fwd.restype = i32
+            lib.ign_flash_gat_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+            lib.ign_flash_gat_bwd.restype = i32
             _lib = lib
         return _lib
 

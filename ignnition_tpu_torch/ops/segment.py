@@ -1,14 +1,22 @@
-"""Segment primitives of the flagship slice (counterpart of
+"""Segment and attention primitives of the ported slices (counterpart of
 `ignnition_tpu/ops/segment.py`), with the JAX package's hand-written
 backwards as `torch.autograd.Function`s over the same host-precomputed
 companion arrays: no scatter in any backward, every transpose is a gather
 through a host index vector into kernel A or a masked sum of table gathers.
 
-Dtype contract, pinned to the TPU kernel's: the CSR sums (`segment_sum` with
-`row_ptr`, `direct_segment_sum*`) return **f32** whatever the input dtype —
-the kernel's accumulator. The dense-incidence products return the input
-dtype, as in the JAX package. The model casts sums back to its compute
-dtype before the update. Every backward returns the input's dtype.
+Dtype contract, pinned to the TPU kernels': the sorted sums (`segment_sum`
+over sorted ids or with `row_ptr`, `direct_segment_sum*`) return **f32**
+whatever the input dtype — the kernel's accumulator. The dense-incidence
+products and the attention aggregations over an incidence matrix return
+the input dtype, as in the JAX package. The model casts sums back to its
+compute dtype before the update. Every backward returns the input's dtype.
+
+Attention over an incidence matrix (`dense_attention_aggregate*`) goes
+through kernels D and E (`_flash_masked_softmax_matmul`) at any size; the
+matrix-materializing forms (`_dense_masked_softmax_matmul`,
+`_blocks_masked_softmax_matmul`) are the JAX package's library routes, kept
+as references that no aggregation calls. Per-edge attention
+(`sorted_softmax_aggregate`) is two sorted sums through kernel A.
 """
 
 from __future__ import annotations
@@ -16,8 +24,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from .cuda.segment_kernels import sorted_segment_sum_csr
+from .cuda.attention_kernels import flash_gat_backward, flash_gat_forward
+from .cuda.segment_kernels import sorted_segment_sum_csr, sorted_segment_sum_ids
 
 
 class _GatherStateSlices(torch.autograd.Function):
@@ -82,19 +92,29 @@ def segment_sum(
     segment_ids: torch.Tensor,
     num_segments: int,
     row_ptr: Optional[torch.Tensor] = None,
+    indices_are_sorted: bool = False,
 ) -> torch.Tensor:
     """Sum rows of `data` into `num_segments` buckets.
 
     With `row_ptr` (destination-sorted edges, CSR pointers over real edges)
-    this is kernel A and returns f32. Without it, padding rows must already
-    be zero and the sum keeps the input dtype (XLA's segment sum in the JAX
-    package; `index_add_` here)."""
+    and a width that divides 128 this is kernel A: padding edges are never
+    read and the sum is f32. At any other width, or for sorted ids without
+    `row_ptr` (`indices_are_sorted`), it is the id-keyed sum over kernel A
+    (`sorted_segment_sum_ids`), also f32, which counts every edge: padding
+    rows must already be zero. That split is the TPU function's
+    (`sorted_segment_sum_csr` there). Unsorted ids keep the input dtype
+    (XLA's segment sum in the JAX package; `index_add_` here), padding rows
+    zero as well."""
     if row_ptr is not None:
         if row_ptr.shape[0] != num_segments + 1:
             raise ValueError(
                 f"row_ptr has {row_ptr.shape[0]} entries for {num_segments} segments"
             )
+        if data.dim() == 2 and 128 % data.shape[1] != 0:
+            return sorted_segment_sum_ids(data, segment_ids, num_segments)
         return sorted_segment_sum_csr(data, row_ptr)
+    if indices_are_sorted and data.dim() == 2:
+        return sorted_segment_sum_ids(data, segment_ids, num_segments)
     out = torch.zeros(
         (num_segments,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device
     )
@@ -205,3 +225,249 @@ def direct_segment_sum_blocks(
         pad = torch.zeros((n_dst_pad - g * bd, d), dtype=out.dtype, device=out.device)
         out = torch.cat([out, pad], dim=0)
     return out
+
+
+# --------------------------------------------------------------------------
+# attention over an incidence matrix
+# --------------------------------------------------------------------------
+
+
+def _flash_stab(ssrc: torch.Tensor, sdst: torch.Tensor) -> torch.Tensor:
+    """Per-row score bound lrelu(sdst[d] + max ssrc) >= every e[d, s], for
+    `ssrc [G, bs]`, `sdst [G, bd]` (the max per graph). LeakyReLU is
+    monotone, so no pass over the matrix is needed; exp(e - stab) <= 1 never
+    overflows, and a destination's own score can never underflow its row.
+    Non-finite bounds fall back to 0, as in the JAX package."""
+    sup = ssrc.to(torch.float32).amax(dim=1, keepdim=True)
+    sup = torch.where(torch.isfinite(sup), sup, torch.zeros_like(sup))
+    s = F.leaky_relu(sdst.to(torch.float32) + sup, 0.2)
+    return torch.where(torch.isfinite(s), s, torch.zeros_like(s))
+
+
+class _FlashMaskedSoftmaxMatmul(torch.autograd.Function):
+    """Kernel D forward, kernel E backward (the JAX `_flash_fwd` /
+    `_flash_bwd` and their blocks forms): residuals are vectors and the
+    inputs, every attention entry is recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, ssrc, sdst, msg_table, blocks):
+        g, bd, bs = blocks.shape
+        ssrc3, sdst3 = ssrc.reshape(g, bs), sdst.reshape(g, bd)
+        x = msg_table.reshape(g, bs, -1)
+        stab = _flash_stab(ssrc3, sdst3)
+        out, den = flash_gat_forward(ssrc3, sdst3, x, blocks, stab)
+        ctx.save_for_backward(ssrc3, sdst3, x, blocks, out, den, stab)
+        ctx.dtypes = (ssrc.dtype, sdst.dtype)
+        return out.reshape(g * bd, -1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ssrc3, sdst3, x, blocks, out, den, stab = ctx.saved_tensors
+        g, bd, bs = blocks.shape
+        ct3 = ct.reshape(g, bd, -1)
+        # sum_s dA[d,s] A[d,s] = ct[d] . out[d]: the softmax row statistic
+        srow = (ct3.to(torch.float32) * out.to(torch.float32)).sum(dim=2)
+        dtab_plus, d_sdst = flash_gat_backward(ssrc3, sdst3, x, blocks, stab, den, ct3, srow)
+        return (
+            dtab_plus[:, :, -1].reshape(g * bs).to(ctx.dtypes[0]),
+            d_sdst.reshape(g * bd).to(ctx.dtypes[1]),
+            dtab_plus[:, :, :-1].reshape(g * bs, -1).to(x.dtype),
+            None,
+        )
+
+
+def _flash_masked_softmax_matmul(ssrc, sdst, msg_table, incidence) -> torch.Tensor:
+    """out[d] = sum_s A[d, s] msg_table[s], A the row softmax of
+    LeakyReLU(sdst[d] + ssrc[s]) over the support of the incidence matrix
+    (multiplicity-weighted), through kernels D and E. `incidence` is one
+    matrix [n_dst, n_src] or per-graph blocks [G, bd, bs] over the first
+    G*bs sources and G*bd destinations; int8 or bf16, never upcast."""
+    if incidence.dim() == 2:
+        incidence = incidence[None]
+    return _FlashMaskedSoftmaxMatmul.apply(ssrc, sdst, msg_table, incidence)
+
+
+def _masked_attention(ssrc3, sdst3, blocks, dtype):
+    """The [G, bd, bs] attention tensor in `dtype` (the JAX `_dmsm_attn` /
+    `_bmsm_attn`): the masked row max is lrelu(sdst + masked row max of
+    ssrc), LeakyReLU being monotone."""
+    neg = -1e30
+    srcf = ssrc3.to(torch.float32)[:, None, :]
+    dstf = sdst3.to(torch.float32)[:, :, None]
+    on = blocks > 0
+    sup = torch.where(on, srcf, torch.full_like(srcf, neg)).amax(dim=2)
+    row_max = F.leaky_relu(dstf[:, :, 0] + sup, 0.2).clamp_min(neg * 0.5)
+    e = F.leaky_relu(dstf + srcf, 0.2)
+    z = torch.where(on, torch.exp(e - row_max[:, :, None]), torch.zeros_like(e))
+    z = z * blocks.to(torch.float32)
+    return (z / z.sum(dim=2).clamp_min(1e-30)[:, :, None]).to(dtype)
+
+
+def _f32_bmm(a, b):
+    """Batched product of two tensors of one dtype, f32 out (the JAX `_dot`
+    / `_bdot` with `preferred_element_type=float32`)."""
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
+class _BlocksMaskedSoftmaxMatmul(torch.autograd.Function):
+    """The matrix-materializing form with the JAX package's matmul-factored
+    backward (`_bmsm_bwd`; `_dmsm_bwd` is its G = 1 case): with
+    W = A * LeakyReLU'(pre), the row statistic and both score gradients
+    collapse into products against A and W."""
+
+    @staticmethod
+    def forward(ctx, ssrc, sdst, msg_table, blocks):
+        g, bd, bs = blocks.shape
+        ctx.save_for_backward(ssrc, sdst, msg_table, blocks)
+        dtype = msg_table.dtype
+        a = _masked_attention(ssrc.reshape(g, bs), sdst.reshape(g, bd), blocks, dtype)
+        out = _f32_bmm(a, msg_table.reshape(g, bs, -1))
+        return out.reshape(g * bd, -1).to(dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ssrc, sdst, msg_table, blocks = ctx.saved_tensors
+        g, bd, bs = blocks.shape
+        dtype, f32 = msg_table.dtype, torch.float32
+        ssrc3, sdst3 = ssrc.reshape(g, bs), sdst.reshape(g, bd)
+        a = _masked_attention(ssrc3, sdst3, blocks, dtype)
+        pre = sdst3.to(f32)[:, :, None] + ssrc3.to(f32)[:, None, :]
+        w = (a.to(f32) * torch.where(pre > 0, 1.0, 0.2)).to(dtype)
+        ct3 = ct.reshape(g, bd, -1).to(dtype)
+        x = msg_table.reshape(g, bs, -1)
+
+        d_table = _f32_bmm(a.transpose(1, 2), ct3).reshape(g * bs, -1).to(dtype)
+        out_rec = _f32_bmm(a, x)
+        s_row = (ct3.to(f32) * out_rec).sum(dim=2)  # [g, bd]
+
+        xe = torch.cat([x, torch.ones((g, bs, 1), dtype=dtype, device=x.device)], dim=2)
+        wx = _f32_bmm(w, xe)  # [g, bd, D+1]
+        d_sdst = (ct3.to(f32) * wx[:, :, :-1]).sum(dim=2) - s_row * wx[:, :, -1]
+
+        cts = torch.cat([ct3, s_row[:, :, None].to(dtype)], dim=2)
+        wt = _f32_bmm(w.transpose(1, 2), cts)  # [g, bs, D+1]
+        d_ssrc = (x.to(f32) * wt[:, :, :-1]).sum(dim=2) - wt[:, :, -1]
+        return (
+            d_ssrc.reshape(g * bs).to(ssrc.dtype),
+            d_sdst.reshape(g * bd).to(sdst.dtype),
+            d_table,
+            None,
+        )
+
+
+def _blocks_masked_softmax_matmul(ssrc, sdst, msg_table, blocks) -> torch.Tensor:
+    """`_flash_masked_softmax_matmul`'s function over [G, bd, bs] blocks by
+    materializing the attention tensor and library products."""
+    return _BlocksMaskedSoftmaxMatmul.apply(ssrc, sdst, msg_table, blocks)
+
+
+def _dense_masked_softmax_matmul(ssrc, sdst, msg_table, dense_inc) -> torch.Tensor:
+    """The same over one [n_dst, n_src] matrix."""
+    return _BlocksMaskedSoftmaxMatmul.apply(ssrc, sdst, msg_table, dense_inc[None])
+
+
+def _attention_scores(msg_table, dst_states, kernel1, kernel2, attn_kernel):
+    """Per-node GATv1 score scalars (ssrc [n_src], sdst [n_dst]) in f32:
+    e[d, s] = LeakyReLU(a1 . (K1 m_s) + a2 . (K2 h_d)). The a1 / a2 products
+    take f32 copies of their operands: the JAX `_dot` returns f32 from bf16
+    operands, `torch.matmul` would return bf16."""
+    d1 = kernel1.shape[1]
+    f32 = torch.float32
+    ssrc = (msg_table @ kernel1).to(f32) @ attn_kernel[:d1].to(f32)
+    sdst = (dst_states @ kernel2).to(f32) @ attn_kernel[d1:].to(f32)
+    return ssrc[:, 0], sdst[:, 0]
+
+
+def dense_attention_aggregate(
+    msg_table, dst_states, dense_inc, kernel1, kernel2, attn_kernel
+) -> torch.Tensor:
+    """GAT attention aggregation computed over the dense incidence matrix:
+    two per-node score products, then one masked softmax-matmul over
+    [n_dst, n_src] (kernels D and E). Multiplicity k counts as k identical
+    softmax terms, the per-edge semantics."""
+    ssrc, sdst = _attention_scores(msg_table, dst_states, kernel1, kernel2, attn_kernel)
+    return _flash_masked_softmax_matmul(ssrc, sdst, msg_table, dense_inc)
+
+
+def dense_attention_aggregate_blocks(
+    msg_table, dst_states, blocks, kernel1, kernel2, attn_kernel, n_dst_pad: int
+) -> torch.Tensor:
+    """Block-diagonal form of `dense_attention_aggregate` for merged batches
+    of G equal-sized graphs: the graph axis is a grid dimension of kernels D
+    and E. Rows past G*bd come out zero."""
+    g, bd, bs = blocks.shape
+    ssrc, sdst = _attention_scores(msg_table, dst_states, kernel1, kernel2, attn_kernel)
+    out = _flash_masked_softmax_matmul(
+        ssrc[: g * bs], sdst[: g * bd], msg_table[: g * bs], blocks
+    )
+    if n_dst_pad > g * bd:
+        pad = torch.zeros((n_dst_pad - g * bd, out.shape[-1]), dtype=out.dtype, device=out.device)
+        out = torch.cat([out, pad], dim=0)
+    return out
+
+
+# --------------------------------------------------------------------------
+# per-edge attention over a destination-sorted edge list
+# --------------------------------------------------------------------------
+
+
+class _GatherByDst(torch.autograd.Function):
+    """`values[dst_idx]` whose transpose is a sorted segment sum over
+    `row_ptr` (the JAX `_gbd_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, values, dst_idx, row_ptr):
+        ctx.save_for_backward(dst_idx, row_ptr)
+        ctx.n, ctx.dtype = values.shape[0], values.dtype
+        return values[dst_idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        dst_idx, row_ptr = ctx.saved_tensors
+        ct2 = ct if ct.dim() == 2 else ct[:, None]
+        out = segment_sum(ct2, dst_idx, ctx.n, row_ptr=row_ptr).to(ctx.dtype)
+        return (out if ct.dim() == 2 else out[:, 0]), None, None
+
+
+def gather_by_dst(values: torch.Tensor, dst_idx: torch.Tensor, row_ptr: torch.Tensor):
+    """values[dst_idx] for a destination-sorted edge list; the backward is
+    kernel A instead of autograd's scatter-add. Padding edges get no
+    cotangent back (they lie past `row_ptr[-1]`), so theirs must be zero."""
+    return _GatherByDst.apply(values, dst_idx, row_ptr)
+
+
+def _masked_exp(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """exp(score - global max over real edges), zero on padding edges. exp
+    never sees a masked score (one far above the real max would overflow)."""
+    on = mask > 0
+    stab = torch.where(on, scores, torch.full_like(scores, float("-inf"))).max()
+    stab = torch.where(torch.isfinite(stab), stab, torch.zeros_like(stab))
+    safe = torch.where(on, scores, stab)
+    return torch.where(on, torch.exp(safe - stab), torch.zeros_like(scores))
+
+
+def sorted_segment_softmax(scores, dst_idx, num_segments: int, mask, row_ptr) -> torch.Tensor:
+    """Per-destination softmax over sorted edge scores without a scatter:
+    stabilized by the **global** max as in the JAX package (a destination
+    whose best score lies ~88 nats below it would underflow); denominators
+    through kernel A, their gather back through `gather_by_dst`."""
+    exp = _masked_exp(scores.reshape(-1), mask)
+    denom = segment_sum(exp[:, None], dst_idx, num_segments, row_ptr=row_ptr)[:, 0]
+    denom = torch.where(denom > 0, denom, torch.ones_like(denom))
+    return exp / gather_by_dst(denom, dst_idx, row_ptr).to(exp.dtype)
+
+
+def sorted_softmax_aggregate(
+    messages, scores, dst_idx, num_segments: int, mask, row_ptr
+) -> torch.Tensor:
+    """out[d] = sum_e exp(s_e) m_e / sum_e exp(s_e) over each destination's
+    edges: two sorted segment sums (width D and, as in the JAX package,
+    width 8 for the denominator) and a per-node division; the per-edge
+    weights are never formed. Global-max stabilization as above. f32 out."""
+    exp = _masked_exp(scores.reshape(-1), mask)
+    num = segment_sum(
+        messages * exp[:, None].to(messages.dtype), dst_idx, num_segments, row_ptr=row_ptr
+    )
+    exp8 = exp[:, None].expand(exp.shape[0], 8)
+    den = segment_sum(exp8, dst_idx, num_segments, row_ptr=row_ptr)[:, :1]
+    return num / torch.where(den > 0, den, torch.ones_like(den)).to(num.dtype)

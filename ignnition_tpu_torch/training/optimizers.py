@@ -27,7 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 
 from ..frontend.ir import OptimizerSpec, ScheduleSpec
-from ..model.builder import flatten_params, unflatten_params
+from ..model.builder import flatten_params, map_params
 
 Schedule = Callable[[int], float]
 
@@ -150,9 +150,7 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 
 def _zeros_like_tree(params):
-    return unflatten_params(
-        {k: torch.zeros_like(v) for k, v in flatten_params(params).items()}
-    )
+    return map_params(torch.zeros_like, params)
 
 
 class Optimizer:

@@ -23,7 +23,7 @@ import torch
 
 from ..batch import resolve_device
 from ..data.graph import BatchMeta, PaddingConfig
-from ..model.builder import GnnModel, flatten_params, unflatten_params
+from ..model.builder import GnnModel, flatten_params, map_params, with_leaves
 from .losses import get_loss
 from .optimizers import build_optimizer
 
@@ -67,13 +67,11 @@ class Trainer:
         if params is None:
             generator = generator if generator is not None else torch.Generator().manual_seed(0)
             params = self.model.init(generator)
-        params = unflatten_params(
-            {
-                k: torch.as_tensor(v, dtype=torch.float32)
-                .to(self.device, copy=True)
-                .requires_grad_(True)
-                for k, v in flatten_params(params).items()
-            }
+        params = map_params(
+            lambda v: torch.as_tensor(v, dtype=torch.float32)
+            .to(self.device, copy=True)
+            .requires_grad_(True),
+            params,
         )
         return TrainState(params, self.optimizer.init(params), 0)
 
@@ -105,10 +103,9 @@ class Trainer:
         the step's forward and backward without the update."""
 
         def grads(params, batch):
-            flat = flatten_params(params)
             total, (loss, reg) = self._loss(params, batch, meta)
-            g = torch.autograd.grad(total, list(flat.values()))
-            return unflatten_params(dict(zip(flat, g))), {
+            g = torch.autograd.grad(total, list(flatten_params(params).values()))
+            return with_leaves(params, g), {
                 "loss": loss.detach(), "reg": reg.detach(), "total": total.detach()
             }
 

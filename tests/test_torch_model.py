@@ -6,7 +6,12 @@ each package's own `build_batch`, JAX `apply` against the port's `forward`.
 Each stage-2 sum branch is taken in turn by the batch's companion arrays:
 block-diagonal and dense incidence, and the CSR forms (kernel A's plain
 version on the CPU) once the dense-incidence cap is patched to 0 in both
-packages. f32 agrees at atol = rtol = 1e-4."""
+packages. The attention family (stage 2's aggregation switched to
+`attention`) goes through its three branches the same way: dense and
+block-diagonal attention over the int8 incidence (kernels D and E's plain
+versions on the CPU) and the per-edge form (the JAX package's slot-rate
+lowering switched off, so that it takes its per-edge form too).
+f32 agrees at atol = rtol = 1e-4."""
 
 import copy
 
@@ -17,6 +22,7 @@ import pytest
 import torch
 
 import ignnition_tpu.data.graph as j_graph
+import ignnition_tpu.model.builder as j_builder
 import ignnition_tpu_torch as igt
 import ignnition_tpu_torch.data.graph as t_graph
 from ignnition_tpu.data import SampleSpec as JSampleSpec
@@ -48,6 +54,29 @@ BRANCHES = {
     "csr_direct": (1, True, ("bwd_slice_dst_",)),
     "csr_edges": (1, True, ("bwd_slice_dst_", "dst_in_src_order_")),
 }
+
+
+# attention on stage 2: branch -> (graphs per batch, dense cap patched to 0
+# and the JAX slot-rate attention off, keys dropped)
+ATTENTION_BRANCHES = {
+    "blocks": (4, False, ()),
+    "dense": (1, False, ()),
+    "edges": (1, True, ()),
+}
+
+
+def to_attention(d):
+    """`bench._mutate_attention`: stage 2 aggregates by attention."""
+    d["message_passing"]["stages"][1]["stage_mp"][0]["aggregation"] = {"type": "attention"}
+
+
+def patch_branch(monkeypatch, cap0):
+    """Past the dense-incidence cap in both packages (their knobs are
+    distinct objects), with the JAX package on its per-edge attention."""
+    if cap0:
+        monkeypatch.setattr(j_graph, "_DENSE_INC_MAX_ENTRIES", 0)
+        monkeypatch.setattr(t_graph, "_DENSE_INC_MAX_ENTRIES", 0)
+        monkeypatch.setattr(j_builder, "_SLOT_ATTN", False)
 
 
 def flagship_dict(num_iterations=2, hs=8, mutate=None):
@@ -87,11 +116,9 @@ def _port_model(t_ir, j_params):
     return model
 
 
-def _run_both(desc, branch, monkeypatch, compute_dtype):
-    n_graphs, cap0, drop = BRANCHES[branch]
-    if cap0:
-        monkeypatch.setattr(j_graph, "_DENSE_INC_MAX_ENTRIES", 0)
-        monkeypatch.setattr(t_graph, "_DENSE_INC_MAX_ENTRIES", 0)
+def _run_both(desc, branch, monkeypatch, compute_dtype, branches=BRANCHES):
+    n_graphs, cap0, drop = branches[branch]
+    patch_branch(monkeypatch, cap0)
     j_ir, t_ir, j_arrays, t_arrays, meta = _batches(desc, n_graphs)
     for arrays in (j_arrays, t_arrays):
         for k in [k for k in arrays if k.startswith(drop)] if drop else []:
@@ -121,6 +148,81 @@ def test_flagship_forward_matches_jax_f32(branch, monkeypatch):
 def test_flagship_forward_matches_jax_bf16(branch, monkeypatch):
     got, want = _run_both(flagship_dict(), branch, monkeypatch, torch.bfloat16)
     np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("branch", sorted(ATTENTION_BRANCHES))
+def test_attention_forward_matches_jax_f32(branch, monkeypatch):
+    got, want = _run_both(
+        flagship_dict(mutate=to_attention), branch, monkeypatch, None, ATTENTION_BRANCHES
+    )
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("branch", sorted(ATTENTION_BRANCHES))
+def test_attention_forward_matches_jax_bf16(branch, monkeypatch):
+    got, want = _run_both(
+        flagship_dict(mutate=to_attention), branch, monkeypatch, torch.bfloat16,
+        ATTENTION_BRANCHES,
+    )
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+def test_attention_at_a_width_off_128_takes_the_id_keyed_sum(monkeypatch):
+    """hs=48 does not divide 128: the per-edge numerator goes through
+    `sorted_segment_sum_ids`, as in the TPU function, and still matches."""
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as t_sk
+
+    calls = []
+    real = t_sk.sorted_segment_sum_ids_plain
+    monkeypatch.setattr(
+        t_sk, "sorted_segment_sum_ids_plain", lambda *a: calls.append(a[0].shape) or real(*a)
+    )
+    got, want = _run_both(
+        flagship_dict(hs=48, mutate=to_attention), "edges", monkeypatch, None,
+        ATTENTION_BRANCHES,
+    )
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    assert len(calls) == 2 and all(shape[1] == 48 for shape in calls)  # one per iteration
+
+
+@pytest.mark.parametrize(
+    "mutate,feature",
+    [
+        (lambda d: d["message_passing"]["stages"][1]["stage_mp"][0].update(
+            aggregation={"type": "attention", "attention_softmax": "reference"}),
+         "'reference' attention softmax mode"),
+        (lambda d: d["message_passing"]["stages"][1]["stage_mp"][0].update(
+            aggregation={"type": "convolution", "activation_function": "relu"}),
+         "'convolution' aggregation"),
+    ],
+    ids=["reference_softmax", "convolution"],
+)
+def test_unported_aggregations_raise_by_name(mutate, feature):
+    desc = flagship_dict(mutate=mutate)
+    ir = igt.parse_model_description(copy.deepcopy(desc), DIMS)
+    with pytest.raises(NotImplementedError, match=feature):
+        igt.build(ir)
+
+
+def test_multi_source_attention_raises_by_name():
+    def two_sources(d):
+        to_attention(d)
+        mp = d["message_passing"]["stages"][1]["stage_mp"][0]
+        mp["source_entities"].append(copy.deepcopy(mp["source_entities"][0]))
+
+    ir = igt.parse_model_description(flagship_dict(mutate=two_sources), DIMS)
+    with pytest.raises(NotImplementedError, match="multi-source message passing"):
+        igt.build(ir)
+
+
+def test_per_edge_attention_without_row_pointers_raises_by_name(monkeypatch):
+    patch_branch(monkeypatch, True)
+    _, t_ir, _, t_arrays, meta = _batches(flagship_dict(mutate=to_attention), 1)
+    del t_arrays["row_ptr_adj_paths_links"]
+    model = igt.build(t_ir)
+    model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="segment_softmax"):
+        model(to_device(t_arrays, "cpu"), meta)
 
 
 def test_routenet_description_forward_matches_jax(monkeypatch):
@@ -157,6 +259,66 @@ def test_serving_predict_samples_matches_apply_and_trim():
     got = server.predict_samples(samples)
     assert got.shape == want.shape == (48,)
     np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_params_from_jax_keeps_every_key_path():
+    """Keys that hold a `/` (`s1/m0` under `aggregation`) stay one level,
+    through `params_from_jax`, the module's own tree, a compute-dtype cast
+    and the trainer's state and gradients."""
+    desc = flagship_dict(mutate=to_attention)
+    j_ir, t_ir, _, t_arrays, meta = _batches(desc, 1)
+    j_params = j_build(j_ir).init(jax.random.PRNGKey(0))
+
+    def paths(tree):
+        return [
+            tuple(getattr(p, "key", getattr(p, "idx", None)) for p in path)
+            for path, _ in jax.tree_util.tree_leaves_with_path(tree)
+        ]
+
+    def t_paths(tree, prefix=()):
+        if isinstance(tree, dict):
+            return [p for k, v in tree.items() for p in t_paths(v, prefix + (k,))]
+        if isinstance(tree, tuple):
+            return [p for i, v in enumerate(tree) for p in t_paths(v, prefix + (i,))]
+        return [prefix]
+
+    want = sorted(paths(j_params), key=str)
+    assert ("aggregation", "s1/m0", "kernel1") in want
+    t_params = igt.params_from_jax(j_params)
+    assert sorted(t_paths(t_params), key=str) == want
+    assert list(t_params["aggregation"]) == ["s1/m0"]
+    model = igt.build(t_ir)
+    model.load_params(t_params)
+    assert sorted(t_paths(model.param_tree()), key=str) == want
+    for k, v in igt.model.builder.flatten_params(model.param_tree()).items():
+        assert torch.equal(v, igt.model.builder.flatten_params(t_params)[k]), k
+    trainer = igt.Trainer(igt.build(t_ir), compute_dtype=torch.bfloat16, device="cpu")
+    state = trainer.init_state(params=t_params)
+    assert sorted(t_paths(state.params), key=str) == want
+    assert sorted(t_paths(state.opt_state["mu"]), key=str) == want
+    grads, _ = trainer.grads_fn(meta)(state.params, to_device(t_arrays, "cpu"))
+    assert sorted(t_paths(grads), key=str) == want
+    fresh = igt.build(t_ir).init(torch.Generator().manual_seed(0))
+    assert sorted(t_paths(fresh), key=str) == want
+
+
+def test_attention_init_tree_matches_jax_layout():
+    """The three Glorot matrices of an attention pass, under the JAX key."""
+    desc = flagship_dict(mutate=to_attention)
+    j_ir = j_parse(copy.deepcopy(desc), DIMS)
+    t_ir = igt.parse_model_description(copy.deepcopy(desc), DIMS)
+    j_params = j_build(j_ir).init(jax.random.PRNGKey(0))
+    t_params = igt.build(t_ir).init(torch.Generator().manual_seed(0))
+    assert list(t_params["aggregation"]) == list(j_params["aggregation"]) == ["s1/m0"]
+    ap = t_params["aggregation"]["s1/m0"]
+    assert {k: tuple(v.shape) for k, v in ap.items()} == {
+        k: tuple(v.shape) for k, v in j_params["aggregation"]["s1/m0"].items()
+    } == {"kernel1": (8, 8), "kernel2": (8, 8), "attn_kernel": (16, 1)}
+    for k, v in ap.items():  # Glorot uniform: within the limit, not degenerate
+        limit = (6.0 / sum(v.shape)) ** 0.5
+        assert float(v.abs().max()) <= limit and float(v.std()) > 0.3 * limit, k
+    flat = igt.model.builder.flatten_params(t_params)
+    assert list(flat)[:3] == [f"aggregation/s1/m0/{k}" for k in ("kernel1", "kernel2", "attn_kernel")]
 
 
 def test_init_tree_matches_jax_layout():

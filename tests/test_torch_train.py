@@ -9,7 +9,10 @@ Inputs come from seeded numpy and go through both packages:
   * the flagship slice at hs=8 with 2 iterations: loss, regularization,
     every gradient leaf (atol = rtol = 1e-4) and a 10-step Adam trajectory
     of loss and parameters against the JAX `Trainer.train_step_fn` from the
-    same weights, on the dense, CSR and sliced stage-2 branches.
+    same weights, on the dense, CSR and sliced stage-2 branches;
+  * the same for the attention family (stage 2 aggregating by attention) on
+    its dense, block-diagonal and per-edge branches, the three attention
+    leaves named.
 On the CPU the kernel wrappers run their plain versions; the kernels
 themselves are held to those on a CUDA device (tests/test_torch_kernels.py).
 """
@@ -37,7 +40,9 @@ from ignnition_tpu_torch.ops import segment as t_seg
 from ignnition_tpu_torch.training import losses as t_losses
 from ignnition_tpu_torch.training import optimizers as t_opt
 
-from test_torch_model import BRANCHES, _batches, flagship_dict
+from test_torch_model import (
+    ATTENTION_BRANCHES, BRANCHES, _batches, flagship_dict, patch_branch, to_attention,
+)
 
 torch.set_num_threads(1)
 
@@ -282,12 +287,11 @@ def test_optimizer_options_raise_as_in_jax():
 TRAIN_BRANCHES = ["dense", "csr_direct", "csr_sliced"]
 
 
-def _trainers(branch, monkeypatch, compute_dtype=None):
-    n_graphs, cap0, drop = BRANCHES[branch]
-    if cap0:
-        monkeypatch.setattr(j_graph, "_DENSE_INC_MAX_ENTRIES", 0)
-        monkeypatch.setattr(t_graph, "_DENSE_INC_MAX_ENTRIES", 0)
-    j_ir, t_ir, j_arrays, t_arrays, meta = _batches(flagship_dict(), n_graphs)
+def _trainers(branch, monkeypatch, compute_dtype=None, attention=False):
+    n_graphs, cap0, drop = (ATTENTION_BRANCHES if attention else BRANCHES)[branch]
+    patch_branch(monkeypatch, cap0)
+    desc = flagship_dict(mutate=to_attention if attention else None)
+    j_ir, t_ir, j_arrays, t_arrays, meta = _batches(desc, n_graphs)
     for arrays in (j_arrays, t_arrays):
         for k in [k for k in arrays if k.startswith(drop)] if drop else []:
             del arrays[k]
@@ -300,9 +304,8 @@ def _trainers(branch, monkeypatch, compute_dtype=None):
     return j_trainer, t_trainer, j_state, t_state, j_arrays, to_device(t_arrays, "cpu"), meta
 
 
-@pytest.mark.parametrize("branch", TRAIN_BRANCHES)
-def test_flagship_loss_and_gradients_match_jax(branch, monkeypatch):
-    j_tr, t_tr, j_state, t_state, j_batch, t_batch, meta = _trainers(branch, monkeypatch)
+def _check_loss_and_gradients(trainers):
+    j_tr, t_tr, j_state, t_state, j_batch, t_batch, meta = trainers
     rng = jax.random.PRNGKey(1)
     (want_total, (want_loss, want_reg)), want_g = jax.value_and_grad(
         j_tr._loss, has_aux=True
@@ -318,10 +321,43 @@ def test_flagship_loss_and_gradients_match_jax(branch, monkeypatch):
         assert v.dtype == torch.float32
         assert np.abs(want_flat[k]).max() > 0, k
         np.testing.assert_allclose(v.numpy(), want_flat[k], err_msg=k, **SLICE_TOL)
+    return got_flat
 
 
 @pytest.mark.parametrize("branch", TRAIN_BRANCHES)
-def test_flagship_adam_trajectory_matches_jax(branch, monkeypatch):
+def test_flagship_loss_and_gradients_match_jax(branch, monkeypatch):
+    _check_loss_and_gradients(_trainers(branch, monkeypatch))
+
+
+ATTENTION_LEAVES = [f"aggregation/s1/m0/{k}" for k in ("kernel1", "kernel2", "attn_kernel")]
+
+
+@pytest.mark.parametrize("branch", sorted(ATTENTION_BRANCHES))
+def test_attention_loss_and_gradients_match_jax(branch, monkeypatch):
+    """At these small random weights the attention is near uniform and its
+    leaves' gradients are of order 1e-5, below the slice's absolute limit,
+    so they are held relative to each leaf's largest entry as well: 5e-3
+    (both packages carry f32 noise of ~3e-8 on them). `kernel2` reaches the
+    loss only where a row's pre-activations change sign (a per-destination
+    shift leaves a softmax unchanged): its gradient is noise in both."""
+    trainers = _trainers(branch, monkeypatch, attention=True)
+    got = _check_loss_and_gradients(trainers)
+    assert [k for k in got if k.startswith("aggregation")] == ATTENTION_LEAVES
+    j_tr, _, j_state, _, j_batch, _, meta = trainers
+    _, want_g = jax.value_and_grad(j_tr._loss, has_aux=True)(
+        j_state.params, j_batch, meta, jax.random.PRNGKey(1)
+    )
+    want = _jax_flat(want_g)
+    for k in ATTENTION_LEAVES:
+        top = np.abs(want[k]).max()
+        if k.endswith("kernel2"):
+            assert top < 1e-6 and np.abs(got[k].numpy()).max() < 1e-6
+        else:
+            assert top > 1e-5
+            assert np.abs(got[k].numpy() - want[k]).max() <= 5e-3 * top, k
+
+
+def _check_adam_trajectory(trainers, noise_floor=0.0):
     """Ten Adam steps from the same weights: loss, reg and total at every step,
     and the parameters after every step.
 
@@ -329,15 +365,20 @@ def test_flagship_adam_trajectory_matches_jax(branch, monkeypatch):
     f32 rounding noise of the two implementations (|g| < ~1e-6: the columns
     fed by zero-padded state dimensions) takes a step of either sign: those
     elements are held to the most they can have moved (2 * lr per step), and
-    every element whose first gradient is above 1e-3 of its leaf's largest to
+    every element whose first gradient is above 1e-3 of its leaf's largest
+    (and above `noise_floor`, for leaves whose whole gradient is small) to
     atol = rtol = 1e-4."""
-    j_tr, t_tr, j_state, t_state, j_batch, t_batch, meta = _trainers(branch, monkeypatch)
+    j_tr, t_tr, j_state, t_state, j_batch, t_batch, meta = trainers
     j_step, t_step = j_tr.train_step_fn(meta), t_tr.train_step_fn(meta)
     params, opt_state = j_state.params, j_state.opt_state
     rng = jax.random.PRNGKey(1)
     (_, _), g0 = jax.value_and_grad(j_tr._loss, has_aux=True)(params, j_batch, meta, rng)
-    firm = {k: np.abs(g) >= 1e-3 * np.abs(g).max() for k, g in _jax_flat(g0).items()}
-    assert all(m.any() for m in firm.values())
+    firm = {
+        k: np.abs(g) >= max(1e-3 * np.abs(g).max(), noise_floor)
+        for k, g in _jax_flat(g0).items()
+    }
+    # (an attention pass's `kernel2` gradient is noise as a whole)
+    assert all(m.any() for k, m in firm.items() if not k.endswith("kernel2"))
     lr = 0.001  # the flagship's initial learning rate
     first = None
     for i in range(10):
@@ -357,6 +398,31 @@ def test_flagship_adam_trajectory_matches_jax(branch, monkeypatch):
             assert np.abs(v - want_flat[k]).max() <= 2 * lr * (i + 1), f"step {i} {k}"
     assert t_state.step == 10 and t_state.opt_state["count"] == 10
     assert got["total"].item() < first
+
+
+@pytest.mark.parametrize("branch", TRAIN_BRANCHES)
+def test_flagship_adam_trajectory_matches_jax(branch, monkeypatch):
+    _check_adam_trajectory(_trainers(branch, monkeypatch))
+
+
+@pytest.mark.parametrize("branch", sorted(ATTENTION_BRANCHES))
+def test_attention_adam_trajectory_matches_jax(branch, monkeypatch):
+    """The attention leaves' gradients are of order 1e-5 here with f32 noise
+    of ~3e-8: elements under 5e-6 count as noise."""
+    _check_adam_trajectory(_trainers(branch, monkeypatch, attention=True), noise_floor=5e-6)
+
+
+def test_attention_serving_matches_jax(monkeypatch):
+    """`ServingModel` needs nothing new for the attention model."""
+    j_tr, t_tr, j_state, t_state, j_batch, t_batch, meta = _trainers(
+        "dense", monkeypatch, attention=True
+    )
+    want = np.asarray(j_tr.model.apply(j_state.params, j_batch, meta))
+    server = igt.ServingModel(
+        igt.build(t_tr.ir), t_state.params, meta, t_tr.ir, compute_dtype=None, device="cpu"
+    )
+    inputs = {k: v for k, v in t_batch.items() if k not in ("label", "label_mask")}
+    np.testing.assert_allclose(server.forward_device(inputs).numpy(), want, **SLICE_TOL)
 
 
 def test_flagship_bf16_step_matches_jax(monkeypatch):
