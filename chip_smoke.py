@@ -6,15 +6,24 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
   1. print the card's name and power limit, build the port's CUDA kernels
      from the checkout's sources and print the build time;
-  2. hold each kernel (A: CSR segment sum and the id-keyed sum over it,
-     B: masked GRU scan, C: its backward, D and E: flash-GAT attention
-     forward and backward) against its plain PyTorch version on the card at
-     the main paths' shapes, in bf16 and f32 (D and E also with a bf16
-     incidence matrix, over 4 graph blocks and at a ragged shape; E twice,
-     compared bitwise); time kernel, plain version and, where there is one,
-     one PyTorch library call of the same function (a yardstick only, never
-     on the port's path) with CUDA events; work out each kernel's bound on
-     this card from the bytes and operations of this run's inputs;
+  2. hold each kernel (A: CSR segment sum, with its windowed entry; the
+     id-keyed segment sum; B: masked GRU scan, C: its backward, D and E:
+     flash-GAT attention forward and backward) against its plain PyTorch
+     version on the card at the main paths' shapes, in bf16 and f32. The two
+     segment kernels also at widths 8, 20, 48, 128 and 256, with empty rows,
+     with a quarter or all of the edges in one row, with one row and with
+     65,536 rows of 2 edges, by int32 and int64 ids, each twice and compared
+     bitwise; the windowed entry against the loop of one launch per window
+     that it replaces; one call of the id-keyed sum is one device launch
+     (profiler). D and E also with a bf16 incidence matrix, over 4 graph
+     blocks and at a ragged shape; E twice, compared bitwise. Each kernel and,
+     where there is one, one PyTorch library call of the same function (a
+     yardstick only, never on the port's path) is timed three ways: 20 calls
+     made from Python between CUDA events (host launch cost included), the
+     same calls in a replayed CUDA graph (device time), and a replayed graph
+     over rotated copies of the inputs that exceed the L2 (device time from
+     device memory); each kernel's bound on this card comes from the bytes
+     and operations of this run's inputs;
   3. serve the flagship RouteNet (hs=32, 8 message-passing iterations,
      256-256-1 selu readout, random weights from a seed, bf16 compute)
      through `ServingModel.predict_samples`: three requests at the flagship
@@ -28,8 +37,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      and 2 at 4x. Check that every loss is finite and the last below the
      first, that the step-0 gradients of the kernel path agree leaf by leaf
      with the plain path (the same model and batch on the CPU, f32), that
-     kernels A, B and C all ran in every step (launch counts), and the
-     evaluation step; then time the step (median of 20, CUDA events), print
+     kernels A, B and C all ran in every step (launch counts: at 4x kernel A
+     15 times, 7 of them through the windowed entry), and the evaluation
+     step; then time the step (median of 20, CUDA events), print
      edge-messages per second and profile one step by kernel;
   5. the attention family (stage 2 aggregating by attention): serve three
      requests at the flagship size (dense attention over the int8 incidence
@@ -38,8 +48,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      a falling L2 term, step-0 gradients against the plain
      path leaf by leaf in f32), one request at 4x (per-edge attention:
      kernel A 16 times per forward) and one of a small model at hs=48 (the
-     id-keyed sum 8 times per forward), each against the plain path, and the
-     small model's step-0 gradients (the per-edge backward through kernel A).
+     id-keyed kernel 8 times per forward), each against the plain path, and
+     the small model's step-0 gradients (the per-edge backward through kernel
+     A and the id-keyed kernel).
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +80,9 @@ ATTENTION_TRAIN_STEPS = 3
 SMALL_PER_EDGE = dict(n_links=256, n_paths=2000, path_len=8)
 ITERATIONS = 8
 HS = 32
+# device launches of one training step while `_gss_bwd` made a gather, a
+# launch of kernel A and an add per slice-sort window (torch.profiler, H100)
+EARLIER_LAUNCHES_PER_STEP = {"flagship": 640, "flagship_x4": 1035}
 
 
 def flagship_description(num_iterations: int = ITERATIONS, hs: int = HS) -> dict:
@@ -227,6 +242,108 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+_side_stream = None
+
+
+def side_stream():
+    """The stream every graph capture of this script runs on."""
+    global _side_stream
+    if _side_stream is None:
+        _side_stream = torch.cuda.Stream()
+    return _side_stream
+
+
+def graph_ms(calls, replays: int = 7) -> float:
+    """Median milliseconds per call over `replays` replays of one CUDA graph
+    that holds `calls` in order: device time free of the host's launch cost
+    (a replay hands the device the whole graph at once; the gaps between its nodes are
+    the device's own)."""
+    s = side_stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for fn in calls:
+            fn()
+    s.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / len(calls))
+    return float(np.median(times))
+
+
+COLD_WORKING_SET = 120e6  # bytes of rotated inputs: past twice the 50 MB L2
+
+
+def clone_args(args):
+    """A deep copy of a call's arguments: tensors cloned, dicts and tuples
+    walked, everything else shared."""
+    if isinstance(args, torch.Tensor):
+        return args.clone()
+    if isinstance(args, dict):
+        return {k: clone_args(v) for k, v in args.items()}
+    if isinstance(args, (tuple, list)):
+        return tuple(clone_args(a) for a in args)
+    return args
+
+
+def arg_bytes(args) -> int:
+    if isinstance(args, torch.Tensor):
+        return args.numel() * args.element_size()
+    if isinstance(args, dict):
+        return sum(arg_bytes(v) for v in args.values())
+    if isinstance(args, (tuple, list)):
+        return sum(arg_bytes(a) for a in args)
+    return 0
+
+
+def rotations(args) -> list:
+    """`args` and enough copies of it that one pass over all of them reads
+    more than `COLD_WORKING_SET` bytes: a call on the next copy finds none
+    of its inputs in the L2."""
+    n = min(64, max(2, int(COLD_WORKING_SET // max(1, arg_bytes(args))) + 1))
+    return [args] + [clone_args(args) for _ in range(n - 1)]
+
+
+def device_times(call, arg_sets, guarded: bool = False, what: str = "") -> dict:
+    """Three times of `call(*args)` in milliseconds: `ms`, the mean of 20 calls
+    made from Python between two CUDA events (host launch cost included, the
+    inputs in L2);
+    `graph_ms`, the same call 20 times in a replayed CUDA graph (device time,
+    inputs in L2); `cold_ms`, a replayed graph that walks `arg_sets`, copies
+    of the inputs that together exceed the L2 (device time, every call reading
+    device memory). `guarded`: a library call that cannot be captured gives
+    None for the graph times instead of raising."""
+    hot = arg_sets[0]
+    out = dict(ms=cuda_ms(lambda: call(*hot)), graph_ms=None, cold_ms=None)
+    try:
+        out["graph_ms"] = graph_ms([lambda: call(*hot)] * 20)
+        reps = max(1, -(-12 // len(arg_sets)))
+        out["cold_ms"] = graph_ms([(lambda a=a: call(*a)) for a in arg_sets] * reps)
+    except Exception as err:  # noqa: BLE001 - a yardstick may refuse capture
+        if not guarded:
+            raise
+        torch.cuda.synchronize()
+        print(f"    {what}: not captured in a CUDA graph ({type(err).__name__}: "
+              f"{str(err).splitlines()[0][:120]}); graph and cold times not measured")
+    return out
+
+
+def fmt_times(t: dict) -> str:
+    f = lambda v: "not measured" if v is None else f"{v:.4f}"
+    return f"{f(t['ms'])} ms (graph replay {f(t['graph_ms'])}, cold {f(t['cold_ms'])})"
+
+
 def forward_ms(server, batch, runs: int = 20, warmup: int = 3) -> list:
     """Milliseconds of each of `runs` forwards on a device-resident batch,
     from CUDA events, after `warmup` untimed forwards."""
@@ -320,51 +437,244 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol:
 # --------------------------------------------------------------------------
 
 
-def check_segment_sum(dev, rng, what: str, e: int, n: int, gathered: bool,
-                      d: int = HS) -> dict:
-    """Kernel A on [e, d] rows into n segments. `gathered`: the rows come
-    through a row gather by a permutation first, as `_gss_bwd` feeds it."""
+def segment_case(rng, kind: str, e: int, n: int) -> tuple:
+    """(row_ptr [n + 1] int32, ids [e] int32, real edges) of a sorted edge
+    list. `uniform`: 5% of the rows empty, the last 1,000 edges padding (past
+    row_ptr[-1]; their id is n, which the id-keyed sum does not count);
+    `skewed`: one row holds a quarter of the edges, the rest are short;
+    `one_of_many`: every edge in one row of n; `even`: e / n edges a row."""
+    if kind == "uniform":
+        e_real = e - 1_000
+        live = np.sort(rng.choice(n, size=n - n // 20, replace=False))
+        real = np.sort(rng.choice(live, size=e_real))
+    elif kind == "skewed":
+        e_real = e - 1_000
+        real = np.sort(np.concatenate([
+            np.full(e // 4, n // 3), rng.integers(0, n, size=e_real - e // 4)]))
+    elif kind == "one_of_many":
+        e_real, real = e, np.full(e, n // 2)
+    else:
+        e_real, real = e, np.repeat(np.arange(n), e // n)
+    ids = np.concatenate([real, np.full(e - e_real, n)]).astype(np.int32)
+    row_ptr = np.searchsorted(real, np.arange(n + 1)).astype(np.int32)
+    return row_ptr, ids, e_real
+
+
+def check_segment_sums(dev, rng, what: str, e: int, n: int, d: int, kind: str = "uniform",
+                       gathered: bool = False, timed: bool = False) -> dict:
+    """Kernel A (row pointers) and the id-keyed kernel (the same edges by
+    their sorted ids, int32 and int64) on [e, d] rows into n segments, in bf16
+    and f32, against the plain versions, each twice and compared bitwise.
+    `gathered`: the rows come through a row gather by a permutation first, as
+    `_gss_bwd` feeds kernel A. `timed`: the three times of each kernel beside
+    its library call (`torch.segment_reduce`, `index_add_`) and bound.
+    Returns {"csr": {dtype: {...}}, "ids": {dtype: {...}}}."""
     from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
 
-    e_real = e - 1_000  # the tail is padding, past row_ptr[-1]
-    live = np.sort(rng.choice(n, size=n - n // 20, replace=False))  # 5% rows empty
-    ids = np.sort(rng.choice(live, size=e_real))
-    row_ptr = np.searchsorted(ids, np.arange(n + 1)).astype(np.int32)
+    row_ptr, ids_np, e_real = segment_case(rng, kind, e, n)
+    longest = int(np.diff(row_ptr).max())
     rp = torch.from_numpy(row_ptr).to(dev)
+    ids = torch.from_numpy(ids_np).to(dev)
+    ids64 = ids.to(torch.int64)
     offsets = rp.to(torch.int64)
     perm = torch.from_numpy(rng.permutation(e)).to(dev)
-    out = {}
+    # rows of more than 4,096 edges: small integers, whose f32 sums are exact
+    # in any order, so the limits below hold whatever the length
+    exact = longest > 4096
+    values = (rng.integers(-4, 5, size=(e, d)) if exact
+              else rng.standard_normal((e, d))).astype(np.float32)
+    why = (f"exact: sums of small integers over up to {longest} rows" if exact
+           else f"f32 sums of up to {longest} rows in another order (plain uses atomics)")
+    out = {"csr": {}, "ids": {}}
     for dtype in (torch.bfloat16, torch.float32):
-        data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dev, dtype)
+        data = torch.from_numpy(values).to(dev, dtype)
         if gathered:
             data = data[perm]
-        got = sk.sorted_segment_sum_csr(data, rp)
+        tag = f"({what}, {kind}) [{e}x{d}] -> [{n}x{d}] {str(dtype)[6:]}"
         want = sk.sorted_segment_sum_csr_plain(data, rp)
+        before = (sk.launch_count, sk.ids_launch_count)
+        got = {"csr": (sk.sorted_segment_sum_csr(data, rp), sk.sorted_segment_sum_csr(data, rp)),
+               "ids": (sk.sorted_segment_sum_ids(data, ids, n),
+                       sk.sorted_segment_sum_ids(data, ids, n)),
+               "ids int64": (sk.sorted_segment_sum_ids(data, ids64, n),) * 2}
         torch.cuda.synchronize()
-        if got.dtype != torch.float32:
-            raise AssertionError(f"kernel A returned {got.dtype}, the contract is f32")
-        err = compare(
-            f"kernel A csr_segment_sum ({what}) [{e}x{d}] -> [{n}x{d}] {str(dtype)[6:]}",
-            got, want, atol=1e-4, rtol=1e-5,
-            why=f"f32 sums of ~{e // n} rows in another order (plain uses atomics)",
-        )
-        ms = cuda_ms(lambda: sk.sorted_segment_sum_csr(data, rp))
-        plain_ms = cuda_ms(lambda: sk.sorted_segment_sum_csr_plain(data, rp))
-        # the library's segmented reduction over the same real rows (output
-        # in the data's type)
-        real = data[:e_real]
-        lib = torch.segment_reduce(real, "sum", offsets=offsets, axis=0)
-        yardstick_diff(f"library torch.segment_reduce {str(dtype)[6:]} (sums in the "
-                       f"data's type)", lib, want)
-        library_ms = cuda_ms(lambda: torch.segment_reduce(real, "sum", offsets=offsets, axis=0))
-        n_bytes = e_real * d * data.element_size() + (n + 1) * 4 + n * d * 4
-        bound_ms, bound_by = bound(n_bytes, e_real * d, torch.float32)  # f32 adds
-        print(f"    time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.segment_reduce {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({n_bytes / ms / 1e6:.1f} GB/s moved by the kernel)")
-        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
+        if (sk.launch_count, sk.ids_launch_count) != (before[0] + 2, before[1] + 3):
+            raise AssertionError("the segment-sum wrappers did not launch their kernels")
+        errs = {}
+        for which, (first, second) in got.items():
+            if first.dtype != torch.float32:
+                raise AssertionError(f"{which} returned {first.dtype}, the contract is f32")
+            if not torch.equal(first, second):
+                raise AssertionError(f"{which} {tag}: two calls differ bitwise")
+            errs[which] = compare(f"segment sum by {which} {tag}, bitwise repeatable",
+                                  first, want, atol=1e-4, rtol=1e-5, why=why)
+        if not torch.equal(got["ids"][0], got["ids int64"][0]):
+            raise AssertionError(f"{tag}: int32 and int64 ids give different sums")
+        real, real_ids = data[:e_real], ids64[:e_real]
+        if not timed:
+            t_csr = graph_ms([lambda: sk.sorted_segment_sum_csr(data, rp)] * 20)
+            t_ids = graph_ms([lambda: sk.sorted_segment_sum_ids(data, ids, n)] * 20)
+            t_lib = graph_ms([lambda: torch.segment_reduce(
+                real, "sum", offsets=offsets, axis=0, unsafe=True)] * 20)
+            print(f"    graph replay: kernel A {t_csr:.4f} ms, id-keyed kernel {t_ids:.4f} ms, "
+                  f"torch.segment_reduce {t_lib:.4f} ms")
+            continue
+        es = data.element_size()
+        plain_ids = sk.sorted_segment_sum_ids_plain(data, ids, n)
+        compare(f"the two plain versions {tag}", plain_ids, want, atol=1e-4, rtol=1e-5, why=why)
+        # the library's calls on the same real rows (sums in the data's type)
+        lib = torch.segment_reduce(real, "sum", offsets=offsets, axis=0, unsafe=True)
+        yardstick_diff(f"library torch.segment_reduce {str(dtype)[6:]} (sums in the data's "
+                       f"type)", lib, want)
+        lib = torch.zeros((n, d), dtype=dtype, device=dev).index_add_(0, real_ids, real)
+        yardstick_diff(f"library index_add_ {str(dtype)[6:]} (sums in the data's type)",
+                       lib, want)
+        rows = [
+            ("csr", lambda x, r: sk.sorted_segment_sum_csr(x, r), (data, rp),
+             lambda x, r: sk.sorted_segment_sum_csr_plain(x, r), "torch.segment_reduce",
+             lambda x, o: torch.segment_reduce(x, "sum", offsets=o, axis=0, unsafe=True),
+             (real, offsets), (n + 1) * 4),
+            ("ids", lambda x, i: sk.sorted_segment_sum_ids(x, i, n), (data, ids),
+             lambda x, i: sk.sorted_segment_sum_ids_plain(x, i, n), "index_add_",
+             lambda x, i: torch.zeros((n, d), dtype=dtype, device=dev).index_add_(0, i, x),
+             (real, real_ids), e * ids.element_size()),
+        ]
+        for which, call, args, plain, lib_name, lib_call, lib_args, index_bytes in rows:
+            t = device_times(call, rotations(args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            t_lib = device_times(lib_call, rotations(lib_args), guarded=True, what=lib_name)
+            n_bytes = e_real * d * es + index_bytes + n * d * 4
+            bound_ms, bound_by = bound(n_bytes, e_real * d, torch.float32)  # f32 adds
+            print(f"    time {which}: kernel {fmt_times(t)}, plain {plain_ms:.4f} ms, "
+                  f"{lib_name} {fmt_times(t_lib)}, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({n_bytes / t['cold_ms'] / 1e6:.0f} GB/s moved by the cold kernel)")
+            out[which][dtype] = dict(
+                max_abs_err=errs[which], **t, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=t_lib["ms"], library_graph_ms=t_lib["graph_ms"],
+                library_cold_ms=t_lib["cold_ms"])
     return out
+
+
+def time_segment_kernels(package_root: str) -> None:
+    """Print the three times of kernel A and the id-keyed sum of the
+    `ignnition_tpu_torch` package under `package_root` at the timed shapes of
+    phase 2. For holding two trees against each other on one card: unpack the
+    other commit into a directory, then in one command run, once per tree and
+    in turns (parent, change, change, parent),
+
+        python3 -c "import chip_smoke as c; c.time_segment_kernels('DIR')"
+
+    from the checkout whose timing method is to be used. `main` never calls
+    it."""
+    sys.path.insert(0, os.path.abspath(package_root))
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+    dev, rng = torch.device("cuda", 0), np.random.default_rng(SEED)
+    print(f"segment kernels of {os.path.dirname(os.path.dirname(os.path.dirname(sk.__file__)))}")
+    for e, n, d in ((131_072, 2048, 32), (524_288, 8192, 32), (524_288, 8192, 8),
+                    (131_072, 2048, 48)):
+        row_ptr, ids_np, _ = segment_case(rng, "uniform", e, n)
+        rp = torch.from_numpy(row_ptr).to(dev)
+        ids = torch.from_numpy(ids_np).to(dev).to(torch.int64)
+        for dtype in (torch.bfloat16, torch.float32):
+            data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dev, dtype)
+            t_csr = device_times(lambda x, r: sk.sorted_segment_sum_csr(x, r),
+                                 rotations((data, rp)))
+            t_ids = device_times(lambda x, i: sk.sorted_segment_sum_ids(x, i, n),
+                                 rotations((data, ids)))
+            print(f"  [{e}x{d}] -> [{n}x{d}] {str(dtype)[6:]}: kernel A {fmt_times(t_csr)}; "
+                  f"id-keyed {fmt_times(t_ids)}")
+
+
+def check_segment_sum_windows(dev, rng, n_paths: int, path_len: int, n_src: int,
+                              d: int = HS) -> dict:
+    """Kernel A over several windows at the shape `_gss_bwd` gives it: the
+    cotangent rows of [path_len, n_paths] slots gathered into source order by
+    the data layer's windowed slice sort, summed into n_src rows in one
+    launch; against the plain windowed version and the loop of one launch per
+    window that it replaces."""
+    from ignnition_tpu_torch.data.graph import slice_sort_companions
+    from ignnition_tpu_torch.ops import segment as seg
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+    slice_src = rng.integers(0, n_src, size=(path_len, n_paths)).astype(np.int32)
+    comp = slice_sort_companions(slice_src, n_src)
+    rp = torch.from_numpy(comp["slice_sort_row_ptr"]).to(dev)
+    local = torch.from_numpy(comp["slice_sort_perm"]).to(dev)
+    n_slots = path_len * n_paths
+    windows = (rp.shape[0] - 1) // n_src
+    w = -(-n_slots // windows)
+    whole = seg._whole_sort_perm(local, windows)
+    if seg._whole_sort_perm(local, windows) is not whole:
+        raise AssertionError("the whole permutation is not kept on its tensor")
+
+    def per_window_loop(flat):
+        total = None
+        for c in range(windows):
+            lo, hi = c * w, min((c + 1) * w, n_slots)
+            part = flat[lo:hi][local[lo:hi]]
+            s = sk.sorted_segment_sum_csr(part, rp[c * n_src: c * n_src + n_src + 1] - lo)
+            total = s if total is None else total + s
+        return total
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        flat = torch.from_numpy(
+            rng.standard_normal((n_slots, d)).astype(np.float32)).to(dev, dtype)
+        data = flat[whole]
+        tag = f"[{n_slots}x{d}], {windows} windows -> [{n_src}x{d}] {str(dtype)[6:]}"
+        before = (sk.launch_count, sk.windows_launch_count)
+        got = sk.sorted_segment_sum_csr_windows(data, rp, n_src)
+        again = sk.sorted_segment_sum_csr_windows(data, rp, n_src)
+        torch.cuda.synchronize()
+        if (sk.launch_count, sk.windows_launch_count) != (before[0] + 2, before[1] + 2):
+            raise AssertionError("the windowed sum is not one launch of kernel A per call")
+        if got.dtype != torch.float32 or not torch.equal(got, again):
+            raise AssertionError(f"windowed sum {tag}: {got.dtype}, or two calls differ")
+        why = f"f32 sums of ~{n_slots // n_src} rows in another order"
+        err = compare(f"kernel A windowed {tag} vs plain, bitwise repeatable", got,
+                      sk.sorted_segment_sum_csr_windows_plain(data, rp, n_src),
+                      atol=1e-4, rtol=1e-5, why=why)
+        compare(f"kernel A windowed {tag} vs one launch per window", got,
+                per_window_loop(flat), atol=1e-4, rtol=1e-5, why=why)
+        t = device_times(lambda x, r: sk.sorted_segment_sum_csr_windows(x, r, n_src),
+                         rotations((data, rp)))
+        loop_ms = cuda_ms(lambda: per_window_loop(flat))
+        both_ms = cuda_ms(
+            lambda: sk.sorted_segment_sum_csr_windows(flat[whole], rp, n_src))
+        plain_ms = cuda_ms(lambda: sk.sorted_segment_sum_csr_windows_plain(data, rp, n_src),
+                           iters=5)
+        n_bytes = n_slots * d * data.element_size() + rp.shape[0] * 4 + n_src * d * 4
+        bound_ms, bound_by = bound(n_bytes, n_slots * d, torch.float32)
+        print(f"    time: kernel {fmt_times(t)}, with its gather {both_ms:.4f} ms; the loop of "
+              f"{windows} gathers, launches and adds it replaces {loop_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}; no single library "
+              f"call computes it")
+        out[dtype] = dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None, library_graph_ms=None,
+                          library_cold_ms=None, with_gather_ms=both_ms,
+                          per_window_loop_ms=loop_ms)
+    return out
+
+
+def check_ids_call_is_one_launch(dev, rng) -> None:
+    """Device kernels per call of `sorted_segment_sum_ids`, from the profiler:
+    one (the earlier wrapper made three and a cast)."""
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+    e, n, d = 131_072, FLAGSHIP["n_links"], 48
+    ids = torch.from_numpy(np.sort(rng.integers(0, n, size=e)).astype(np.int32)).to(dev)
+    data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dev)
+    per_kernel, launches = device_time_by_kernel(lambda: sk.sorted_segment_sum_ids(data, ids, n))
+    if not per_kernel:
+        print("[kernels] id-keyed call: the profiler saw no device activity; device "
+              "launches per call not measured")
+        return
+    print(f"[kernels] one call of sorted_segment_sum_ids: {launches:.0f} device launch "
+          f"(torch.profiler; 3 and a cast before): "
+          + ", ".join(f"{k[:60]} {v:.4f} ms" for k, v in per_kernel.items()))
+    if launches != 1:
+        raise AssertionError(f"sorted_segment_sum_ids made {launches} device launches a call")
 
 
 def _gru_inputs(dev, rng, L, n, d, u):
@@ -422,22 +732,24 @@ def check_gru_scan(dev, rng) -> dict:
             got, want, atol=atol, rtol=rtol, why=why,
         )
         # timed at full lengths: every flagship path has path_len links
-        ms = cuda_ms(lambda: rk.masked_gru_scan(xs, full, h0, p))
-        plain_ms = cuda_ms(lambda: rk.masked_gru_scan_plain(xs, full, h0, p))
-        gru = _library_gru(p, d, u, dtype, dev)
         with torch.no_grad():
+            t = device_times(rk.masked_gru_scan, rotations((xs, full, h0, p)))
+            plain_ms = cuda_ms(lambda: rk.masked_gru_scan_plain(xs, full, h0, p))
+            gru = _library_gru(p, d, u, dtype, dev)
             lib = gru(xs, h0[None])[1][0]
             yardstick_diff(f"library torch.nn.GRU (cuDNN) at full lengths {str(dtype)[6:]}",
                            lib, rk.masked_gru_scan(xs, full, h0, p))
-            library_ms = cuda_ms(lambda: gru(xs, h0[None]))
+            t_lib = device_times(lambda x, h: gru(x, h), rotations((xs, h0[None])),
+                                 guarded=True, what="torch.nn.GRU")
         flops = 2 * L * n * (d + u) * 3 * u
         in_bytes, state_bytes = _gru_bytes(L, n, d, u, xs.element_size())
         bound_ms, bound_by = bound(in_bytes + state_bytes, flops, dtype)
-        print(f"    time at full lengths: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.nn.GRU {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({flops / ms / 1e9:.1f} TFLOP/s by the kernel)")
-        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
+        print(f"    time at full lengths: kernel {fmt_times(t)}, plain {plain_ms:.4f} ms, "
+              f"torch.nn.GRU {fmt_times(t_lib)}, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flops / t['graph_ms'] / 1e9:.1f} TFLOP/s by the kernel in graph replay)")
+        out[dtype] = dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=t_lib["ms"],
+                          library_graph_ms=t_lib["graph_ms"], library_cold_ms=t_lib["cold_ms"])
     return out
 
 
@@ -489,63 +801,37 @@ def check_gru_scan_bwd(dev, rng) -> dict:
                 if per_row:
                     err = max(err, e)
         wx, wh, b = (p[k].contiguous() for k in names)
-        ms = cuda_ms(lambda: rk._launch_backward(xs, full, h0, wx, wh, b, ct))
+        t = device_times(rk._launch_backward, rotations((xs, full, h0, wx, wh, b, ct)))
         plain_ms = cuda_ms(lambda: rk.masked_gru_scan_bwd_plain(xs, full, h0, p, ct), iters=5)
         gru = _library_gru(p, d, u, dtype, dev)
-        x_lib = xs.clone().requires_grad_(True)
-        h_lib = h0[None].clone().requires_grad_(True)
-        h_n = gru(x_lib, h_lib)[1][0]
-        lib_leaves = [x_lib, h_lib, *gru.parameters()]
-        library_ms = cuda_ms(
-            lambda: torch.autograd.grad(h_n, lib_leaves, ct, retain_graph=True))
+
+        def library_forward(x, h, c):
+            # on the capture stream, so that the backward's kernels run there
+            x_lib, h_lib = x.clone().requires_grad_(True), h.clone().requires_grad_(True)
+            return gru(x_lib, h_lib)[1][0], [x_lib, h_lib, *gru.parameters()], c
+
+        side_stream().wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side_stream()):
+            lib_sets = [library_forward(*a) for a in rotations((xs, h0[None], ct))]
+        torch.cuda.synchronize()
+        t_lib = device_times(
+            lambda h_n, leaves, c: torch.autograd.grad(h_n, leaves, c, retain_graph=True),
+            lib_sets, guarded=True, what="torch.nn.GRU backward")
+        library_ms = t_lib["ms"]
         flops = 3 * 2 * L * n * (d + u) * 3 * u  # recompute, transposed products, weight grads
         in_bytes, state_bytes = _gru_bytes(L, n, d, u, xs.element_size())
         # read the inputs and ct; write d_xs, d_h0 and the f32 weight gradients
         n_bytes = (in_bytes + state_bytes + L * n * d * xs.element_size() + n * u * 4
                    + (d + u + 2) * 3 * u * 4)
         bound_ms, bound_by = bound(n_bytes, flops, dtype)
-        print(f"    time at full lengths: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.nn.GRU backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({flops / ms / 1e9:.1f} TFLOP/s by the kernel)")
-        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
-    return out
-
-
-def check_segment_sum_ids(dev, rng, e: int, n: int, d: int) -> dict:
-    """The id-keyed sum on [e, d] rows into n segments (every edge counts),
-    beside `index_add_`."""
-    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
-
-    ids = torch.from_numpy(np.sort(rng.integers(0, n, size=e))).to(dev)
-    out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dev, dtype)
-        before = sk.ids_launch_count
-        got = sk.sorted_segment_sum_ids(data, ids, n)
-        torch.cuda.synchronize()
-        if sk.ids_launch_count != before + 1 or got.dtype != torch.float32:
-            raise AssertionError("sorted_segment_sum_ids did not launch kernel A into f32")
-        want = sk.sorted_segment_sum_ids_plain(data, ids, n)
-        err = compare(
-            f"id-keyed segment sum [{e}x{d}] -> [{n}x{d}] {str(dtype)[6:]}",
-            got, want, atol=1e-4, rtol=1e-5,
-            why=f"f32 sums of ~{e // n} rows in another order (plain uses atomics)",
-        )
-        ms = cuda_ms(lambda: sk.sorted_segment_sum_ids(data, ids, n))
-        plain_ms = cuda_ms(lambda: sk.sorted_segment_sum_ids_plain(data, ids, n))
-        # the library's scatter-add of the same rows, in the data's type
-        lib = torch.zeros((n, d), dtype=dtype, device=dev).index_add_(0, ids, data)
-        yardstick_diff(f"library index_add_ {str(dtype)[6:]} (sums in the data's type)",
-                       lib, want)
-        library_ms = cuda_ms(
-            lambda: torch.zeros((n, d), dtype=dtype, device=dev).index_add_(0, ids, data))
-        n_bytes = e * d * data.element_size() + e * ids.element_size() + n * d * 4
-        bound_ms, bound_by = bound(n_bytes, e * d, torch.float32)  # f32 adds
-        print(f"    time: searchsorted + kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}")
-        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
+        print(f"    time at full lengths: kernel {fmt_times(t)}, plain {plain_ms:.4f} ms, "
+              f"torch.nn.GRU backward {fmt_times(t_lib)}, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({flops / t['graph_ms'] / 1e9:.1f} TFLOP/s by the kernel in graph "
+              f"replay)")
+        out[dtype] = dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms,
+                          library_graph_ms=t_lib["graph_ms"], library_cold_ms=t_lib["cold_ms"])
+        del lib_sets
     return out
 
 
@@ -630,9 +916,9 @@ def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m
         # operations of this run's data: only the non-zero entries do work
         fwd_bound = bound(fwd_bytes, nnz * (2 * d + 8), dtype)
         bwd_bound = bound(bwd_bytes, nnz * (6 * d + 16), dtype)
-        fwd_ms = cuda_ms(lambda: ak.flash_gat_forward(ssrc, sdst, x, m, stab))
-        bwd_ms = cuda_ms(
-            lambda: ak.flash_gat_backward(ssrc, sdst, x, m, stab, den, ct, srow))
+        t_fwd = device_times(ak.flash_gat_forward, rotations((ssrc, sdst, x, m, stab)))
+        t_bwd = device_times(ak.flash_gat_backward,
+                             rotations((ssrc, sdst, x, m, stab, den, ct, srow)))
         fwd_plain = cuda_ms(lambda: ak.flash_gat_forward_plain(ssrc, sdst, x, m, stab),
                             iters=5, warmup=1)
         bwd_plain = cuda_ms(
@@ -650,17 +936,18 @@ def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m
                 routed, leaves, ct[0], retain_graph=True), iters=5, warmup=1)
         else:
             dense_bwd = None
-        print(f"    time {name}: D {fwd_ms:.4f} ms (plain {fwd_plain:.3f}, materializing "
+        print(f"    time {name}: D {fmt_times(t_fwd)} (plain {fwd_plain:.3f}, materializing "
               f"route {dense_fwd:.3f}, bound {fwd_bound[0]:.4f} by {fwd_bound[1]}, "
-              f"{fwd_bytes / fwd_ms / 1e6:.0f} GB/s); E {bwd_ms:.4f} ms (plain "
+              f"{fwd_bytes / t_fwd['cold_ms'] / 1e6:.0f} GB/s cold); E {fmt_times(t_bwd)} (plain "
               f"{bwd_plain:.3f}, materializing route "
               f"{'-' if dense_bwd is None else format(dense_bwd, '.3f')}, bound "
               f"{bwd_bound[0]:.4f} by {bwd_bound[1]}); {nnz} non-zeros of {g * bd * bs}")
-        fwd[dtype] = dict(max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain,
-                          bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None,
+        none = dict(library_ms=None, library_graph_ms=None, library_cold_ms=None)
+        fwd[dtype] = dict(max_abs_err=err, **t_fwd, plain_ms=fwd_plain,
+                          bound_ms=fwd_bound[0], bound_by=fwd_bound[1], **none,
                           materializing_route_ms=dense_fwd)
-        bwd[dtype] = dict(max_abs_err=err_b, ms=bwd_ms, plain_ms=bwd_plain,
-                          bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=None,
+        bwd[dtype] = dict(max_abs_err=err_b, **t_bwd, plain_ms=bwd_plain,
+                          bound_ms=bwd_bound[0], bound_by=bwd_bound[1], **none,
                           materializing_route_ms=dense_bwd)
     return dict(fwd=fwd, bwd=bwd)
 
@@ -844,6 +1131,12 @@ def time_training_step(name, step, state, batch, arrays, card) -> dict:
           f"memory {peak:.0f} MiB, bf16 compute, on {card}")
     out = dict(step_ms=step_ms, edge_messages_per_s=rate, peak_mib=peak)
     out.update(print_profile(f"{name} training step", lambda: step(state, batch), step_ms))
+    earlier = EARLIER_LAUNCHES_PER_STEP.get(name)
+    if earlier and "kernels_per_call" in out:
+        print(f"    {out['kernels_per_call']:.0f} launches per step; {earlier} with one "
+              f"kernel-A launch per slice-sort window")
+        if name == "flagship_x4" and not out["kernels_per_call"] < earlier:
+            raise AssertionError(f"{name}: the step's launches did not fall below {earlier}")
     return out
 
 
@@ -859,7 +1152,8 @@ def train(dev, card: str) -> dict:
     ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
     rng = np.random.default_rng(SEED + 1)
     padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
-    launches = {"csr_segment_sum": 0, "masked_gru_scan": 0, "masked_gru_scan_bwd": 0}
+    launches = {"csr_segment_sum": 0, "csr_segment_sum_windows": 0, "masked_gru_scan": 0,
+                "masked_gru_scan_bwd": 0}
     result = {}
     for name, size in (("flagship", FLAGSHIP), ("flagship_x4", FLAGSHIP_X4)):
         t0 = time.perf_counter()
@@ -897,33 +1191,38 @@ def train(dev, card: str) -> dict:
         windows = (arrays[f"slice_sort_row_ptr_{a}"].shape[0] - 1) // meta.nodes("link")
         dense = any(k.startswith(("dense_inc_", "inc_blocks_")) for k in arrays)
         sliced = any(k.startswith("bwd_slice_dst_") for k in arrays)
-        # kernel A: `_gss_bwd` once per window and iteration, but for the
-        # first iteration, whose link states come from the features alone and
-        # need no gradient; past the dense cap also stage 2's forward and,
-        # without the slice map, its backward
-        want_a = (ITERATIONS - 1) * windows + (
-            0 if dense else ITERATIONS * (1 if sliced else 2))
-        sk.launch_count = rk.launch_count = rk.bwd_launch_count = 0
+        # kernel A: `_gss_bwd` once per iteration whatever the number of
+        # windows (the windowed entry adds them in one launch; a launch per
+        # window before), but for the first iteration, whose link states come
+        # from the features alone and need no gradient; past the dense cap also
+        # stage 2's forward and, without the slice map, its backward
+        want_a = (ITERATIONS - 1) + (0 if dense else ITERATIONS * (1 if sliced else 2))
+        want_w = ITERATIONS - 1 if windows > 1 else 0
+        sk.launch_count = sk.windows_launch_count = 0
+        rk.launch_count = rk.bwd_launch_count = 0
         metrics = []
         for i in range(TRAIN_STEPS[name]):
-            before = (sk.launch_count, rk.launch_count, rk.bwd_launch_count)
+            counters = lambda: (sk.launch_count, sk.windows_launch_count, rk.launch_count,
+                                rk.bwd_launch_count)
+            before = counters()
             state, m = step(state, batch)
-            da, db, dc = (now - was for now, was in zip(
-                (sk.launch_count, rk.launch_count, rk.bwd_launch_count), before))
-            if (da, db, dc) != (want_a, ITERATIONS, ITERATIONS):
+            got = tuple(now - was for now, was in zip(counters(), before))
+            if got != (want_a, want_w, ITERATIONS, ITERATIONS):
                 raise AssertionError(
-                    f"{name} step {i}: expected kernel A +{want_a}, B +{ITERATIONS}, "
-                    f"C +{ITERATIONS} launches, got +{da}, +{db}, +{dc}")
+                    f"{name} step {i}: expected kernel A +{want_a} (+{want_w} of them "
+                    f"windowed), B +{ITERATIONS}, C +{ITERATIONS} launches, got {got}")
             metrics.append(m)
         torch.cuda.synchronize()
         launches["csr_segment_sum"] += sk.launch_count
+        launches["csr_segment_sum_windows"] += sk.windows_launch_count
         launches["masked_gru_scan"] += rk.launch_count
         launches["masked_gru_scan_bwd"] += rk.bwd_launch_count
         totals = [float(m["total"]) for m in metrics]
         losses = [float(m["loss"]) for m in metrics]
         print(f"  {name}: {len(totals)} steps, loss+reg " + " ".join(f"{t:.5f}" for t in totals)
               + "; loss " + " ".join(f"{t:.5f}" for t in losses)
-              + f"; per step kernel A +{want_a} ({windows} slice-sort windows), "
+              + f"; per step kernel A +{want_a} ({windows} slice-sort windows: "
+              f"{want_a + want_w * (windows - 1)} launches with one per window), "
               f"B +{ITERATIONS}, C +{ITERATIONS}")
         if not all(np.isfinite(totals + losses)):
             raise AssertionError(f"{name}: a loss is not finite")
@@ -949,7 +1248,8 @@ def train(dev, card: str) -> dict:
         # ---- step time ----
         result[name] = dict(losses=totals, **time_training_step(
             name, step, state, batch, arrays, card))
-    print(f"[train] main path launch counts: kernel A {launches['csr_segment_sum']}, "
+    print(f"[train] main path launch counts: kernel A {launches['csr_segment_sum']} "
+          f"({launches['csr_segment_sum_windows']} windowed), "
           f"kernel B {launches['masked_gru_scan']}, kernel C {launches['masked_gru_scan_bwd']}")
     if min(launches.values()) == 0:
         raise AssertionError("a kernel of the training path was never launched")
@@ -973,13 +1273,14 @@ class Counts:
         self.ak, self.rk, self.sk = ak, rk, sk
 
     def reset(self) -> None:
-        self.sk.launch_count = self.sk.ids_launch_count = 0
+        self.sk.launch_count = self.sk.windows_launch_count = self.sk.ids_launch_count = 0
         self.rk.launch_count = self.rk.bwd_launch_count = 0
         self.ak.fwd_launch_count = self.ak.bwd_launch_count = 0
 
     def read(self) -> dict:
         return {
             "csr_segment_sum": self.sk.launch_count,
+            "csr_segment_sum_windows": self.sk.windows_launch_count,
             "segment_sum_ids": self.sk.ids_launch_count,
             "masked_gru_scan": self.rk.launch_count,
             "masked_gru_scan_bwd": self.rk.bwd_launch_count,
@@ -1167,15 +1468,15 @@ def attention(dev, card: str) -> dict:
     add(got)
     if preds.shape != (SMALL_PER_EDGE["n_paths"],) or not np.all(np.isfinite(preds)):
         raise AssertionError(f"attention hs=48: {preds.shape} or non-finite")
-    # per iteration: the numerator (width 48) by ids, the denominator (width 8)
-    # by row pointers; both are launches of kernel A
+    # per iteration: the numerator (width 48) through the id-keyed kernel, the
+    # denominator (width 8) through kernel A
     expect_counts(f"attention hs=48 request ({preds.shape[0]} predictions)", got,
-                  csr_segment_sum=2 * ITERATIONS, segment_sum_ids=ITERATIONS,
+                  csr_segment_sum=ITERATIONS, segment_sum_ids=ITERATIONS,
                   masked_gru_scan=ITERATIONS)
     kernels_vs_plain_forward("attention hs=48 (per-edge)", server, ir48, params48, sample,
                              dev, (None,))
-    # the per-edge backward on the card: `gather_by_dst` and the id-keyed sum
-    # under autograd, both through kernel A
+    # the per-edge backward on the card: `gather_by_dst` (kernel A) and the
+    # id-keyed kernel under autograd
     arrays, meta = igt.build_batch([sample], ir48, padding, training=True)
     trainer = igt.Trainer(igt.build(ir48), padding, compute_dtype=None)
     state = trainer.init_state(torch.Generator().manual_seed(SEED))
@@ -1184,6 +1485,25 @@ def attention(dev, card: str) -> dict:
     print("[attention] main path launch counts: "
           + ", ".join(f"{k} {v}" for k, v in total.items()))
     return dict(launches=total, **result)
+
+
+def print_ptxas(log: str) -> None:
+    """One line per kernel of what `-Xptxas=-v` reported: its (mangled) name,
+    registers and spills."""
+    name = "?"
+    spill = ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            found = re.search(r"_cu_[0-9a-f]{8}\d+(.*)", name)  # past the file's prefix
+            name = found.group(1) if found else name
+        elif "spill" in line:
+            spill = line
+        elif "registers" in line:
+            used = line.split("Used", 1)[-1].strip()
+            print(f"  ptxas: {name[:56]}: {used}; {spill}")
+            spill = ""
 
 
 def main() -> None:
@@ -1209,23 +1529,33 @@ def main() -> None:
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0:.1f} s)"
           f" -> {_build.library_path().name}")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    print_ptxas(_build.build_log)
 
     # ---- phase 2: kernels against their plain versions ----
     rng = np.random.default_rng(SEED)
     e_slices = FLAGSHIP["n_paths"] * FLAGSHIP["path_len"]
     print(f"[kernels] at the main paths' shapes on {card}")
-    seg = check_segment_sum(dev, rng, "stage 2 forward at x4", 524_288,
-                            FLAGSHIP_X4["n_links"], gathered=False)
-    seg_bwd = check_segment_sum(dev, rng, "slice-gather backward", e_slices,
-                                FLAGSHIP["n_links"], gathered=True)
+    x4_links, links = FLAGSHIP_X4["n_links"], FLAGSHIP["n_links"]
+    seg = check_segment_sums(dev, rng, "stage 2 forward at x4", 524_288, x4_links, HS,
+                             timed=True)
+    seg_bwd = check_segment_sums(dev, rng, "slice-gather backward", e_slices, links, HS,
+                                 gathered=True, timed=True)
     # per-edge attention at x4: the softmax denominator is [E, 8] -> [N, 8]
-    seg_w8 = check_segment_sum(dev, rng, "attention x4 denominator", 524_288,
-                               FLAGSHIP_X4["n_links"], gathered=False, d=8)
-    seg_ids = check_segment_sum_ids(dev, rng, e_slices, FLAGSHIP["n_links"], 48)
-    seg_ids32 = check_segment_sum_ids(dev, rng, e_slices, FLAGSHIP["n_links"], HS)
+    seg_w8 = check_segment_sums(dev, rng, "attention x4 denominator", 524_288, x4_links, 8,
+                                timed=True)
+    seg_w48 = check_segment_sums(dev, rng, "a width off 128", e_slices, links, 48, timed=True)
+    for d in (8, 20, 128, 256):
+        check_segment_sums(dev, rng, f"width {d}", e_slices, links, d)
+    check_segment_sums(dev, rng, "a quarter of the edges in one row", e_slices, links, HS,
+                       kind="skewed")
+    check_segment_sums(dev, rng, "every edge in one row", e_slices, links, HS,
+                       kind="one_of_many")
+    check_segment_sums(dev, rng, "a single row", e_slices, 1, HS, kind="even")
+    check_segment_sums(dev, rng, "one row of 2 edges", 2, 1, HS, kind="even")
+    check_segment_sums(dev, rng, "65,536 rows of 2 edges", e_slices, 65_536, HS, kind="even")
+    seg_win = check_segment_sum_windows(dev, rng, FLAGSHIP_X4["n_paths"],
+                                        FLAGSHIP_X4["path_len"], x4_links)
+    check_ids_call_is_one_launch(dev, rng)
     gru = check_gru_scan(dev, rng)
     gru_bwd = check_gru_scan_bwd(dev, rng)
     gat = check_attention_kernels(dev, rng)
@@ -1243,9 +1573,12 @@ def main() -> None:
     csrc = "ignnition_tpu_torch/csrc/"
     pallas = "ignnition_tpu/ops/pallas/"
     sources = {
-        "csr_segment_sum": (csrc + "segment_sum.cu", pallas + "segment_kernels.py:337", seg),
+        "csr_segment_sum": (csrc + "segment_sum.cu", pallas + "segment_kernels.py:337",
+                            seg["csr"]),
+        "csr_segment_sum_windows": (csrc + "segment_sum.cu",
+                                    pallas + "segment_kernels.py:337", seg_win),
         "segment_sum_ids": (csrc + "segment_sum.cu", pallas + "segment_kernels.py:150",
-                            seg_ids),
+                            seg_w48["ids"]),
         "masked_gru_scan": (csrc + "gru_scan.cu", pallas + "rnn_kernels.py:260", gru),
         "masked_gru_scan_bwd": (csrc + "gru_scan_bwd.cu", pallas + "rnn_kernels.py:279",
                                 gru_bwd),
@@ -1268,11 +1601,15 @@ def main() -> None:
             launches_attention=on_attention,
             **checked[bf16], f32=checked[torch.float32],
         ))
-    kernels[0]["at_slice_gather_backward_shape"] = dict(
-        bf16=seg_bwd[bf16], f32=seg_bwd[torch.float32])
-    kernels[0]["at_width_8"] = dict(bf16=seg_w8[bf16], f32=seg_w8[torch.float32])
-    kernels[1]["at_width_32"] = dict(bf16=seg_ids32[bf16], f32=seg_ids32[torch.float32])
-    for k, which in ((kernels[4], "fwd"), (kernels[5], "bwd")):
+    by_name = {k["name"]: k for k in kernels}
+    both = lambda checked: dict(bf16=checked[bf16], f32=checked[torch.float32])
+    by_name["csr_segment_sum"].update(
+        at_slice_gather_backward_shape=both(seg_bwd["csr"]), at_width_8=both(seg_w8["csr"]),
+        at_width_48=both(seg_w48["csr"]))
+    by_name["segment_sum_ids"].update(
+        at_width_32=both(seg_bwd["ids"]), at_x4_shape=both(seg["ids"]),
+        at_width_8=both(seg_w8["ids"]))
+    for k, which in ((by_name["flash_gat_fwd"], "fwd"), (by_name["flash_gat_bwd"], "bwd")):
         k["over_4_graph_blocks"] = gat["blocks"][which][bf16]
     print(json.dumps({"kernels": kernels, "latency": served["latency"],
                       "training": trained["steps"],

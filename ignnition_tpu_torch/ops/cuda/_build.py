@@ -130,8 +130,11 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.ign_csr_segment_sum.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+            i64 = ctypes.c_longlong
+            lib.ign_csr_segment_sum.argtypes = [ptr, ptr, ptr, i64] + [i32] * 4 + [ptr]
             lib.ign_csr_segment_sum.restype = i32
+            lib.ign_segment_sum_ids.argtypes = [ptr, ptr, ptr, i64] + [i32] * 4 + [ptr]
+            lib.ign_segment_sum_ids.restype = i32
             lib.ign_masked_gru_scan.argtypes = (
                 [ptr] * 7 + [i32] * 5 + [ptr]
             )

@@ -1,27 +1,43 @@
-"""Kernel A: sorted-COO segment sum with CSR row pointers, and the id-keyed
-sum over it.
+"""Kernel A (sorted-COO segment sum with CSR row pointers), its windowed
+form, and the id-keyed segment sum.
 
-Replaces the TPU kernel `ignnition_tpu/ops/pallas/segment_kernels.py`,
+They replace the TPU kernels of `ignnition_tpu/ops/pallas/segment_kernels.py`:
 `_packed_impl` / `_make_packed_kernel` (reached through
-`sorted_segment_sum_csr`). The CUDA source is `csrc/segment_sum.cu`; its
-header comment gives what bounds the kernel on an H100 (device-memory bytes)
-and what its design does about that.
+`sorted_segment_sum_csr`) and `_sorted_segment_sum_impl` (reached through
+`sorted_segment_sum_pallas`, and through `sorted_segment_sum_csr` where the
+width does not divide 128). The CUDA source is `csrc/segment_sum.cu`: one
+kernel body behind two C entries (row pointers of one or several windows;
+sorted ids), one launch per call.
 
-Contract, the TPU kernel's: `out[n] = sum(data[row_ptr[n]:row_ptr[n+1]])`
-for `n < len(row_ptr) - 1`; edges outside `[row_ptr[0], row_ptr[-1])` are
-padding and never read; bf16 or f32 in, accumulated in f32, **f32 out**.
-The backward is the TPU function's (`_csr_bwd`): a row gather of the
-cotangent by segment id, cast to the data's dtype, plain tensor code.
+What bounds them on an H100 depends on the shape (the source's header has
+the reckoning): device-memory bytes are the floor, but at the models' small
+shapes (2,048 rows of ~64 edges) the time is memory latency and the launch,
+not bytes, so the design is about bytes in flight: 16-byte loads whatever
+the width, eight of them per lane before the first add, and a CTA that deals
+the batches of its rows to its warps in turn, so that a long row gets all
+of them. No float atomics: two calls agree bit for bit.
 
-`sorted_segment_sum_ids` replaces the TPU kernel `_sorted_segment_sum_impl`
-of the same file (reached through `sorted_segment_sum_pallas`, and through
-`sorted_segment_sum_csr` where the width does not divide 128). That function
-takes its row pointers from a `searchsorted` over the sorted ids outside the
-kernel body and sums in the body; its f32 id column and lane padding are
-Mosaic workarounds. Here it is `torch.searchsorted` for the row pointers and
-kernel A for the sum, at any width. Its contract differs from kernel A's in
-one point, kept: every edge whose id is below `num_segments` is summed,
-padding edges included, so callers zero those first.
+Contracts, the TPU kernels':
+
+* `sorted_segment_sum_csr`: `out[n] = sum(data[row_ptr[n]:row_ptr[n+1]])`
+  for `n < len(row_ptr) - 1`; edges outside `[row_ptr[0], row_ptr[-1])` are
+  padding and never read; bf16 or f32 in, accumulated in f32, **f32 out**.
+  The backward is the TPU function's (`_csr_bwd`): a row gather of the
+  cotangent by segment id, cast to the data's dtype, plain tensor code.
+* `sorted_segment_sum_csr_windows`: the same over the row pointers of
+  several windows laid one after another (the windowed slice sort of the
+  data layer), `out[n]` adding row `n` of every window. The TPU function
+  sums `windows * n_rows` segments and reduces `[windows, n_rows, D]`; here
+  it is one launch.
+* `sorted_segment_sum_ids`: the sum keyed by non-decreasing `segment_ids`
+  at any width. That TPU function takes its row pointers from a
+  `searchsorted` outside the kernel body; its f32 id column and lane padding
+  are Mosaic workarounds. Here the kernel finds each row's edge range itself
+  (a 32-way search of the sorted ids by one warp per bound), so a call is
+  one launch with no `searchsorted`, `arange` or cast before it. Its
+  contract differs from kernel A's in one point, kept: every edge whose id
+  lies in `[0, num_segments)` is summed, padding edges included, so callers
+  zero those first.
 """
 
 from __future__ import annotations
@@ -30,8 +46,9 @@ import torch
 
 from . import _build
 
-launch_count = 0  # launches of the CUDA kernel in this process
-ids_launch_count = 0  # those of them made for `sorted_segment_sum_ids`
+launch_count = 0  # launches of kernel A in this process
+windows_launch_count = 0  # those of them over more than one window
+ids_launch_count = 0  # launches of the id-keyed kernel
 
 
 def sorted_segment_sum_csr_plain(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
@@ -45,33 +62,73 @@ def sorted_segment_sum_csr_plain(data: torch.Tensor, row_ptr: torch.Tensor) -> t
     return out.index_add_(0, ids, rows)
 
 
-def _launch(data: torch.Tensor, row_ptr: torch.Tensor, by_ids: bool = False) -> torch.Tensor:
-    """The kernel on a CUDA tensor. `by_ids`: the launch is made for the
-    id-keyed sum and counts there too."""
-    global launch_count, ids_launch_count
-    _build.check_device(data, "sorted_segment_sum_csr")
+def sorted_segment_sum_csr_windows_plain(
+    data: torch.Tensor, row_ptr: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """The windowed sum in plain PyTorch: one sum over every window's rows,
+    then the windows added (the TPU function's form)."""
+    flat = sorted_segment_sum_csr_plain(data, row_ptr)
+    return flat.reshape(-1, num_segments, data.shape[1]).sum(dim=0)
+
+
+def _check_data(data: torch.Tensor, name: str) -> torch.Tensor:
+    _build.check_device(data, name)
     if data.dim() != 2 or data.dtype not in _build.DTYPE_CODES:
         raise ValueError(
-            f"sorted_segment_sum_csr takes 2-D bf16/f32 data, got "
-            f"{tuple(data.shape)} {data.dtype}"
+            f"{name} takes 2-D bf16/f32 data, got {tuple(data.shape)} {data.dtype}"
         )
+    if data.shape[0] >= 2**31:
+        raise ValueError(f"{name}: {data.shape[0]} edges do not fit an int32 row pointer")
+    return data.contiguous()
+
+
+def _launch(data: torch.Tensor, row_ptr: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Kernel A on a CUDA tensor: `row_ptr` holds `windows * num_segments + 1`
+    pointers, one launch whatever the number of windows."""
+    global launch_count, windows_launch_count
+    name = "sorted_segment_sum_csr"
+    data = _check_data(data, name)
     if row_ptr.dtype != torch.int32 or row_ptr.dim() != 1 or row_ptr.device != data.device:
+        raise ValueError(f"{name} takes a 1-D int32 row_ptr on the data's device")
+    windows = (row_ptr.shape[0] - 1) // num_segments if num_segments else 0
+    if num_segments and windows * num_segments + 1 != row_ptr.shape[0]:
         raise ValueError(
-            "sorted_segment_sum_csr takes a 1-D int32 row_ptr on the data's device"
+            f"{name}: {row_ptr.shape[0]} row pointers are not windows of {num_segments} rows"
         )
-    data = data.contiguous()
     row_ptr = row_ptr.contiguous()
-    n, d = row_ptr.shape[0] - 1, data.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=data.device)
-    if n == 0 or d == 0:
+    e, d = data.shape
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=data.device)
+    if num_segments == 0 or d == 0:
         return out
     code = _build.library().ign_csr_segment_sum(
-        data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, d,
+        data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), e, num_segments, windows, d,
         _build.DTYPE_CODES[data.dtype], _build.stream_handle(data.device),
     )
     _build.check(code, "csr_segment_sum")
     launch_count += 1
-    ids_launch_count += by_ids
+    windows_launch_count += windows > 1
+    return out
+
+
+def _launch_ids(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The id-keyed kernel on a CUDA tensor: one launch, the ids as they are."""
+    global ids_launch_count
+    name = "sorted_segment_sum_ids"
+    data = _check_data(data, name)
+    if segment_ids.dtype not in (torch.int32, torch.int64) or segment_ids.device != data.device:
+        raise ValueError(f"{name} takes int32 or int64 ids on the data's device")
+    segment_ids = segment_ids.contiguous()
+    e, d = data.shape
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=data.device)
+    if num_segments == 0 or d == 0:
+        return out
+    code = _build.library().ign_segment_sum_ids(
+        data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), e, num_segments, d,
+        _build.DTYPE_CODES[data.dtype], int(segment_ids.dtype == torch.int64),
+        _build.stream_handle(data.device),
+    )
+    _build.check(code, "segment_sum_ids")
+    ids_launch_count += 1
     return out
 
 
@@ -89,7 +146,7 @@ class _CsrSegmentSum(torch.autograd.Function):
     def forward(ctx, data, row_ptr):
         ctx.save_for_backward(row_ptr)
         ctx.data_dtype, ctx.num_edges = data.dtype, data.shape[0]
-        return _launch(data, row_ptr)
+        return _launch(data, row_ptr, row_ptr.shape[0] - 1)
 
     @staticmethod
     def backward(ctx, ct):
@@ -111,6 +168,21 @@ def sorted_segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.T
     return _CsrSegmentSum.apply(data, row_ptr)
 
 
+def sorted_segment_sum_csr_windows(
+    data: torch.Tensor, row_ptr: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """[E, D] bf16/f32 rows summed over the row pointers of several windows
+    (`row_ptr` [windows * num_segments + 1], offsets into the whole of
+    `data`) -> [num_segments, D] f32, row n adding row n of every window.
+    Not differentiable: backwards call it.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches kernel A
+    once (and raises if it cannot)."""
+    if data.device.type == "cpu":
+        return sorted_segment_sum_csr_windows_plain(data, row_ptr, num_segments)
+    return _launch(data.detach(), row_ptr, num_segments)
+
+
 def sorted_segment_sum_ids_plain(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
@@ -124,7 +196,8 @@ def sorted_segment_sum_ids_plain(
 
 def _ids_row_ptr(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """CSR pointers of non-decreasing ids: row_ptr[k] is the first edge whose
-    id reaches k."""
+    id reaches k. What the kernel's search finds per row; tests hold the two
+    keyed forms to each other with it."""
     bounds = torch.arange(num_segments + 1, device=segment_ids.device, dtype=segment_ids.dtype)
     return torch.searchsorted(segment_ids.contiguous(), bounds).to(torch.int32)
 
@@ -134,7 +207,7 @@ class _IdsSegmentSum(torch.autograd.Function):
     def forward(ctx, data, segment_ids, num_segments):
         ctx.save_for_backward(segment_ids)
         ctx.data_dtype = data.dtype
-        return _launch(data, _ids_row_ptr(segment_ids, num_segments), by_ids=True)
+        return _launch_ids(data, segment_ids, num_segments)
 
     @staticmethod
     def backward(ctx, ct):
@@ -145,15 +218,14 @@ class _IdsSegmentSum(torch.autograd.Function):
 def sorted_segment_sum_ids(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
-    """[E, D] bf16/f32 rows summed by non-decreasing `segment_ids` [E] into
-    `num_segments` rows -> f32, at any width D. Every edge whose id is below
-    `num_segments` counts, padding included. Differentiable in `data`: the
-    backward is `ct[segment_ids]` in the data's dtype (the TPU function's
-    `_sss_bwd`).
+    """[E, D] bf16/f32 rows summed by non-decreasing `segment_ids` [E] (int32
+    or int64) into `num_segments` rows -> f32, at any width D. Every edge
+    whose id lies in [0, num_segments) counts, padding included.
+    Differentiable in `data`: the backward is `ct[segment_ids]` in the data's
+    dtype (the TPU function's `_sss_bwd`).
 
-    A CPU tensor takes the plain version; a CUDA tensor takes its row
-    pointers from `torch.searchsorted` and launches kernel A (and raises if
-    it cannot)."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    id-keyed kernel once (and raises if it cannot)."""
     if segment_ids.dim() != 1 or segment_ids.shape[0] != data.shape[0]:
         raise ValueError(
             f"sorted_segment_sum_ids: {tuple(segment_ids.shape)} ids for data "

@@ -27,7 +27,28 @@ import torch
 import torch.nn.functional as F
 
 from .cuda.attention_kernels import flash_gat_backward, flash_gat_forward
-from .cuda.segment_kernels import sorted_segment_sum_csr, sorted_segment_sum_ids
+from .cuda.segment_kernels import (
+    sorted_segment_sum_csr,
+    sorted_segment_sum_csr_windows,
+    sorted_segment_sum_ids,
+)
+
+
+def _whole_sort_perm(sort_perm: torch.Tensor, n_windows: int) -> torch.Tensor:
+    """The windowed slice sort's permutation with indices into the whole
+    slot table: the data layer sorts the slots within ~equal windows and
+    emits indices local to each window. Made once per permutation tensor and
+    kept on it (a batch keeps its tensors over iterations and steps), so a
+    step pays one gather, not this arithmetic."""
+    cached = getattr(sort_perm, "_whole_sort_perm", None)
+    if cached is not None and cached[0] == (n_windows, sort_perm._version):
+        return cached[1]
+    n_slots = sort_perm.shape[0]
+    w = -(-n_slots // n_windows)
+    slot = torch.arange(n_slots, device=sort_perm.device, dtype=torch.int64)
+    whole = sort_perm.to(torch.int64) + (slot // w) * w
+    sort_perm._whole_sort_perm = ((n_windows, sort_perm._version), whole)
+    return whole
 
 
 class _GatherStateSlices(torch.autograd.Function):
@@ -43,24 +64,11 @@ class _GatherStateSlices(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         sort_perm, sort_row_ptr = ctx.saved_tensors
-        n_src = ctx.n_src
         l, n, d = ct.shape
-        n_slots = l * n
-        flat = ct.reshape(n_slots, d)
-        # the data layer may sort the slots within ~equal windows, with
-        # indices local to each window and n_src row pointers per window
-        n_chunks = (sort_row_ptr.shape[0] - 1) // n_src
-        if n_chunks > 1:
-            w = -(-n_slots // n_chunks)
-            ct_states = None
-            for c in range(n_chunks):
-                lo, hi = c * w, min((c + 1) * w, n_slots)
-                part = flat[lo:hi][sort_perm[lo:hi]]
-                rp_c = sort_row_ptr[c * n_src : c * n_src + n_src + 1] - lo
-                s = sorted_segment_sum_csr(part, rp_c)
-                ct_states = s if ct_states is None else ct_states + s
-        else:
-            ct_states = sorted_segment_sum_csr(flat[sort_perm], sort_row_ptr)
+        # one gather into source order, one launch of kernel A, which adds a
+        # source's rows of every window
+        sorted_ct = ct.reshape(l * n, d)[sort_perm]
+        ct_states = sorted_segment_sum_csr_windows(sorted_ct, sort_row_ptr, ctx.n_src)
         # kernel A returns f32; the cotangent goes back in the state dtype
         return ct_states.to(ctx.dtype), None, None, None
 
@@ -76,14 +84,22 @@ def gather_state_slices(
     read straight from the source table (slice_src is host-precomputed).
 
     With the training companions (`slice_sort_perm_*`, `slice_sort_ids_*`,
-    `slice_sort_row_ptr_*` of `build_batch`) the backward is kernel A over
-    the cotangent rows gathered in source order; invalid slots point at the
-    last source row and carry zero cotangent from the masked scan.
-    `sort_ids` is the JAX function's argument for its id-based CPU sum;
-    kernel A needs the row pointers only. Without companions (serving) the
-    gather differentiates by autograd's scatter-add."""
+    `slice_sort_row_ptr_*` of `build_batch`) the backward is one gather of
+    the cotangent rows into source order and one launch of kernel A. Past
+    `_SLICE_SORT_CHUNK` slots the data layer sorts within windows (local
+    indices, a set of row pointers per window): the permutation is made
+    whole once per batch and kernel A adds the windows in the same launch,
+    where the JAX function sums `windows * n_src` segments and reduces
+    them. Invalid slots point at the last source row and carry
+    zero cotangent from the masked scan. `sort_ids` is the JAX function's
+    argument for its id-based CPU sum; kernel A needs the row pointers only.
+    Without companions (serving) the gather differentiates by autograd's
+    scatter-add."""
     if sort_perm is None or sort_row_ptr is None:
         return states[slice_src]
+    n_windows = (sort_row_ptr.shape[0] - 1) // states.shape[0]
+    if n_windows > 1:
+        sort_perm = _whole_sort_perm(sort_perm, n_windows)
     return _GatherStateSlices.apply(states, slice_src, sort_perm, sort_row_ptr)
 
 
@@ -99,8 +115,9 @@ def segment_sum(
     With `row_ptr` (destination-sorted edges, CSR pointers over real edges)
     and a width that divides 128 this is kernel A: padding edges are never
     read and the sum is f32. At any other width, or for sorted ids without
-    `row_ptr` (`indices_are_sorted`), it is the id-keyed sum over kernel A
-    (`sorted_segment_sum_ids`), also f32, which counts every edge: padding
+    `row_ptr` (`indices_are_sorted`), it is the id-keyed kernel
+    (`sorted_segment_sum_ids`: one launch that finds each row's edges in
+    the sorted ids itself), also f32, which counts every edge: padding
     rows must already be zero. That split is the TPU function's
     (`sorted_segment_sum_csr` there). Unsorted ids keep the input dtype
     (XLA's segment sum in the JAX package; `index_add_` here), padding rows

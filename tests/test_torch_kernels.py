@@ -125,6 +125,46 @@ def test_dense_and_block_sums_match_jax():
     _close(got, want, **F32_TOL)
 
 
+def _ids_case(seed, e=700, n=50, d=8, pad=30):
+    """Sorted ids over e - pad edges with some segments empty, then `pad`
+    padding edges whose id is n (outside [0, n): they must not count)."""
+    rng = np.random.default_rng(seed)
+    live = np.sort(rng.choice(n, size=n - 9, replace=False))
+    ids = np.concatenate([np.sort(rng.choice(live, size=e - pad)), np.full(pad, n)])
+    return rng.standard_normal((e, d)).astype(np.float32), ids, live
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("seed,d", [(10, 8), (11, 20), (12, 48)])
+def test_ids_sum_plain_matches_jax_sorted_segment_sum(seed, d, id_dtype):
+    """The id-keyed sum's plain version against the JAX package's sorted
+    segment sum as it runs on the CPU (its reference for
+    `sorted_segment_sum_pallas`: the sorted XLA sum; the Pallas body lowers
+    for the TPU only): ids of either width, padding ids equal to
+    num_segments, empty segments; and the gather backward."""
+    data, ids, live = _ids_case(seed, d=d)
+    n = 50
+    want = j_seg.segment_sum(
+        jnp.asarray(data), jnp.asarray(ids, jnp.int32), n, indices_are_sorted=True)
+    x = _t(data).requires_grad_(True)
+    t_ids = _t(ids).to(id_dtype)
+    before = t_sk.ids_launch_count
+    got = t_sk.sorted_segment_sum_ids(x, t_ids, n)
+    assert got.dtype == torch.float32 and t_sk.ids_launch_count == before
+    _close(got.detach(), want, **F32_TOL)
+    empty = np.setdiff1d(np.arange(n), live)
+    assert empty.size and not got.detach().numpy()[empty].any()
+    # the row pointers that the kernel's search finds per row
+    rp = t_sk._ids_row_ptr(t_ids, n)
+    np.testing.assert_array_equal(rp.numpy(), np.searchsorted(ids, np.arange(n + 1)))
+    _close(t_sk.sorted_segment_sum_csr(x.detach(), rp), want, **F32_TOL)
+    ct = np.random.default_rng(seed + 100).standard_normal((n, d)).astype(np.float32)
+    want_g = jax.grad(lambda v: jnp.sum(j_seg.segment_sum(
+        v, jnp.asarray(ids, jnp.int32), n, indices_are_sorted=True) * ct))(jnp.asarray(data))
+    (g,) = torch.autograd.grad(got, x, _t(ct))
+    _close(g, want_g, **F32_TOL)
+
+
 # --------------------------------------------------------------------------
 # kernel B: masked GRU scan
 # --------------------------------------------------------------------------
@@ -336,6 +376,64 @@ def test_csr_kernel_matches_plain_on_cuda(cuda_device, dtype):
     assert t_sk.launch_count == before + 1
     want = t_sk.sorted_segment_sum_csr_plain(x, rp)
     # f32 sums of ~40 rows in another order
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+def _skewed_case(seed, e=40_000, n=300, d=32):
+    """One row holds a quarter of the edges, the rest are short; 500 padding
+    edges past row_ptr[-1] with id n. Small integers: f32 sums are exact in
+    any order, so a long row is held as tightly as a short one."""
+    rng = np.random.default_rng(seed)
+    real = np.sort(np.concatenate([
+        np.full(e // 4, n // 3), rng.integers(0, n, size=e - 500 - e // 4)]))
+    ids = np.concatenate([real, np.full(500, n)]).astype(np.int32)
+    row_ptr = np.searchsorted(real, np.arange(n + 1)).astype(np.int32)
+    return rng.integers(-4, 5, size=(e, d)).astype(np.float32), row_ptr, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 20, 32, 48, 256])
+def test_segment_kernels_skewed_and_bitwise_repeatable_on_cuda(cuda_device, d, dtype):
+    data, row_ptr, ids = _skewed_case(60 + d, d=d)
+    n = row_ptr.shape[0] - 1
+    x = _t(data).to(cuda_device, dtype)
+    rp, t_ids = _t(row_ptr).to(cuda_device), _t(ids).to(cuda_device)
+    before = (t_sk.launch_count, t_sk.ids_launch_count)
+    by_rp = [t_sk.sorted_segment_sum_csr(x, rp) for _ in range(2)]
+    by_ids = [t_sk.sorted_segment_sum_ids(x, i, n) for i in (t_ids, t_ids, t_ids.long())]
+    torch.cuda.synchronize()
+    assert (t_sk.launch_count, t_sk.ids_launch_count) == (before[0] + 2, before[1] + 3)
+    want = t_sk.sorted_segment_sum_csr_plain(x, rp)
+    for got in by_rp + by_ids:
+        assert got.dtype == torch.float32
+        assert torch.equal(got, by_rp[0])  # no atomics: bitwise repeatable; exact sums
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("windows", [1, 3, 8])
+def test_windowed_csr_kernel_matches_plain_on_cuda(cuda_device, windows, dtype):
+    """Row pointers of `windows` windows over one edge list, some rows of a
+    window empty; one launch whatever the number of windows."""
+    rng = np.random.default_rng(70 + windows)
+    e, n, d = 6_000, 90, 32
+    cuts = np.linspace(0, e, windows + 1).astype(np.int64)
+    ptrs = [np.searchsorted(np.sort(rng.integers(0, n, size=hi - lo)), np.arange(n)) + lo
+            for lo, hi in zip(cuts[:-1], cuts[1:])]
+    row_ptr = np.concatenate(ptrs + [[e]]).astype(np.int32)
+    x = _t(rng.standard_normal((e, d)).astype(np.float32)).to(cuda_device, dtype)
+    rp = _t(row_ptr).to(cuda_device)
+    before = (t_sk.launch_count, t_sk.windows_launch_count)
+    got = t_sk.sorted_segment_sum_csr_windows(x, rp, n)
+    again = t_sk.sorted_segment_sum_csr_windows(x, rp, n)
+    torch.cuda.synchronize()
+    assert t_sk.launch_count == before[0] + 2
+    assert t_sk.windows_launch_count == before[1] + (2 if windows > 1 else 0)
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    want = t_sk.sorted_segment_sum_csr_windows_plain(x, rp, n)
+    # f32 sums of ~70 rows in another order
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 

@@ -37,6 +37,7 @@ from ignnition_tpu_torch.batch import to_device
 from ignnition_tpu_torch.frontend.ir import OptimizerSpec, ScheduleSpec
 from ignnition_tpu_torch.model.builder import flatten_params
 from ignnition_tpu_torch.ops import segment as t_seg
+from ignnition_tpu_torch.ops.cuda import segment_kernels as t_sk
 from ignnition_tpu_torch.training import losses as t_losses
 from ignnition_tpu_torch.training import optimizers as t_opt
 
@@ -103,6 +104,57 @@ def test_gather_state_slices_backward_matches_jax(monkeypatch, chunk):
         t_seg.gather_state_slices(x2, t[f"slice_src_{a}"]), x2, _t(ct)
     )
     np.testing.assert_allclose(got.numpy(), auto.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("chunk", [23, 50, 97, 200])
+def test_windowed_sum_plain_matches_per_window_loop_and_jax(monkeypatch, chunk):
+    """Kernel A's windowed entry (its plain version here): one sum over the
+    row pointers of every window equals a sum per window with local indices,
+    and the JAX package's windowed `gather_state_slices` gradient."""
+    j, t, meta = _csr_batch(monkeypatch, chunk)
+    a = "adj_links_paths"
+    n_src = meta.nodes("link")
+    rp, perm = t[f"slice_sort_row_ptr_{a}"], t[f"slice_sort_perm_{a}"]
+    windows = (rp.shape[0] - 1) // n_src
+    assert windows > 1
+    rng = np.random.default_rng(chunk)
+    ct = rng.standard_normal(tuple(t[f"slice_src_{a}"].shape) + (8,)).astype(np.float32)
+    flat = _t(ct).reshape(-1, 8)
+    n_slots = flat.shape[0]
+    w = -(-n_slots // windows)
+
+    whole = t_seg._whole_sort_perm(perm, windows)
+    assert t_seg._whole_sort_perm(perm, windows) is whole  # made once per tensor
+    np.testing.assert_array_equal(
+        whole.numpy(), perm.numpy() + (np.arange(n_slots) // w) * w)
+    before = t_sk.launch_count
+    got = t_sk.sorted_segment_sum_csr_windows(flat[whole], rp, n_src)
+    assert got.dtype == torch.float32 and t_sk.launch_count == before
+
+    loop = torch.zeros_like(got)
+    for c in range(windows):
+        lo, hi = c * w, min((c + 1) * w, n_slots)
+        loop += t_sk.sorted_segment_sum_csr(
+            flat[lo:hi][perm[lo:hi]], rp[c * n_src : (c + 1) * n_src + 1] - lo)
+    np.testing.assert_allclose(got.numpy(), loop.numpy(), **F32_TOL)
+
+    keys = ("slice_src", "slice_sort_perm", "slice_sort_ids", "slice_sort_row_ptr")
+    want = jax.grad(
+        lambda s: jnp.sum(j_seg.gather_state_slices(s, *(j[f"{k}_{a}"] for k in keys)) * ct)
+    )(jnp.zeros((n_src, 8), jnp.float32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_whole_sort_perm_follows_its_tensor():
+    """The whole permutation is kept on the local one and made anew when
+    that tensor changes in place or the windows do."""
+    perm = torch.tensor([1, 0, 2, 0, 1, 2, 0], dtype=torch.int32)
+    first = t_seg._whole_sort_perm(perm, 3)  # windows of 3, 3 and 1 slots
+    assert first.dtype == torch.int64 and first.tolist() == [1, 0, 2, 3, 4, 5, 6]
+    assert t_seg._whole_sort_perm(perm, 3) is first
+    assert t_seg._whole_sort_perm(perm, 2).tolist() == [1, 0, 2, 0, 5, 6, 4]
+    perm[0], perm[1] = 0, 1
+    assert t_seg._whole_sort_perm(perm, 3).tolist() == [0, 1, 2, 3, 4, 5, 6]
 
 
 def test_gather_state_slices_backward_keeps_state_dtype(monkeypatch):
