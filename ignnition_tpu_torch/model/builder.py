@@ -357,7 +357,9 @@ class GnnModel(nn.Module):
             )
         messages = table[batch[f"src_{a}"]]
         messages = messages * batch[f"edge_mask_{a}"][:, None].to(messages.dtype)
-        return seg.segment_sum(messages, batch[f"dst_{a}"], n_dst, row_ptr=row_ptr)
+        return seg.segment_sum(
+            messages, batch[f"dst_{a}"], n_dst, row_ptr=row_ptr, indices_are_sorted=True
+        )
 
     def _attention_aggregate(self, ap, table, dst_states, batch, a, n_dst):
         """Per-destination GAT attention over one destination-sorted source

@@ -44,7 +44,7 @@ INCIDENCE_DTYPE_CODES = {torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
+build_log = ""  # nvcc's output (ptxas -v) of the library in use, kept beside it
 build_seconds: Optional[float] = None
 
 
@@ -84,6 +84,9 @@ def build() -> Path:
     global build_log, build_seconds
     out = library_path()
     if out.exists():
+        log = out.with_suffix(".log")
+        if not build_log and log.exists():
+            build_log = log.read_text()
         return out
     srcs, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -119,6 +122,7 @@ def build() -> Path:
         for obj in objects:
             obj.unlink(missing_ok=True)
         build_seconds = time.perf_counter() - t0
+    out.with_suffix(".log").write_text(build_log)
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return out
 
@@ -139,6 +143,8 @@ def library() -> ctypes.CDLL:
                 [ptr] * 7 + [i32] * 5 + [ptr]
             )
             lib.ign_masked_gru_scan.restype = i32
+            lib.ign_masked_gru_scan_smem.argtypes = [i32] * 3
+            lib.ign_masked_gru_scan_smem.restype = ctypes.c_longlong
             lib.ign_masked_gru_scan_bwd.argtypes = (
                 [ptr] * 15 + [i32] * 9 + [ptr]
             )

@@ -3,9 +3,13 @@
 Kernel B replaces the TPU kernel `ignnition_tpu/ops/pallas/rnn_kernels.py`,
 `_fwd_call` / `_make_fwd_kernel`, kernel C its backward `_bwd_call` /
 `_make_bwd_kernel` (both reached through `masked_gru_scan`). The CUDA
-sources are `csrc/gru_scan.cu` and `csrc/gru_scan_bwd.cu`; their header
-comments give what bounds each kernel on an H100 (instruction issue on the
-CUDA cores) and what the designs do about that.
+sources are `csrc/gru_scan.cu` (with the tensor-core tile step in
+`csrc/gru_tile_mma.cuh`) and `csrc/gru_scan_bwd.cu`; their header comments
+give what bounds each kernel on an H100 and what the designs do about that.
+Kernel B has two instances, chosen by (dtype, u) before launch (the rule
+is `forward_instance`): bf16 runs on tensor cores (mma.sync, one warp per 16 rows), f32 on
+the CUDA cores (one warp per row), as the TPU kernel runs f32 at
+Precision.HIGHEST.
 
 Contract, the TPU kernels': time-major `xs [L, N, D]`, `lens [N]`,
 `h0 [N, u]` and Keras reset_after GRU params (`kernel [D, 3u]`,
@@ -23,6 +27,8 @@ the dtypes of the inputs, as the TPU kernel's custom backward casts them.
 
 from __future__ import annotations
 
+import functools
+import re
 from typing import Mapping
 
 import torch
@@ -74,6 +80,41 @@ def masked_gru_scan_bwd_plain(xs, lens, h0, params, ct):
         return torch.autograd.grad(out, leaves, ct.to(out.dtype))
 
 
+MAX_UNITS = 128
+
+
+def forward_instance(dtype: torch.dtype, units: int) -> str:
+    """The instance of kernel B that serves a call of `dtype` and `units`:
+    `mma_bf16_u{32,64,128}` (tensor cores, 1, 2 or 4 chunks of 32 units) or
+    `cuda_cores_f32_u{32,64,128}`. The C entry `ign_masked_gru_scan`
+    dispatches by the same rule; `profiled_instance` reads which one ran."""
+    if dtype not in _build.DTYPE_CODES or not 0 < units <= MAX_UNITS:
+        raise ValueError(
+            f"masked_gru_scan takes bf16/f32 and 1-{MAX_UNITS} units, got {dtype}, u={units}"
+        )
+    chunks = 1 if units <= 32 else 2 if units <= 64 else 4
+    route = "mma_bf16" if dtype == torch.bfloat16 else "cuda_cores_f32"
+    return f"{route}_u{32 * chunks}"
+
+
+def profiled_instance(kernel_name: str) -> str:
+    """`forward_instance`'s name for the kernel-B `__global__` that a
+    profiler reports as `kernel_name` (demangled, e.g.
+    `masked_gru_scan_mma_kernel<1, true>(...)`, whose first template
+    argument is the number of 32-unit chunks); raises for another kernel."""
+    found = re.search(r"masked_gru_scan_(mma_)?kernel<(?:float, )?(\d+)", kernel_name)
+    if found is None:
+        raise ValueError(f"not an instance of kernel B: {kernel_name!r}")
+    route = "mma_bf16" if found.group(1) else "cuda_cores_f32"
+    return f"{route}_u{32 * int(found.group(2))}"
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_smem(dtype_code: int, D: int, U: int) -> int:
+    """Bytes of shared memory of the instance serving (dtype, D, u)."""
+    return _build.library().ign_masked_gru_scan_smem(dtype_code, D, U)
+
+
 def _check_scan_args(xs, lens, h0, wx, wh, b):
     dtype = xs.dtype
     if xs.dim() != 3 or dtype not in _build.DTYPE_CODES:
@@ -95,8 +136,8 @@ def _check_scan_args(xs, lens, h0, wx, wh, b):
             f"kernel {tuple(wx.shape)}, recurrent_kernel {tuple(wh.shape)}, "
             f"bias {tuple(b.shape)}"
         )
-    if U > 128:
-        raise ValueError(f"masked_gru_scan supports up to 128 units, got {U}")
+    if U > MAX_UNITS:
+        raise ValueError(f"masked_gru_scan supports up to {MAX_UNITS} units, got {U}")
     for t, name in ((h0, "h0"), (lens, "lens"), (wx, "kernel"),
                     (wh, "recurrent_kernel"), (b, "bias")):
         if t.device != xs.device:
@@ -109,11 +150,11 @@ def _launch_forward(xs, lens, h0, wx, wh, b) -> torch.Tensor:
     global launch_count
     _build.check_device(xs, "masked_gru_scan")
     L, N, D, U = _check_scan_args(xs, lens, h0, wx, wh, b)
-    smem = 4 * (D + U + 2) * 3 * U
+    smem = _forward_smem(_build.DTYPE_CODES[xs.dtype], D, U)
     if smem > _HOPPER_BLOCK_SMEM:
         raise ValueError(
-            f"masked_gru_scan: weights need {smem} bytes of shared memory, "
-            f"more than a Hopper block has ({_HOPPER_BLOCK_SMEM})"
+            f"masked_gru_scan ({forward_instance(xs.dtype, U)}): weights need {smem} bytes "
+            f"of shared memory, more than a Hopper block has ({_HOPPER_BLOCK_SMEM})"
         )
     if L == 0 or N == 0:
         return h0.clone()

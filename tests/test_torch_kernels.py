@@ -184,6 +184,57 @@ def _gru_case(seed, L=5, n=256, d=8, u=8):
     return xs, lens, h0, params
 
 
+@pytest.mark.parametrize(
+    "dtype,units,instance",
+    [
+        (torch.bfloat16, 1, "mma_bf16_u32"),
+        (torch.bfloat16, 32, "mma_bf16_u32"),
+        (torch.bfloat16, 48, "mma_bf16_u64"),
+        (torch.bfloat16, 64, "mma_bf16_u64"),
+        (torch.bfloat16, 65, "mma_bf16_u128"),
+        (torch.bfloat16, 128, "mma_bf16_u128"),
+        (torch.float32, 32, "cuda_cores_f32_u32"),
+        (torch.float32, 48, "cuda_cores_f32_u64"),
+        (torch.float32, 128, "cuda_cores_f32_u128"),
+    ],
+)
+def test_gru_forward_instance_rule(dtype, units, instance):
+    """bf16 runs kernel B on tensor cores, f32 on the CUDA cores (TF32 would
+    not hold the TPU kernel's Precision.HIGHEST), in chunks of 32 units."""
+    assert t_rk.forward_instance(dtype, units) == instance
+
+
+@pytest.mark.parametrize("dtype,units", [(torch.bfloat16, 129), (torch.float32, 0),
+                                         (torch.float16, 32)])
+def test_gru_forward_instance_rule_refuses(dtype, units):
+    with pytest.raises(ValueError):
+        t_rk.forward_instance(dtype, units)
+
+
+@pytest.mark.parametrize(
+    "kernel_name,instance",
+    [
+        ("void (anonymous namespace)::masked_gru_scan_mma_kernel<1, true>(__nv_bfloat16 const*, "
+         "int const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+         "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int)", "mma_bf16_u32"),
+        ("void (anonymous namespace)::masked_gru_scan_mma_kernel<4, false>(...)",
+         "mma_bf16_u128"),
+        ("void (anonymous namespace)::masked_gru_scan_kernel<float, 2>(float const*, "
+         "int const*, float const*, float const*, float const*, float const*, float*, int, "
+         "int, int, int)", "cuda_cores_f32_u64"),
+    ],
+)
+def test_gru_profiled_instance_reads_the_kernel_name(kernel_name, instance):
+    """The profiler's (demangled) name of the kernel that ran, in the rule's
+    terms: the first template argument counts chunks of 32 units."""
+    assert t_rk.profiled_instance(kernel_name) == instance
+
+
+def test_gru_profiled_instance_refuses_another_kernel():
+    with pytest.raises(ValueError):
+        t_rk.profiled_instance("void (anonymous namespace)::gru_bwd_sweep_kernel<float, 1>(...)")
+
+
 @pytest.fixture
 def pallas_interpret():
     """Run the JAX package's Pallas GRU kernel (interpret mode on the CPU),
@@ -437,23 +488,60 @@ def test_windowed_csr_kernel_matches_plain_on_cuda(cuda_device, windows, dtype):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
+# (L, n, d, u, lens): "random" draws 0..L with both ends present, "none"
+# masks every row
+GRU_CUDA_CASES = {
+    "flagship": (8, 16384, 32, 32, "random"),
+    "n1000": (8, 1000, 32, 32, "random"),
+    "d20": (8, 1000, 20, 32, "random"),
+    "d48": (8, 1000, 48, 32, "random"),
+    "u48": (8, 1000, 20, 48, "random"),
+    "u64": (8, 1000, 32, 64, "random"),
+    "u128": (8, 1000, 32, 128, "random"),
+    "L1": (1, 1000, 32, 32, "random"),
+    "all_masked": (8, 1000, 32, 32, "none"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
-def test_gru_kernel_matches_plain_on_cuda(cuda_device, dtype, tol):
-    xs, lens, h0, p = _gru_case(9, L=8, n=1024, d=32, u=32)
+@pytest.mark.parametrize(
+    "dtype,tol,case",
+    [(torch.float32, 1e-5, "n1000"), (torch.float32, 1e-5, "u48")]
+    + [(torch.bfloat16, 3e-2, c) for c in GRU_CUDA_CASES],
+)
+def test_gru_kernel_matches_plain_on_cuda(cuda_device, dtype, tol, case):
+    """Kernel B's instance for (dtype, u), as the profiler names the kernel
+    that ran, is the rule's; it agrees with the plain version, each call
+    twice and compared bitwise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    L, n, d, u, lens_kind = GRU_CUDA_CASES[case]
+    xs, lens, h0, p = _gru_case(9, L=L, n=n, d=d, u=u)
+    if lens_kind == "none":
+        lens[:] = 0
     args = (
         _t(xs).to(cuda_device, dtype), _t(lens).to(cuda_device),
         _t(h0).to(cuda_device, dtype),
         {k: _t(v).to(cuda_device, dtype) for k, v in p.items()},
     )
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_rk.masked_gru_scan(*args)
+        torch.cuda.synchronize()
+    ran = {t_rk.profiled_instance(e.name) for e in prof.events()
+           if e.device_type == DeviceType.CUDA and "masked_gru_scan" in e.name}
+    assert ran == {t_rk.forward_instance(dtype, u)}
     before = t_rk.launch_count
     got = t_rk.masked_gru_scan(*args)
+    again = t_rk.masked_gru_scan(*args)
     torch.cuda.synchronize()
-    assert t_rk.launch_count == before + 1
+    assert t_rk.launch_count == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = t_rk.masked_gru_scan_plain(*args)
+    if lens_kind == "none":
+        assert torch.equal(got, want)  # every row carries h0 through exactly
     # bf16: a 1-ulp flip of the rounded carry propagates through later steps
-    torch.testing.assert_close(
-        got.float(), t_rk.masked_gru_scan_plain(*args).float(), atol=tol, rtol=tol
-    )
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda

@@ -225,6 +225,61 @@ def test_per_edge_attention_without_row_pointers_raises_by_name(monkeypatch):
         model(to_device(t_arrays, "cpu"), meta)
 
 
+STAGE2_LOWERING_KEYS = tuple(
+    f"{k}_adj_paths_links" for k in ("row_ptr", "bwd_slice_dst", "dst_in_src_order", "dense_inc")
+)
+
+
+def test_stage2_sum_without_row_pointers_is_the_sorted_sum(monkeypatch):
+    """Without row pointers or an incidence matrix stage 2 sums its masked
+    edge messages by their sorted destination ids, as the JAX package does
+    (`indices_are_sorted=True`): the id-keyed sum, f32 out, no atomics.
+    Forward and every gradient leaf against JAX in f32; the bf16 sum comes
+    back in f32."""
+    from ignnition_tpu.training.trainer import Trainer as JTrainer
+    from ignnition_tpu_torch.model.builder import flatten_params
+    from ignnition_tpu_torch.ops import segment as t_seg
+
+    j_ir, t_ir, j_arrays, t_arrays, meta = _batches(flagship_dict(), 1)
+    for arrays in (j_arrays, t_arrays):
+        for k in STAGE2_LOWERING_KEYS:
+            del arrays[k]
+    sums = []
+    real = t_seg.segment_sum
+
+    def spy(data, *args, **kw):
+        out = real(data, *args, **kw)
+        sums.append((data.dtype, out.dtype, kw.get("indices_are_sorted")))
+        return out
+
+    monkeypatch.setattr(t_seg, "segment_sum", spy)
+    j_trainer = JTrainer(j_build(j_ir), compute_dtype=None)
+    t_trainer = igt.Trainer(igt.build(t_ir), compute_dtype=None, device="cpu")
+    j_state = j_trainer.init_state(jax.random.PRNGKey(0))
+    params = igt.params_from_jax(j_state.params)
+    batch = to_device(t_arrays, "cpu")
+    (want_total, _), want_g = jax.value_and_grad(j_trainer._loss, has_aux=True)(
+        j_state.params, j_arrays, meta, jax.random.PRNGKey(1)
+    )
+    got_g, got = t_trainer.grads_fn(meta)(t_trainer.init_state(params=params).params, batch)
+    np.testing.assert_allclose(got["total"].item(), float(want_total), **F32_TOL)
+    want_flat = {
+        "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path): np.asarray(v)
+        for path, v in jax.tree_util.tree_leaves_with_path(want_g)
+    }
+    got_flat = flatten_params(got_g)
+    assert sorted(got_flat) == sorted(want_flat)
+    for k, v in got_flat.items():
+        np.testing.assert_allclose(v.numpy(), want_flat[k], err_msg=k, **F32_TOL)
+
+    model = _port_model(t_ir, j_state.params)
+    want = j_build(j_ir).apply(j_state.params, j_arrays, meta)
+    np.testing.assert_allclose(model(batch, meta).numpy(), np.asarray(want), **F32_TOL)
+    sums.clear()
+    model(batch, meta, compute_dtype=torch.bfloat16)
+    assert sums and all(s == (torch.bfloat16, torch.float32, True) for s in sums), sums
+
+
 def test_routenet_description_forward_matches_jax(monkeypatch):
     got, want = _run_both(routenet_description(), "dense", monkeypatch, None)
     np.testing.assert_allclose(got, want, **F32_TOL)
