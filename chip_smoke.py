@@ -19,7 +19,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      the CUDA cores: the rule of `rnn_kernels.forward_instance`, held to the
      kernel that the profiler saw run), every instance's ptxas registers (no
      spills; a build log without them fails), twice and bitwise, also at
-     N=1,000, D=20, u=48 in bf16, and timed at the x4 shape too. D and E
+     N=1,000, D=20, u=48 in bf16, and timed at the x4 shape too. C likewise:
+     its sweep's instance (bf16 on tensor cores, f32 on the CUDA cores:
+     `rnn_kernels.backward_instance`) held to the profiler, its ptxas
+     registers, twice and bitwise, its sweep, weight-gradient and finalize
+     device time, timed at the x4 shape too. D and E
      also with a bf16 incidence matrix, over 4 graph
      blocks and at a ragged shape; E twice, compared bitwise. Each kernel and,
      where there is one, one PyTorch library call of the same function (a
@@ -716,23 +720,36 @@ def _gru_bytes(L, n, d, u, es):
     return L * n * d * es + n * 4 + n * u * es + (d + u + 2) * 3 * u * es, n * u * es
 
 
-def _b_ptxas() -> str:
-    """What `-Xptxas=-v` reported for every instance of kernel B (each
-    template instantiation in `csrc/gru_scan.cu`); raises if the build log
-    reports none, so that spills cannot go unread, or if ptxas spilled."""
+def _ptxas_of(what: str, pattern: str) -> str:
+    """What `-Xptxas=-v` reported for every kernel whose (mangled) name
+    matches `pattern`; raises if the build log reports none, so that spills
+    cannot go unread, or if ptxas spilled."""
     from ignnition_tpu_torch.ops.cuda import _build
 
     found = []
     for name, used, spill in ptxas_entries(_build.build_log):
-        at = re.search(r"masked_gru_scan_(mma_)?kernelI\w*?E(?=Ev)", name)
+        at = re.search(pattern, name)
         if at is None:
             continue
         if re.search(r"[1-9]\d* bytes spill", spill):
-            raise AssertionError(f"kernel B: ptxas spilled in {name}: {spill}")
+            raise AssertionError(f"{what}: ptxas spilled in {name}: {spill}")
         found.append(f"{at.group(0)} {used.split(',')[0]}")
     if not found:
-        raise AssertionError("the build log holds no ptxas report of kernel B")
+        raise AssertionError(f"the build log holds no ptxas report of {what}")
     return "; ".join(found) + "; no spills"
+
+
+def _b_ptxas() -> str:
+    """Every instance of kernel B (each template instantiation in
+    `csrc/gru_scan.cu`)."""
+    return _ptxas_of("kernel B", r"masked_gru_scan_(mma_)?kernelI\w*?E(?=Ev)")
+
+
+def _c_ptxas() -> str:
+    """Every kernel of `csrc/gru_scan_bwd.cu`: both sweeps' instances, the
+    weight-gradient kernel and the finalize pass."""
+    return _ptxas_of("kernel C", r"gru_bwd_(?:sweep_mma|sweep|wgrad|finalize)_kernel"
+                                 r"(?:I\w*?E(?=Ev))?")
 
 
 def _b_ran(rk, args) -> str:
@@ -942,9 +959,30 @@ def gru_rounding_spread() -> None:
 GRAD_NAMES = ("d_xs", "d_h0", "d_kernel", "d_recurrent_kernel", "d_bias")
 
 
+C_PARTS = (("sweep", "gru_bwd_sweep"), ("weight gradients", "gru_bwd_wgrad"),
+           ("finalize", "gru_bwd_finalize"))
+
+
+def _c_ran(rk, args) -> tuple:
+    """(the sweep instance of kernel C that served a call on `args`, in
+    `backward_instance`'s terms, as torch.profiler named the kernel; device
+    ms a call of the sweep, weight-gradient and finalize kernels, 5 calls)."""
+    per_kernel, _ = device_time_by_kernel(lambda: rk._launch_backward(*args))
+    ran = {rk.profiled_backward_instance(k) for k in per_kernel if "gru_bwd_sweep" in k}
+    if len(ran) != 1:
+        raise AssertionError(f"the profiler saw kernel C sweeps {sorted(ran)} in one call "
+                             f"(kernels {sorted(per_kernel)})")
+    split = {part: sum(ms for k, ms in per_kernel.items() if key in k) for part, key in C_PARTS}
+    return ran.pop(), split
+
+
 def check_gru_scan_bwd(dev, rng) -> dict:
     """Kernel C through `masked_gru_scan`'s autograd against the gradients of
-    the plain version, at random lengths 0..L and at full lengths."""
+    the plain version, at random lengths 0..L and at full lengths, each call
+    twice and compared bitwise; the sweep instance that the profiler saw
+    against `backward_instance`'s rule, and the device time of C's three
+    kernels; C's times at the flagship and x4 shapes beside cuDNN's GRU
+    backward and the bound."""
     from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
 
     L, n, d, u = FLAGSHIP["path_len"], FLAGSHIP["n_paths"], HS, HS
@@ -958,6 +996,7 @@ def check_gru_scan_bwd(dev, rng) -> dict:
                                      "other places than autograd's"),
     }
     names = ("kernel", "recurrent_kernel", "bias")
+    print(f"  kernel C kernels, ptxas: {_c_ptxas()}")
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         xs, h0, ct = xs32.to(dtype), h032.to(dtype), ct32.to(dtype)
@@ -968,11 +1007,17 @@ def check_gru_scan_bwd(dev, rng) -> dict:
             leaves = [xs.clone().requires_grad_(True), h0.clone().requires_grad_(True)]
             leaves += [p[k].clone().requires_grad_(True) for k in names]
             before = rk.bwd_launch_count
-            h = rk.masked_gru_scan(leaves[0], ln, leaves[1], dict(zip(names, leaves[2:])))
-            got = torch.autograd.grad(h, leaves, ct)
+            runs = []
+            for _ in range(2):
+                h = rk.masked_gru_scan(leaves[0], ln, leaves[1], dict(zip(names, leaves[2:])))
+                runs.append(torch.autograd.grad(h, leaves, ct))
             torch.cuda.synchronize()
-            if rk.bwd_launch_count != before + 1:
-                raise AssertionError("the backward did not launch kernel C")
+            if rk.bwd_launch_count != before + 2:
+                raise AssertionError("the backward did not launch kernel C once a call")
+            got = runs[0]
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"kernel C {str(dtype)[6:]}, {which}: two identical "
+                                     f"calls differ")
             want = rk.masked_gru_scan_bwd_plain(xs, ln, h0, p, ct)
             for name, g, w in zip(GRAD_NAMES, got, want):
                 if g.dtype != dtype:
@@ -980,14 +1025,23 @@ def check_gru_scan_bwd(dev, rng) -> dict:
                 per_row = name in ("d_xs", "d_h0")
                 atol = row_tol if per_row else sum_tol * float(w.float().abs().max())
                 e = compare(
-                    f"kernel C {name} [{L},{n},{d}] u={u} {str(dtype)[6:]}, {which}",
-                    g, w, atol=atol, rtol=0.0,
+                    f"kernel C {name} [{L},{n},{d}] u={u} {str(dtype)[6:]}, {which}, bitwise "
+                    f"repeatable", g, w, atol=atol, rtol=0.0,
                     why=why + ("" if per_row else f"; {sum_tol:g} of the leaf's largest entry"),
                 )
                 if per_row:
                     err = max(err, e)
         wx, wh, b = (p[k].contiguous() for k in names)
-        t = device_times(rk._launch_backward, rotations((xs, full, h0, wx, wh, b, ct)))
+        args = (xs, full, h0, wx, wh, b, ct)
+        instance = rk.backward_instance(dtype, u)
+        ran, split = _c_ran(rk, args)
+        print(f"  kernel C sweep instance for {str(dtype)[6:]} u={u}: {ran} ran (profiler), the "
+              f"rule says {instance}; device ms a call (torch.profiler, 5 calls): "
+              + ", ".join(f"{part} {ms:.4f}" for part, ms in split.items()))
+        if ran != instance:
+            raise AssertionError(f"kernel C ran the {ran} sweep for {dtype} u={u}, the rule "
+                                 f"says {instance}")
+        t = device_times(rk._launch_backward, rotations(args))
         plain_ms = cuda_ms(lambda: rk.masked_gru_scan_bwd_plain(xs, full, h0, p, ct), iters=5)
         gru = _library_gru(p, d, u, dtype, dev)
 
@@ -1004,21 +1058,43 @@ def check_gru_scan_bwd(dev, rng) -> dict:
             lambda h_n, leaves, c: torch.autograd.grad(h_n, leaves, c, retain_graph=True),
             lib_sets, guarded=True, what="torch.nn.GRU backward")
         library_ms = t_lib["ms"]
-        flops = 3 * 2 * L * n * (d + u) * 3 * u  # recompute, transposed products, weight grads
-        in_bytes, state_bytes = _gru_bytes(L, n, d, u, xs.element_size())
-        # read the inputs and ct; write d_xs, d_h0 and the f32 weight gradients
-        n_bytes = (in_bytes + state_bytes + L * n * d * xs.element_size() + n * u * 4
-                   + (d + u + 2) * 3 * u * 4)
-        bound_ms, bound_by = bound(n_bytes, flops, dtype)
+        bound_ms, bound_by = _c_bound(L, n, d, u, dtype)
         print(f"    time at full lengths: kernel {fmt_times(t)}, plain {plain_ms:.4f} ms, "
               f"torch.nn.GRU backward {fmt_times(t_lib)}, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({flops / t['graph_ms'] / 1e9:.1f} TFLOP/s by the kernel in graph "
-              f"replay)")
+              f"{bound_by} ({_c_flops(L, n, d, u) / t['graph_ms'] / 1e9:.1f} TFLOP/s by the "
+              f"kernel in graph replay)")
+        del lib_sets
+        n4 = FLAGSHIP_X4["n_paths"]
+        xs4, _, full4, h04, p4, ct4 = _gru_inputs(dev, rng, L, n4, d, u)
+        args4 = (xs4.to(dtype), full4, h04.to(dtype),
+                 *(p4[k].to(dtype) for k in names), ct4.to(dtype))
+        t4 = device_times(rk._launch_backward, rotations(args4))
+        _, split4 = _c_ran(rk, args4)
+        bound4 = _c_bound(L, n4, d, u, dtype)
+        print(f"    time at the x4 shape [{L},{n4},{d}]: kernel {fmt_times(t4)}, bound "
+              f"{bound4[0]:.4f} ms by {bound4[1]}; device ms a call: "
+              + ", ".join(f"{part} {ms:.4f}" for part, ms in split4.items()))
         out[dtype] = dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms,
-                          library_graph_ms=t_lib["graph_ms"], library_cold_ms=t_lib["cold_ms"])
-        del lib_sets
+                          library_graph_ms=t_lib["graph_ms"], library_cold_ms=t_lib["cold_ms"],
+                          instance=ran, device_ms_by_kernel=split,
+                          at_x4_shape=dict(**t4, bound_ms=bound4[0], device_ms_by_kernel=split4))
     return out
+
+
+def _c_flops(L, n, d, u) -> int:
+    """Kernel C's operations: the recompute, the transposed products and the
+    weight gradients, each 2 L n (d + u) 3u."""
+    return 3 * 2 * L * n * (d + u) * 3 * u
+
+
+def _c_bound(L, n, d, u, dtype) -> tuple:
+    """Kernel C's bound: read the inputs and ct; write d_xs, d_h0 and the f32
+    weight gradients."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    in_bytes, state_bytes = _gru_bytes(L, n, d, u, es)
+    n_bytes = in_bytes + state_bytes + L * n * d * es + n * u * 4 + (d + u + 2) * 3 * u * 4
+    return bound(n_bytes, _c_flops(L, n, d, u), dtype)
 
 
 def incidence_of(sample, n_links: int, n_paths: int) -> np.ndarray:

@@ -26,7 +26,8 @@
 // One (row, unit) has all four in the same lane and register slot, so the
 // gate math is elementwise in registers.
 //
-// Shared by kernel B (gru_scan.cu).
+// Shared by kernel B (gru_scan.cu) and the tensor-core sweep of kernel C
+// (gru_scan_bwd.cu), which also stages the transposed weights below.
 #pragma once
 
 #include <cstdint>
@@ -209,6 +210,57 @@ __device__ void stage_tile_weights(const __nv_bfloat16* __restrict__ wx,
       }
     }
     s_b[i] = v;
+  }
+}
+
+// Shared-memory layout of the transposed weights of the backward's products
+// at u <= 32 (gates padded to 32 units): d_xs = [da_z|da_r|da_c] wx^T and
+// dh = [da_z|da_r|dhh] wh^T. Their k index is a gate's unit j (6 k16 tiles:
+// gate q, half kh, tile kt = 2q + kh; the standard order, as `carry_to_a`
+// packs the gate gradients), their n index a row of w (a column of d_xs, a
+// unit of dh), n8 tiles paired as above:
+//   wT: [ceil(R / 32) chunks of 32 rows][2 pairs][6 k16 tiles][32 lanes]
+constexpr int kTKTiles = 6;
+__host__ __device__ inline int transposed_slots(int R) {
+  return ((R + 31) / 32) * 2 * kTKTiles * 32;
+}
+
+// One lane's two-tile B fragment of w^T for w [R][3U] (row-major, bf16):
+// rows n = 8 (2p + q) + g of w and units j = 16 kh + 8 hf + 2t + e of gate
+// `gate`, zero past R and U.
+__device__ __forceinline__ uint4 gather_bt_pair(const __nv_bfloat16* __restrict__ w, int R, int U,
+                                                int gate, int kh, int p, int g, int t) {
+  const unsigned short* ws = reinterpret_cast<const unsigned short*>(w);
+  uint32_t r[4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int n = 8 * (2 * p + q) + g;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      uint32_t v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 16 * kh + 8 * hf + 2 * t + e;
+        v[e] = (n < R && j < U) ? ws[(size_t)n * 3 * U + gate * U + j] : 0u;
+      }
+      r[2 * q + hf] = v[0] | (v[1] << 16);
+    }
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// Stage wx^T and wh^T (u <= 32) into shared memory in the layout above. The
+// caller synchronizes the block.
+__device__ inline void stage_transposed_weights(const __nv_bfloat16* __restrict__ wx,
+                                                const __nv_bfloat16* __restrict__ wh,
+                                                uint4* s_wxt, uint4* s_wht, int D, int U) {
+  for (int s = threadIdx.x; s < transposed_slots(D); s += blockDim.x) {
+    const int lane = s & 31, kt = (s >> 5) % kTKTiles, p = (s >> 5) / kTKTiles;
+    s_wxt[s] = gather_bt_pair(wx, D, U, kt >> 1, kt & 1, p, lane >> 2, lane & 3);
+  }
+  for (int s = threadIdx.x; s < transposed_slots(U); s += blockDim.x) {
+    const int lane = s & 31, kt = (s >> 5) % kTKTiles, p = (s >> 5) / kTKTiles;
+    s_wht[s] = gather_bt_pair(wh, U, U, kt >> 1, kt & 1, p, lane >> 2, lane & 3);
   }
 }
 

@@ -146,7 +146,7 @@ def library() -> ctypes.CDLL:
             lib.ign_masked_gru_scan_smem.argtypes = [i32] * 3
             lib.ign_masked_gru_scan_smem.restype = ctypes.c_longlong
             lib.ign_masked_gru_scan_bwd.argtypes = (
-                [ptr] * 15 + [i32] * 9 + [ptr]
+                [ptr] * 16 + [i32] * 9 + [ptr]
             )
             lib.ign_masked_gru_scan_bwd.restype = i32
             lib.ign_masked_gru_scan_bwd_smem.argtypes = [i32] * 4

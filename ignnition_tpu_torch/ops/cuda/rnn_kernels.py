@@ -9,7 +9,10 @@ give what bounds each kernel on an H100 and what the designs do about that.
 Kernel B has two instances, chosen by (dtype, u) before launch (the rule
 is `forward_instance`): bf16 runs on tensor cores (mma.sync, one warp per 16 rows), f32 on
 the CUDA cores (one warp per row), as the TPU kernel runs f32 at
-Precision.HIGHEST.
+Precision.HIGHEST. Kernel C's sweep likewise (the rule is
+`backward_instance`): bf16 at u <= 32 on tensor cores, with B's tile step
+and a device-memory stash of the carry (scratch `hstash`), everything else
+on the CUDA cores; its weight-gradient and finalize kernels serve both.
 
 Contract, the TPU kernels': time-major `xs [L, N, D]`, `lens [N]`,
 `h0 [N, u]` and Keras reset_after GRU params (`kernel [D, 3u]`,
@@ -39,6 +42,7 @@ launch_count = 0  # launches of kernel B (forward) in this process
 bwd_launch_count = 0  # launches of kernel C (backward) in this process
 
 _HOPPER_BLOCK_SMEM = 232448  # bytes of shared memory one block can use
+_SWEEP_MMA_WARPS = 4  # warps a block of C's tensor-core sweep (kSweepMmaWarps)
 
 
 def _cast_params(params: Mapping[str, torch.Tensor], dtype):
@@ -107,6 +111,42 @@ def profiled_instance(kernel_name: str) -> str:
         raise ValueError(f"not an instance of kernel B: {kernel_name!r}")
     route = "mma_bf16" if found.group(1) else "cuda_cores_f32"
     return f"{route}_u{32 * int(found.group(2))}"
+
+
+def backward_instance(dtype: torch.dtype, units: int) -> str:
+    """The instance of kernel C's sweep that serves a call of `dtype` and
+    `units`: `mma_bf16_u32` (tensor cores, bf16 at u <= 32), else
+    `cuda_cores_bf16_u{64,128}` or `cuda_cores_f32_u{32,64,128}` (one warp
+    per row, 1, 2 or 4 chunks of 32 units). The C entry
+    `ign_masked_gru_scan_bwd` dispatches by the same rule;
+    `profiled_backward_instance` reads which one ran."""
+    if dtype not in _build.DTYPE_CODES or not 0 < units <= MAX_UNITS:
+        raise ValueError(
+            f"masked_gru_scan backward takes bf16/f32 and 1-{MAX_UNITS} units, got {dtype}, "
+            f"u={units}"
+        )
+    if dtype == torch.bfloat16 and units <= 32:
+        return "mma_bf16_u32"
+    chunks = 1 if units <= 32 else 2 if units <= 64 else 4
+    route = "cuda_cores_bf16" if dtype == torch.bfloat16 else "cuda_cores_f32"
+    return f"{route}_u{32 * chunks}"
+
+
+def profiled_backward_instance(kernel_name: str) -> str:
+    """`backward_instance`'s name for the sweep `__global__` of kernel C that
+    a profiler reports as `kernel_name` (demangled: `gru_bwd_sweep_mma_kernel<1,
+    true>(...)` or `gru_bwd_sweep_kernel<__nv_bfloat16, 2>(...)`, the unit
+    chunks of 32 in the last template argument shown); raises for another
+    kernel."""
+    found = re.search(
+        r"gru_bwd_sweep_(?:(mma_)kernel<(\d+)|kernel<(float|__nv_bfloat16), (\d+))", kernel_name
+    )
+    if found is None:
+        raise ValueError(f"not an instance of kernel C's sweep: {kernel_name!r}")
+    if found.group(1):
+        return f"mma_bf16_u{32 * int(found.group(2))}"
+    route = "cuda_cores_f32" if found.group(3) == "float" else "cuda_cores_bf16"
+    return f"{route}_u{32 * int(found.group(4))}"
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,23 +227,31 @@ def _launch_backward(xs, lens, h0, wx, wh, b, ct):
         return (torch.zeros_like(xs), ct.to(f32), zeros(D, 3 * U), zeros(U, 3 * U),
                 zeros(2, 3 * U))
     lib = _build.library()
-    # warps per block: the most whose per-step stash fits beside the weights
-    warps = next(
-        (w for w in (8, 4, 2, 1)
-         if lib.ign_masked_gru_scan_bwd_smem(L, D, U, w) <= _HOPPER_BLOCK_SMEM),
-        None,
-    )
-    if warps is None:
-        raise ValueError(
-            f"masked_gru_scan backward: L={L}, D={D}, u={U} need "
-            f"{lib.ign_masked_gru_scan_bwd_smem(L, D, U, 1)} bytes of shared memory "
-            f"for one row's recompute stash, more than a Hopper block has "
-            f"({_HOPPER_BLOCK_SMEM})"
+    hstash = None
+    if backward_instance(dtype, U).startswith("mma"):
+        # one warp per 16-row tile; the C entry launches no more blocks than
+        # are resident at once and writes that many bias partials
+        warps, tiles = _SWEEP_MMA_WARPS, -(-N // 16)
+        blocks = -(-tiles // warps)
+        hstash = torch.empty((L, tiles, 4, 32, 4), dtype=f32, device=dev)
+    else:
+        # warps per block: the most whose per-step stash fits beside the weights
+        warps = next(
+            (w for w in (8, 4, 2, 1)
+             if lib.ign_masked_gru_scan_bwd_smem(L, D, U, w) <= _HOPPER_BLOCK_SMEM),
+            None,
         )
-    smem = lib.ign_masked_gru_scan_bwd_smem(L, D, U, warps)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = max(1, min(4, _HOPPER_BLOCK_SMEM // smem))
-    blocks = min(-(-N // warps), sms * per_sm)
+        if warps is None:
+            raise ValueError(
+                f"masked_gru_scan backward: L={L}, D={D}, u={U} need "
+                f"{lib.ign_masked_gru_scan_bwd_smem(L, D, U, 1)} bytes of shared memory "
+                f"for one row's recompute stash, more than a Hopper block has "
+                f"({_HOPPER_BLOCK_SMEM})"
+            )
+        smem = lib.ign_masked_gru_scan_bwd_smem(L, D, U, warps)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        per_sm = max(1, min(4, _HOPPER_BLOCK_SMEM // smem))
+        blocks = min(-(-N // warps), sms * per_sm)
     rows = L * N
     n_chunks = max(1, min(256, -(-rows // 1024)))
     rows_per_chunk = -(-rows // n_chunks)
@@ -219,7 +267,7 @@ def _launch_backward(xs, lens, h0, wx, wh, b, ct):
     code = lib.ign_masked_gru_scan_bwd(
         xs.data_ptr(), lens.data_ptr(), h0.data_ptr(), wx.data_ptr(), wh.data_ptr(),
         b.data_ptr(), ct.data_ptr(), d_xs.data_ptr(), d_h0.data_ptr(), dg.data_ptr(),
-        hprev.data_ptr(), bias_part.data_ptr(), part.data_ptr(), wgrad.data_ptr(),
+        hprev.data_ptr(), None if hstash is None else hstash.data_ptr(), bias_part.data_ptr(), part.data_ptr(), wgrad.data_ptr(),
         d_b.data_ptr(), L, N, D, U, warps, blocks, n_chunks, rows_per_chunk,
         _build.DTYPE_CODES[dtype], _build.stream_handle(dev),
     )

@@ -235,6 +235,58 @@ def test_gru_profiled_instance_refuses_another_kernel():
         t_rk.profiled_instance("void (anonymous namespace)::gru_bwd_sweep_kernel<float, 1>(...)")
 
 
+@pytest.mark.parametrize(
+    "dtype,units,instance",
+    [
+        (torch.bfloat16, 1, "mma_bf16_u32"),
+        (torch.bfloat16, 32, "mma_bf16_u32"),
+        (torch.bfloat16, 33, "cuda_cores_bf16_u64"),
+        (torch.bfloat16, 64, "cuda_cores_bf16_u64"),
+        (torch.bfloat16, 128, "cuda_cores_bf16_u128"),
+        (torch.float32, 32, "cuda_cores_f32_u32"),
+        (torch.float32, 128, "cuda_cores_f32_u128"),
+    ],
+)
+def test_gru_backward_instance_rule(dtype, units, instance):
+    """Kernel C's sweep runs on tensor cores in bf16 at u <= 32, on the CUDA
+    cores otherwise, in chunks of 32 units."""
+    assert t_rk.backward_instance(dtype, units) == instance
+
+
+@pytest.mark.parametrize("dtype,units", [(torch.bfloat16, 129), (torch.bfloat16, 0),
+                                         (torch.float16, 32)])
+def test_gru_backward_instance_rule_refuses(dtype, units):
+    with pytest.raises(ValueError):
+        t_rk.backward_instance(dtype, units)
+
+
+@pytest.mark.parametrize(
+    "kernel_name,instance",
+    [
+        ("void (anonymous namespace)::gru_bwd_sweep_mma_kernel<1, true>(__nv_bfloat16 const*, "
+         "int const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+         "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, __nv_bfloat16*, "
+         "__nv_bfloat16*, float4*, float*, int, int, int, int)", "mma_bf16_u32"),
+        ("void (anonymous namespace)::gru_bwd_sweep_mma_kernel<1, false>(...)", "mma_bf16_u32"),
+        ("void (anonymous namespace)::gru_bwd_sweep_kernel<__nv_bfloat16, 2>(...)",
+         "cuda_cores_bf16_u64"),
+        ("void (anonymous namespace)::gru_bwd_sweep_kernel<__nv_bfloat16, 4>(...)",
+         "cuda_cores_bf16_u128"),
+        ("void (anonymous namespace)::gru_bwd_sweep_kernel<float, 1>(float const*, int const*, "
+         "...)", "cuda_cores_f32_u32"),
+    ],
+)
+def test_gru_profiled_backward_instance_reads_the_kernel_name(kernel_name, instance):
+    """The profiler's (demangled) name of C's sweep in the rule's terms."""
+    assert t_rk.profiled_backward_instance(kernel_name) == instance
+
+
+def test_gru_profiled_backward_instance_refuses_kernel_b():
+    with pytest.raises(ValueError):
+        t_rk.profiled_backward_instance(
+            "void (anonymous namespace)::masked_gru_scan_mma_kernel<1, true>(...)")
+
+
 @pytest.fixture
 def pallas_interpret():
     """Run the JAX package's Pallas GRU kernel (interpret mode on the CPU),
@@ -544,10 +596,30 @@ def test_gru_kernel_matches_plain_on_cuda(cuda_device, dtype, tol, case):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# (L, n, d, u) of kernel C's cases; lengths drawn from 0..L with 0 and L present
+GRU_BWD_CUDA_CASES = {
+    "n1024": (8, 1024, 32, 32),
+    "n1000": (8, 1000, 32, 32),
+    "n1000_d20": (8, 1000, 20, 32),
+    "u48": (8, 1000, 20, 48),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_gru_bwd_kernel_matches_plain_on_cuda(cuda_device, dtype, tol):
-    xs, lens, h0, p = _gru_case(14, L=8, n=1024, d=32, u=32)
+@pytest.mark.parametrize(
+    "dtype,tol,case",
+    [(torch.float32, 1e-4, "n1024"), (torch.float32, 1e-4, "n1000_d20")]
+    + [(torch.bfloat16, 3e-2, c) for c in GRU_BWD_CUDA_CASES],
+)
+def test_gru_bwd_kernel_matches_plain_on_cuda(cuda_device, dtype, tol, case):
+    """Kernel C's sweep instance for (dtype, u), as the profiler names the
+    kernel that ran, is the rule's; its gradients agree with autograd's
+    through the plain version, and two identical calls are bitwise equal."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    L, n, d, u = GRU_BWD_CUDA_CASES[case]
+    xs, lens, h0, p = _gru_case(14, L=L, n=n, d=d, u=u)
     ct = np.random.default_rng(15).standard_normal(h0.shape).astype(np.float32)
     args = (
         _t(xs).to(cuda_device, dtype), _t(lens).to(cuda_device),
@@ -555,14 +627,25 @@ def test_gru_bwd_kernel_matches_plain_on_cuda(cuda_device, dtype, tol):
         {k: _t(v).to(cuda_device, dtype) for k, v in p.items()},
     )
     ct = _t(ct).to(cuda_device, dtype)
-    leaves = [args[0].requires_grad_(True), args[2].requires_grad_(True)]
-    params = {k: v.requires_grad_(True) for k, v in args[3].items()}
+    leaves = [args[0].clone().requires_grad_(True), args[2].clone().requires_grad_(True)]
+    params = {k: v.clone().requires_grad_(True) for k, v in args[3].items()}
     leaves += [params["kernel"], params["recurrent_kernel"], params["bias"]]
+
+    def grads():
+        return torch.autograd.grad(
+            t_rk.masked_gru_scan(leaves[0], args[1], leaves[1], params), leaves, ct)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        grads()
+        torch.cuda.synchronize()
+    ran = {t_rk.profiled_backward_instance(e.name) for e in prof.events()
+           if e.device_type == DeviceType.CUDA and "gru_bwd_sweep" in e.name}
+    assert ran == {t_rk.backward_instance(dtype, u)}
     before = t_rk.bwd_launch_count
-    got = torch.autograd.grad(t_rk.masked_gru_scan(leaves[0], args[1], leaves[1], params),
-                              leaves, ct)
+    got, again = grads(), grads()
     torch.cuda.synchronize()
-    assert t_rk.bwd_launch_count == before + 1
+    assert t_rk.bwd_launch_count == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = t_rk.masked_gru_scan_bwd_plain(*args, ct)
     for name, g, w in zip(GRAD_NAMES, got, want):
         assert g.dtype == w.dtype == dtype
@@ -573,6 +656,39 @@ def test_gru_bwd_kernel_matches_plain_on_cuda(cuda_device, dtype, tol):
             rtol = 2.0**-6 if dtype == torch.bfloat16 else 1e-5
             assert bool(((g - w).abs() <= tol + rtol * w.abs()).all()), name
         else:
-            # weight gradients sum 8,192 row-steps: relative to the leaf's
+            # weight gradients sum L * n row-steps: relative to the leaf's
             # largest entry
             assert float((g - w).abs().max()) <= tol * float(w.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRU_BWD_CUDA_CASES))
+def test_gru_bwd_kernel_matches_pallas_kernel_on_cuda(cuda_device, pallas_interpret, case):
+    """Kernel C in bf16 against the TPU kernel it replaces (the Pallas
+    backward in interpret mode on the CPU, rows padded with length-0 rows to a
+    multiple of 1,024), at the limits of the plain-version test: C follows the
+    TPU kernel's rounding (gate gradients rounded before each product), where
+    autograd through the plain version rounds the products instead."""
+    L, n, d, u = GRU_BWD_CUDA_CASES[case]
+    xs, lens, h0, p = _gru_case(14, L=L, n=n, d=d, u=u)
+    ct = np.random.default_rng(15).standard_normal(h0.shape).astype(np.float32)
+    bf16 = torch.bfloat16
+    args = (
+        _t(xs).to(cuda_device, bf16), _t(lens).to(cuda_device), _t(h0).to(cuda_device, bf16),
+        *(_t(p[k]).to(cuda_device, bf16) for k in ("kernel", "recurrent_kernel", "bias")),
+        _t(ct).to(cuda_device, bf16),
+    )
+    got = t_rk._launch_backward(*args)
+    pad = -n % 1024
+    ct_bf16 = _t(ct, bf16).float().numpy()
+    want = _pallas_scan_grads(
+        np.pad(xs, ((0, 0), (0, pad), (0, 0))), np.pad(lens, (0, pad)),
+        np.pad(h0, ((0, pad), (0, 0))), p, np.pad(ct_bf16, ((0, pad), (0, 0))), jnp.bfloat16)
+    want = [np.asarray(w.astype(jnp.float32)) for w in want]
+    want[0], want[1] = want[0][:, :n], want[1][:n]
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        g, w = g.float().cpu().numpy(), w
+        if name in ("d_xs", "d_h0"):
+            assert bool((np.abs(g - w) <= 3e-2 + 2.0**-6 * np.abs(w)).all()), name
+        else:
+            assert float(np.abs(g - w).max()) <= 3e-2 * float(np.abs(w).max()), name
