@@ -23,9 +23,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      its sweep's instance (bf16 on tensor cores, f32 on the CUDA cores:
      `rnn_kernels.backward_instance`) held to the profiler, its ptxas
      registers, twice and bitwise, its sweep, weight-gradient and finalize
-     device time, timed at the x4 shape too. D and E
-     also with a bf16 incidence matrix, over 4 graph
-     blocks and at a ragged shape; E twice, compared bitwise. Each kernel and,
+     device time, timed at the x4 shape too (cuDNN's GRU backward beside it
+     at both shapes); its bf16 reference rounds where the TPU kernel rounds
+     (`masked_gru_scan_bwd_kernel_plain`). D and E also with a bf16
+     incidence matrix, over 4 graph blocks and at a ragged shape; E twice,
+     compared bitwise, its two kernels (strips, row sums) the only device
+     launches of a call (profiler) with their device times, and their ptxas
+     registers (no spills). Each kernel and,
      where there is one, one PyTorch library call of the same function (a
      yardstick only, never on the port's path) is timed three ways: 20 calls
      made from Python between CUDA events (host launch cost included), the
@@ -835,15 +839,16 @@ def check_gru_scan(dev, rng) -> dict:
         x4 = _time_gru_forward(rk, dev, rng, L, n4, d, u, dtype)
         x4_bound = bound(sum(_gru_bytes(L, n4, d, u, xs.element_size())),
                          2 * L * n4 * (d + u) * 3 * u, dtype)
+        x4_plain = cuda_ms(lambda: rk.masked_gru_scan_plain(*x4["inputs"]), iters=3, warmup=1)
         print(f"    time at the x4 shape [{L},{n4},{d}]: kernel {fmt_times(x4['kernel'])}, "
-              f"torch.nn.GRU {fmt_times(x4['library'])}, bound {x4_bound[0]:.4f} ms by "
-              f"{x4_bound[1]}")
+              f"plain {x4_plain:.4f} ms, torch.nn.GRU {fmt_times(x4['library'])}, bound "
+              f"{x4_bound[0]:.4f} ms by {x4_bound[1]}")
         out[dtype] = dict(max_abs_err=max(errs), **t, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=t_lib["ms"],
                           library_graph_ms=t_lib["graph_ms"], library_cold_ms=t_lib["cold_ms"],
                           instance=rk.forward_instance(dtype, u),
                           at_x4_shape=dict(**x4["kernel"], bound_ms=x4_bound[0],
-                                           library_ms=x4["library"]["ms"],
+                                           plain_ms=x4_plain, library_ms=x4["library"]["ms"],
                                            library_graph_ms=x4["library"]["graph_ms"],
                                            library_cold_ms=x4["library"]["cold_ms"]))
     return out
@@ -876,6 +881,47 @@ def time_gru_kernels(package_root: str) -> None:
             bwd = device_times(rk._launch_backward, rotations(args))
             print(f"  [{L},{n},{d}] u={u} {str(dtype)[6:]}: kernel B {fmt_times(fwd)}; "
                   f"kernel C {fmt_times(bwd)}")
+
+
+def time_attention_kernels(package_root: str) -> None:
+    """Print the three times of kernels D and E of the `ignnition_tpu_torch`
+    package under `package_root` at the flagship's int8 incidence
+    [1, 2048, 16384] (D=32, bf16 and f32) and over 4 graph blocks
+    [4, 512, 4096] (bf16), the same inputs (seed 0) for every tree. Hold two
+    trees against each other as `time_gru_kernels` says:
+
+        python3 -c "import chip_smoke as c; c.time_attention_kernels('DIR')"
+
+    `main` never calls it."""
+    sys.path.insert(0, os.path.abspath(package_root))
+    from ignnition_tpu_torch.ops import segment as seg
+    from ignnition_tpu_torch.ops.cuda import attention_kernels as ak
+
+    dev, rng = torch.device("cuda", 0), np.random.default_rng(SEED)
+    print(f"attention kernels of "
+          f"{os.path.dirname(os.path.dirname(os.path.dirname(ak.__file__)))}")
+    size = FLAGSHIP
+    flagship = incidence_of(make_sample(rng, **size), size["n_links"], size["n_paths"])
+    blocks = np.stack([incidence_of(make_sample(rng, 512, 4096, 8), 512, 4096)
+                       for _ in range(4)])
+    cases = (("flagship", flagship[None], (torch.bfloat16, torch.float32)),
+             ("4 graph blocks", blocks, (torch.bfloat16,)))
+    for what, inc, dtypes in cases:
+        g, bd, bs = inc.shape
+        m = torch.from_numpy(inc).to(dev)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+        ssrc, sdst, x32, ct32 = f(g, bs), f(g, bd), f(g, bs, HS), f(g, bd, HS)
+        stab = seg._flash_stab(ssrc, sdst)
+        for dtype in dtypes:
+            x, ct = x32.to(dtype), ct32.to(dtype)
+            out, den = ak.flash_gat_forward(ssrc, sdst, x, m, stab)
+            srow = (ct.float() * out.float()).sum(dim=2)
+            t_fwd = device_times(ak.flash_gat_forward, rotations((ssrc, sdst, x, m, stab)))
+            t_bwd = device_times(ak.flash_gat_backward,
+                                 rotations((ssrc, sdst, x, m, stab, den, ct, srow)))
+            print(f"  [{g},{bd},{bs}] D={HS} m int8 x {str(dtype)[6:]} ({what}, "
+                  f"{np.count_nonzero(inc)} non-zeros): kernel D {fmt_times(t_fwd)}; "
+                  f"kernel E {fmt_times(t_bwd)}")
 
 
 def training_over_seeds(package_root: str, seeds: str = "0,1,2,3,4,5") -> None:
@@ -992,8 +1038,8 @@ def check_gru_scan_bwd(dev, rng) -> dict:
     # leaf's largest entry.
     tols = {
         torch.float32: (1e-4, 1e-5, "f32 sums in another order"),
-        torch.bfloat16: (3e-2, 2e-2, "gate gradients and the carry round to bf16 at "
-                                     "other places than autograd's"),
+        torch.bfloat16: (3e-2, 2e-2, "f32 sums in another order flip the bf16 "
+                                     "rounding of a gate gradient or the carry"),
     }
     names = ("kernel", "recurrent_kernel", "bias")
     print(f"  kernel C kernels, ptxas: {_c_ptxas()}")
@@ -1002,6 +1048,11 @@ def check_gru_scan_bwd(dev, rng) -> dict:
         xs, h0, ct = xs32.to(dtype), h032.to(dtype), ct32.to(dtype)
         p = {k: v.to(dtype) for k, v in p32.items()}
         row_tol, sum_tol, why = tols[dtype]
+        # bf16: the reference with the TPU kernel's rounding places (gate
+        # gradients rounded before each product); f32: autograd's, the same
+        # function
+        reference = (rk.masked_gru_scan_bwd_kernel_plain if dtype == torch.bfloat16
+                     else rk.masked_gru_scan_bwd_plain)
         err = 0.0
         for which, ln in (("random lengths", lens), ("full lengths", full)):
             leaves = [xs.clone().requires_grad_(True), h0.clone().requires_grad_(True)]
@@ -1018,7 +1069,7 @@ def check_gru_scan_bwd(dev, rng) -> dict:
             if not all(torch.equal(a, b) for a, b in zip(*runs)):
                 raise AssertionError(f"kernel C {str(dtype)[6:]}, {which}: two identical "
                                      f"calls differ")
-            want = rk.masked_gru_scan_bwd_plain(xs, ln, h0, p, ct)
+            want = reference(xs, ln, h0, p, ct)
             for name, g, w in zip(GRAD_NAMES, got, want):
                 if g.dtype != dtype:
                     raise AssertionError(f"kernel C returned {name} in {g.dtype}")
@@ -1042,28 +1093,14 @@ def check_gru_scan_bwd(dev, rng) -> dict:
             raise AssertionError(f"kernel C ran the {ran} sweep for {dtype} u={u}, the rule "
                                  f"says {instance}")
         t = device_times(rk._launch_backward, rotations(args))
-        plain_ms = cuda_ms(lambda: rk.masked_gru_scan_bwd_plain(xs, full, h0, p, ct), iters=5)
-        gru = _library_gru(p, d, u, dtype, dev)
-
-        def library_forward(x, h, c):
-            # on the capture stream, so that the backward's kernels run there
-            x_lib, h_lib = x.clone().requires_grad_(True), h.clone().requires_grad_(True)
-            return gru(x_lib, h_lib)[1][0], [x_lib, h_lib, *gru.parameters()], c
-
-        side_stream().wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side_stream()):
-            lib_sets = [library_forward(*a) for a in rotations((xs, h0[None], ct))]
-        torch.cuda.synchronize()
-        t_lib = device_times(
-            lambda h_n, leaves, c: torch.autograd.grad(h_n, leaves, c, retain_graph=True),
-            lib_sets, guarded=True, what="torch.nn.GRU backward")
+        plain_ms = cuda_ms(lambda: reference(xs, full, h0, p, ct), iters=5)
+        t_lib = _time_library_gru_backward(p, d, u, dtype, dev, xs, h0, ct)
         library_ms = t_lib["ms"]
         bound_ms, bound_by = _c_bound(L, n, d, u, dtype)
         print(f"    time at full lengths: kernel {fmt_times(t)}, plain {plain_ms:.4f} ms, "
               f"torch.nn.GRU backward {fmt_times(t_lib)}, bound {bound_ms:.4f} ms by "
               f"{bound_by} ({_c_flops(L, n, d, u) / t['graph_ms'] / 1e9:.1f} TFLOP/s by the "
               f"kernel in graph replay)")
-        del lib_sets
         n4 = FLAGSHIP_X4["n_paths"]
         xs4, _, full4, h04, p4, ct4 = _gru_inputs(dev, rng, L, n4, d, u)
         args4 = (xs4.to(dtype), full4, h04.to(dtype),
@@ -1071,15 +1108,45 @@ def check_gru_scan_bwd(dev, rng) -> dict:
         t4 = device_times(rk._launch_backward, rotations(args4))
         _, split4 = _c_ran(rk, args4)
         bound4 = _c_bound(L, n4, d, u, dtype)
-        print(f"    time at the x4 shape [{L},{n4},{d}]: kernel {fmt_times(t4)}, bound "
-              f"{bound4[0]:.4f} ms by {bound4[1]}; device ms a call: "
+        p4_cast = dict(zip(names, args4[3:6]))
+        t4_lib = _time_library_gru_backward(p4_cast, d, u, dtype, dev, args4[0], args4[2],
+                                            args4[6])
+        plain4 = cuda_ms(lambda: reference(args4[0], full4, args4[2], p4_cast, args4[6]),
+                         iters=3, warmup=1)
+        print(f"    time at the x4 shape [{L},{n4},{d}]: kernel {fmt_times(t4)}, plain "
+              f"{plain4:.4f} ms, torch.nn.GRU backward {fmt_times(t4_lib)}, bound "
+              f"{bound4[0]:.4f} ms by "
+              f"{bound4[1]}; device ms a call: "
               + ", ".join(f"{part} {ms:.4f}" for part, ms in split4.items()))
         out[dtype] = dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms,
                           library_graph_ms=t_lib["graph_ms"], library_cold_ms=t_lib["cold_ms"],
                           instance=ran, device_ms_by_kernel=split,
-                          at_x4_shape=dict(**t4, bound_ms=bound4[0], device_ms_by_kernel=split4))
+                          at_x4_shape=dict(**t4, bound_ms=bound4[0], device_ms_by_kernel=split4,
+                                           plain_ms=plain4, library_ms=t4_lib["ms"],
+                                           library_graph_ms=t4_lib["graph_ms"],
+                                           library_cold_ms=t4_lib["cold_ms"]))
     return out
+
+
+def _time_library_gru_backward(p, d, u, dtype, dev, xs, h0, ct) -> dict:
+    """The three times of `torch.nn.GRU`'s backward (cuDNN) through its final
+    state, holding the Keras params `p`, at the inputs of kernel C: a
+    yardstick, never on the port's path."""
+    gru = _library_gru(p, d, u, dtype, dev)
+
+    def library_forward(x, h, c):
+        # on the capture stream, so that the backward's kernels run there
+        x_lib, h_lib = x.clone().requires_grad_(True), h.clone().requires_grad_(True)
+        return gru(x_lib, h_lib)[1][0], [x_lib, h_lib, *gru.parameters()], c
+
+    side_stream().wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side_stream()):
+        lib_sets = [library_forward(*a) for a in rotations((xs, h0[None], ct))]
+    torch.cuda.synchronize()
+    return device_times(
+        lambda h_n, leaves, c: torch.autograd.grad(h_n, leaves, c, retain_graph=True),
+        lib_sets, guarded=True, what="torch.nn.GRU backward")
 
 
 def _c_flops(L, n, d, u) -> int:
@@ -1106,6 +1173,69 @@ def incidence_of(sample, n_links: int, n_paths: int) -> np.ndarray:
     if m.max() > 127:
         raise AssertionError("a multiplicity above 127 does not fit int8")
     return m.astype(np.int8)
+
+
+def _e_ptxas() -> str:
+    """Both kernels of kernel E: every instance of the strip kernel and the
+    row-sum kernel."""
+    return _ptxas_of("kernel E", r"flash_gat_bwd_(?:strip|rowsum)_kernel(?:I\w*?E(?=Ev))?")
+
+
+def _e_ran(ak, args, calls: int = 5) -> dict:
+    """{kernel E's `__global__` name: device ms a call} over `calls` calls by
+    torch.profiler. Raises unless the strip kernel and the row sums each ran
+    exactly `calls` times (the `BWD_LAUNCHES_PER_CALL` device launches of a
+    call) and nothing else ran. The profiler has missed the first kernel of
+    a profile now and then, so a short sleep kernel opens each profile; a
+    profile still short of a record is taken again whole, up to 3 times,
+    and one with a launch too many fails at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    design = ["flash_gat_bwd_rowsum_kernel", "flash_gat_bwd_strip_kernel"]
+    if len(design) != ak.BWD_LAUNCHES_PER_CALL:
+        raise AssertionError(f"kernel E makes {ak.BWD_LAUNCHES_PER_CALL} launches a call, "
+                             f"this check knows {design}")
+    ak.flash_gat_backward(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)  # the profile's first kernel, not counted
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                ak.flash_gat_backward(*args)
+            torch.cuda.synchronize()
+        count, ms = {}, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or "spin_kernel" in e.name:
+                continue
+            found = re.search(r"flash_gat_bwd_\w+_kernel", e.name)
+            k = e.name if found is None else found.group(0)
+            count[k] = count.get(k, 0) + 1
+            ms[k] = ms.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+        if sorted(count) == design and all(n == calls for n in count.values()):
+            return ms
+        if any(k not in design or n > calls for k, n in count.items()):
+            break
+    raise AssertionError(f"{calls} calls of kernel E made device launches {count}; the design "
+                         f"makes {calls} of each of {design}")
+
+
+def _print_e_lists(ak, blocks: np.ndarray, d: int, x_dtype, m_dtype) -> None:
+    """Print the non-zeros kernel E's list holds (`bwd_layout`, from the CUDA
+    source) beside those of each strip of `blocks` [G, bd, bs]: a strip
+    with more than the list holds handles it more than once."""
+    g, bd, bs = blocks.shape
+    strips, cap = ak.bwd_layout(bs, d, x_dtype, m_dtype)
+    w = 64 // torch.empty((), dtype=m_dtype).element_size()  # kStripBytes / item size
+    if -(-bs // w) != strips:
+        raise AssertionError(f"kernel E has {strips} strips of {bs} columns, not {-(-bs // w)}")
+    padded = np.zeros((g, bd, strips * w), bool)
+    padded[:, :, :bs] = blocks != 0
+    per_strip = padded.reshape(g, bd, strips, w).sum(axis=(1, 3))
+    print(f"    kernel E list: {cap} non-zeros (x {str(x_dtype)[6:]}, D={d}); a strip's "
+          f"non-zeros mean {per_strip.mean():.1f}, largest {per_strip.max()}; "
+          f"{int((per_strip > cap).sum())} of {per_strip.size} strips fill it more than once")
 
 
 def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m_dtype,
@@ -1138,6 +1268,10 @@ def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m
         for a, b, which in zip(got, again, ("dtab_plus", "d_sdst")):
             if not torch.equal(a, b):
                 raise AssertionError(f"kernel E {which} differs between two runs")
+        e_kernels = _e_ran(ak, (ssrc, sdst, x, m, stab, den, ct, srow))
+        print(f"  kernel E {name}: device ms a call by kernel (torch.profiler, 5 calls): "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in e_kernels.items()))
+        _print_e_lists(ak, blocks, d, dtype, m_dtype)
         w_out, w_den = ak.flash_gat_forward_plain(ssrc, sdst, x, m, stab)
         want = ak.flash_gat_backward_plain(ssrc, sdst, x, m, stab, den, ct, srow)
         bf16 = dtype == torch.bfloat16
@@ -1210,7 +1344,7 @@ def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m
                           materializing_route_ms=dense_fwd)
         bwd[dtype] = dict(max_abs_err=err_b, **t_bwd, plain_ms=bwd_plain,
                           bound_ms=bwd_bound[0], bound_by=bwd_bound[1], **none,
-                          materializing_route_ms=dense_bwd)
+                          materializing_route_ms=dense_bwd, device_ms_by_kernel=e_kernels)
     return dict(fwd=fwd, bwd=bwd)
 
 
@@ -1218,6 +1352,7 @@ def check_attention_kernels(dev, rng) -> dict:
     """Kernels D and E at the flagship's [2048, 16384] int8 incidence (D=32,
     bf16 and f32), with a bf16 incidence, over 4 graph blocks of the
     `blocks_g4` size, and at a shape the TPU tiles would refuse."""
+    print(f"  kernel E kernels, ptxas: {_e_ptxas()}")
     both = (torch.bfloat16, torch.float32)
     size = FLAGSHIP
     m = incidence_of(make_sample(rng, **size), size["n_links"], size["n_paths"])

@@ -23,23 +23,55 @@
 // wherever m is, so only the non-zero entries cost the D-wide work: the TPU
 // kernel's dense [TD, TS] tiles and MXU contractions are not carried over.
 //
-// Design. A warp scans m in 16-byte loads per lane (16 int8 or 8 bf16
-// entries; element-wise loads at ragged or unaligned edges), votes on which
-// lanes met a non-zero, and handles each such entry with all 32 lanes over
-// the D columns (lane j owns columns j, j+32, ...), in index order.
-//   D  forward:  one warp per destination row, or `split` warps of a CTA on
-//      equal column ranges of one row when there are few rows; the partial
-//      sums meet in shared memory and are added in range order.
-//   E  backward: two grids, because CTAs share nothing and the TPU kernel's
-//      resident [n_src, D+1] accumulator has no counterpart.
-//      rows:    the forward's walk; d_sdst[d] needs one row only.
-//      columns: a warp owns a strip of 16 bytes of columns and walks down a
-//      range of destination rows, lane r reading row base+r; it adds a^T ct
-//      and dp into its own [strip, D+1] block of shared memory. The warps of
-//      a CTA that share a strip (one per row range) are added in range order
-//      at the end. m is read a second time (from L2 when it fits there).
+// Design of D. A warp scans a row of m in 16-byte loads per lane (16 int8 or
+// 8 bf16 entries; element-wise loads at ragged or unaligned edges), votes on
+// which lanes met a non-zero, and handles each such entry with all 32 lanes
+// over the D columns (lane j owns columns j, j+32, ...), in index order: one
+// warp per destination row, or `split` warps of a CTA on equal column ranges
+// of one row when there are few rows; the partial sums meet in shared memory
+// and are added in range order.
+//
+// Design of E: one streamed pass over m, two launches.
+//   strips  a CTA owns a strip of 64 bytes of columns (64 int8 or 32 bf16
+//      entries: two 32-byte sectors a row) of one graph over all bd rows, so
+//      it writes d_table and d_ssrc of its columns itself (256 CTAs at the
+//      flagship, 2 an SM). 256 threads walk the rows in tiles of 256 rows
+//      (16 KB), streamed by 16-byte cp.async copies into a ring of 4 stages:
+//      48 KB of m in flight a CTA, 2 CTAs an SM at D <= 32, 1 past that
+//      (Little's law asks ~25 KB an SM at 3.35 TB/s). cp.async and not
+//      TMA: the library stays plain C with no
+//      `cuTensorMapEncodeTiled` tensor map, and each row's four chunks land
+//      permuted by (row / 2) % 4, so that the thread of a row reads it
+//      without bank conflicts. Rows that cannot take 16-byte copies (bs *
+//      item size not a multiple of 16, an unaligned base) take element loads
+//      into the same ring.
+//   the list  thread t turns row t of a tile into a bit mask of its
+//      non-zeros (byte or half-word compares gathered by one multiply); a
+//      block scan of the counts appends them to a shared list of the strip
+//      in row-major order (row and column in arrays of their own, so any bd
+//      fits). The list is handled ("flushed") when it holds as many as the
+//      113 KB of shared memory of 2 CTAs an SM leave room for, and at the
+//      end: `cap` of `bwd_layout`, which `ign_flash_gat_bwd_layout` reports
+//      (544 at D = 32 with bf16 x, 320 with f32 x; a flagship strip holds
+//      ~511 on average).
+//   a flush, lane-parallel  one thread per non-zero forms pre, a, a rounded
+//      to x's type and dp, with da = ct[d] . x[s] from 16-byte loads of both
+//      rows, and keeps the ct row beside the list; meanwhile one warp sorts
+//      the list by column, stably (match_any ranks, a scan of the counts).
+//      Then each column's group of 4 (int8) or 8 (bf16 m) lanes, a lane a
+//      slice of D, adds ab * ct[d, slice] and dp of its column's non-zeros
+//      in row order into registers, and the first thread of each row's run
+//      adds the run's dp in column order into the strip's partial of d_sdst.
+//   fixed-order sums  the partials go to a scratch [strips, G, bd] (2 MB at
+//      the flagship); a second kernel sums each row's partials in strip
+//      order (16 warps a CTA on 32 rows, each on a sixteenth of the strips,
+//      then the warps in order).
+//   m is read once, each partial written and read once; the bound counts one
+//   read of m. On the card a flush is the tail that the stream does not hide
+//   (PERF.md §6).
 // No atomics anywhere: every sum has a fixed order, so results repeat
 // bitwise from run to run.
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
@@ -49,8 +81,7 @@ namespace {
 constexpr float kSlope = 0.2f;     // LeakyReLU negative slope
 constexpr float kDenFloor = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowWarps = 4;       // warps of a CTA in the row-wise kernels
-constexpr int kColWarps = 8;       // warps of a CTA in the column-wise kernel
+constexpr int kRowWarps = 4;       // warps of a CTA of kernel D
 constexpr int kTargetWarps = 8192; // warps wanted in flight before splitting stops
 
 // m's storage types: int8 as uint8_t, bf16 as uint16_t (raw bits).
@@ -148,12 +179,6 @@ __device__ __forceinline__ void walk_row(const M* __restrict__ row, int col_begi
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;  // the same bits in every lane: each level adds the same pairs
-}
-
 __device__ __forceinline__ int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
 // The column range of `part` of `split` equal parts of a row of `bs` entries,
@@ -240,149 +265,445 @@ flash_gat_fwd_kernel(const float* __restrict__ ssrc, const float* __restrict__ s
 
 // ---------------------------------------------------------------- kernel E
 
-// One non-zero entry's backward terms: a (f32) and dp. `ctv` holds the
-// lane's columns of ct[d, :], already in T.
-template <typename T, int KD>
-__device__ __forceinline__ void entry_backward(float mv, float pre, float st, float dn,
-                                               float sr, const float (&ctv)[KD],
-                                               const T* __restrict__ xs, int d, int lane,
-                                               float* a_out, float* dp_out) {
-  const float e = fmaxf(pre, kSlope * pre);
-  const float a = expf(e - st) * mv / fmaxf(dn, kDenFloor);
-  float part = 0.f;
-#pragma unroll
-  for (int k = 0; k < KD; ++k) {
-    const int j = lane + 32 * k;
-    if (j < d) part = fmaf(ctv[k], ign::to_f32(xs[j]), part);
-  }
-  const float da = warp_sum(part);
-  *a_out = a;
-  *dp_out = a * (pre > 0.f ? 1.f : kSlope) * (da - sr);
+constexpr int kStripBytes = 64;   // bytes of each row of m that one CTA's strip holds
+constexpr int kTileRows = 256;    // rows of m a pipeline stage holds: one per thread
+constexpr int kBwdThreads = kTileRows;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kStages = 4;        // tiles in the ring: three in flight while one is read
+constexpr int kStageBytes = kTileRows * kStripBytes;
+constexpr int kListMax = 1024;    // non-zeros a strip lists before it handles them
+constexpr int kSmemPerCta = 113 * 1024;  // 2 CTAs an SM
+constexpr int kSumWarps = 16;     // warps of a CTA of the row-sum kernel, 32 rows a CTA
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T, typename M, int KD>
-__global__ void __launch_bounds__(kRowWarps * 32)
-flash_gat_bwd_rows_kernel(const float* __restrict__ ssrc, const float* __restrict__ sdst,
-                          const float* __restrict__ stab, const float* __restrict__ den,
-                          const float* __restrict__ srow, const T* __restrict__ x,
-                          const T* __restrict__ ct, const M* __restrict__ m,
-                          float* __restrict__ d_sdst, int bd, int bs, int d, int split) {
-  __shared__ float partial[kRowWarps];
-  const int g = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kRowWarps / split) + warp / split;
-  const int part = warp % split;
-  const bool live = row < bd;
-  const size_t grow = static_cast<size_t>(g) * bd + row;
-
-  float dsd = 0.f;
-  if (live) {
-    const float* ss = ssrc + static_cast<size_t>(g) * bs;
-    const T* xg = x + static_cast<size_t>(g) * bs * d;
-    const float sd = sdst[grow], st = stab[grow], dn = den[grow], sr = srow[grow];
-    float ctv[KD];
-#pragma unroll
-    for (int k = 0; k < KD; ++k) {
-      const int j = lane + 32 * k;
-      ctv[k] = j < d ? ign::to_f32(ct[grow * d + j]) : 0.f;
-    }
-    int c0, c1;
-    part_range<M>(bs, split, part, &c0, &c1);
-    walk_row<M>(m + grow * bs, c0, c1, lane, [&](int s, float mv) {
-      float a, dp;
-      entry_backward<T, KD>(mv, sd + ss[s], st, dn, sr, ctv,
-                            xg + static_cast<size_t>(s) * d, d, lane, &a, &dp);
-      dsd += dp;
-    });
-  }
-  if (split > 1) {
-    if (lane == 0) partial[warp] = dsd;
-    __syncthreads();
-    if (part != 0) return;
-    dsd = 0.f;
-    for (int p = 0; p < split; ++p) dsd += partial[warp + p];  // in range order
-  }
-  if (live && lane == 0) d_sdst[grow] = dsd;
+// Where 16-byte chunk `chunk` of row `r` of a stage lies: the chunks of a row
+// are permuted by (r / 2) % 4, so that eight threads reading chunk q of
+// eight neighbouring rows hit eight different groups of banks.
+__device__ __forceinline__ int chunk_at(int r, int chunk) {
+  return r * kStripBytes + 16 * (chunk ^ ((r >> 1) & 3));
 }
 
-template <typename T, typename M, int KD>
-__global__ void __launch_bounds__(kColWarps * 32)
-flash_gat_bwd_cols_kernel(const float* __restrict__ ssrc, const float* __restrict__ sdst,
-                          const float* __restrict__ stab, const float* __restrict__ den,
-                          const float* __restrict__ srow, const T* __restrict__ x,
-                          const T* __restrict__ ct, const M* __restrict__ m,
-                          float* __restrict__ dtab_plus, int bd, int bs, int d,
-                          int row_ranges) {
+// Rows row0 .. row0 + kTileRows of the strip that starts at column col0 into
+// a stage of the ring, zeros past bd and bs. `aligned` (rows of whole 16-byte
+// chunks at a 16-byte aligned base): 16-byte cp.async copies that land while
+// the CTA works on earlier tiles; otherwise element loads, stored at once.
+template <typename M>
+__device__ __forceinline__ void load_tile(uint8_t* stage, const M* __restrict__ mg, int row0,
+                                          int bd, int bs, int col0, bool aligned) {
+  constexpr int kChunks = kStripBytes / 16;
   constexpr int kVec = 16 / sizeof(M);
-  extern __shared__ float smem[];  // [kColWarps][kVec][d + 1]
-  const int g = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int strips_per_cta = kColWarps / row_ranges;
-  const int col0 = (blockIdx.x * strips_per_cta + warp / row_ranges) * kVec;
-  const int range = warp % row_ranges;
-  const int width = d + 1;
-
-  float* acc = smem + warp * kVec * width;
-  for (int i = lane; i < kVec * width; i += 32) acc[i] = 0.f;
-  __syncwarp();
-
-  if (col0 < bs) {
-    const int len = round_up((bd + row_ranges - 1) / row_ranges, 32);
-    const int r0 = min(bd, range * len), r1 = min(bd, r0 + len);
-    const size_t g_rows = static_cast<size_t>(g) * bd;
-    const M* mg = m + g_rows * bs;
-    const float* ss = ssrc + static_cast<size_t>(g) * bs;
-    const T* xg = x + static_cast<size_t>(g) * bs * d;
-    auto load = [&](int r) {
-      return r < r1 ? load_chunk<M>(mg + static_cast<size_t>(r) * bs, col0, bs)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    };
-    uint4 cur = load(r0 + lane);
-    for (int base = r0; base < r1; base += 32) {
-      const uint4 nxt = load(base + 32 + lane);
-      unsigned hits = __ballot_sync(kFull, any_bits(cur));
-      while (hits) {  // rows in order
-        const int src_lane = __ffs(hits) - 1;
-        hits &= hits - 1;
-        const uint4 c = broadcast_chunk(cur, src_lane);
-        const size_t grow = g_rows + base + src_lane;
-        const float sd = sdst[grow], st = stab[grow], dn = den[grow], sr = srow[grow];
-        float ctv[KD];
 #pragma unroll
-        for (int k = 0; k < KD; ++k) {
-          const int j = lane + 32 * k;
-          ctv[k] = j < d ? ign::to_f32(ct[grow * d + j]) : 0.f;
-        }
-        for_each_nonzero<M>(c, [&](int i, float mv) {
-          const int s = col0 + i;
-          float a, dp;
-          entry_backward<T, KD>(mv, sd + ss[s], st, dn, sr, ctv,
-                                xg + static_cast<size_t>(s) * d, d, lane, &a, &dp);
-          const float ab = ign::round_to<T>(a);
-          float* mine = acc + i * width;
+  for (int q = 0; q < kChunks; ++q) {
+    const int i = threadIdx.x + q * kBwdThreads;  // 4 neighbouring threads a row
+    const int r = i / kChunks, c = col0 + (i % kChunks) * kVec;
+    const int row = row0 + r;
+    uint8_t* dst = stage + chunk_at(r, i % kChunks);
+    const bool in = row < bd && c < bs;
+    const M* src = mg + static_cast<size_t>(row) * bs;
+    if (aligned)
+      cp_async16(dst, in ? static_cast<const void*>(src + c) : mg, in ? 16 : 0);
+    else
+      *reinterpret_cast<uint4*>(dst) =
+          in ? load_chunk<M>(src, c, bs) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Bit c set where entry c of row r of a stage is non-zero.
+template <typename M>
+__device__ __forceinline__ unsigned long long nonzero_mask(const uint8_t* stage, int r) {
+  unsigned long long mask = 0ull;
 #pragma unroll
-          for (int k = 0; k < KD; ++k) {
-            const int j = lane + 32 * k;
-            if (j < d) mine[j] = fmaf(ab, ctv[k], mine[j]);
-          }
-          if (lane == 0) mine[d] += dp;
-        });
+  for (int i = 0; i < kStripBytes / 16; ++i) {
+    const uint4 q = *reinterpret_cast<const uint4*>(stage + chunk_at(r, i));
+    if ((q.x | q.y | q.z | q.w) == 0u) continue;
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t bits;
+      if (sizeof(M) == 1) {  // the top bit of each byte's compare, gathered into 4 bits
+        bits = ((__vcmpne4(w[k], 0u) & 0x80808080u) * 0x00204081u) >> 28;
+      } else {  // a bf16 of either sign that is not zero
+        const uint32_t h = __vcmpne2(w[k] & 0x7fff7fffu, 0u);
+        bits = (h & 1u) | ((h >> 15) & 2u);
       }
-      cur = nxt;
+      mask |= static_cast<unsigned long long>(bits) << ((4 * i + k) * (4 / sizeof(M)));
     }
   }
-  __syncthreads();
-  // add the row ranges of each strip in range order and write every column
-  const int per_strip = kVec * width;
-  for (int idx = threadIdx.x; idx < strips_per_cta * per_strip; idx += blockDim.x) {
-    const int strip = idx / per_strip, rem = idx % per_strip;
-    const int col = (blockIdx.x * strips_per_cta + strip) * kVec + rem / width;
-    if (col >= bs) continue;
-    float sum = 0.f;
-    for (int r = 0; r < row_ranges; ++r)
-      sum += smem[(strip * row_ranges + r) * per_strip + rem];
-    dtab_plus[(static_cast<size_t>(g) * bs + col) * width + rem % width] = sum;
+  return mask;
+}
+
+// s + a . b over the 16 bytes of two chunks of T.
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b, float s);
+template <>
+__device__ __forceinline__ float dot16<__nv_bfloat16>(const uint4& a, const uint4& b,
+                                                      float s) {
+  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(pa[i]), fb = __bfloat1622float2(pb[i]);
+    s = fmaf(fa.x, fb.x, s);
+    s = fmaf(fa.y, fb.y, s);
   }
+  return s;
+}
+template <>
+__device__ __forceinline__ float dot16<float>(const uint4& a, const uint4& b, float s) {
+  s = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), s);
+  s = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), s);
+  s = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), s);
+  return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), s);
+}
+
+// The values of a 16-byte chunk as floats: 8 bf16 or 4 f32, told apart by
+// the length of `f`.
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+// Shared memory of the strip kernel with a list of `cap` non-zeros: the
+// ring, the ct rows of the listed non-zeros (cap x d items of `item` bytes),
+// the list (row, m, a rounded to T, dp, the rank among its column's
+// non-zeros, the list in column order), the columns' counts and starts, the
+// warps' counts, the carried row sum, and the list's columns (a byte each).
+constexpr size_t bwd_smem_bytes(int cap, int d, int item) {
+  return static_cast<size_t>(kStages) * kStageBytes + static_cast<size_t>(cap) * d * item +
+         (6 * sizeof(float) + 1) * cap +
+         sizeof(int) * (2 * (kStripBytes + 1) + kBwdWarps) + 4 * sizeof(float);
+}
+
+// The strip kernel's layout: the strips of a graph's bs columns (`part` is
+// [strips, G, bd] f32) and the non-zeros a strip's list holds, the most (a
+// multiple of 32, up to kListMax) that leave 2 CTAs an SM.
+struct BwdLayout {
+  int strips, cap;
+};
+BwdLayout bwd_layout(int bs, int d, int x_item, int m_item) {
+  const int w = kStripBytes / m_item;
+  const long long base = static_cast<long long>(bwd_smem_bytes(0, d, x_item));
+  const long long per_entry = static_cast<long long>(bwd_smem_bytes(1, d, x_item)) - base;
+  const long long room = kSmemPerCta - base;
+  const long long cap =
+      std::min<long long>(kListMax, std::max<long long>(32, room / per_entry / 32 * 32));
+  return {(bs + w - 1) / w, static_cast<int>(cap)};
+}
+
+// One CTA: the strip of W = kStripBytes / sizeof(M) columns at blockIdx.x of
+// graph blockIdx.y, over all bd rows, in tiles of kTileRows rows streamed
+// through a ring of kStages stages.
+//   scan     (per tile) thread t reads row t of the tile into a bit mask of
+//            its non-zeros; a block-wide scan of the counts appends them to
+//            the strip's list in row-major order (rows, then columns,
+//            ascending). A row without any writes its partial 0.
+//   flush    (when the list holds `cap` non-zeros, and at the end):
+//     entries  one thread per non-zero (all warps but the last): pre, a, a
+//              rounded to T, lrelu'(pre), da = ct[d] . x[s] from 16-byte
+//              loads, dp; the ct row is kept in shared memory beside the
+//              list; meanwhile the last warp sorts the list by column,
+//              stably (rows stay ascending);
+//     columns  warp w owns W / 8 columns, a group of 32 / (W / 8) lanes
+//              each, a lane a slice of D; the group adds ab * ct[d, slice]
+//              and dp of its column's non-zeros into registers, rows
+//              ascending;
+//     rows     the first thread of each row's run in the list adds its dp in
+//              column order and writes the strip's partial of d_sdst; a run
+//              that reaches the list's end is carried into the next flush.
+// Each lane group writes its column of d_table and d_ssrc at the end: nothing
+// is summed across CTAs but `part`, which flash_gat_bwd_rowsum_kernel sums in
+// strip order.
+template <typename T, typename M, int KD>
+// 2 CTAs an SM (128 registers) at D <= 32; past that the sums (16 or 32 a
+// lane where m is int8) spill at 128, so 1 CTA an SM
+__global__ void __launch_bounds__(kBwdThreads, KD == 1 ? 2 : 1)
+flash_gat_bwd_strip_kernel(const float* __restrict__ ssrc, const float* __restrict__ sdst,
+                           const float* __restrict__ stab, const float* __restrict__ den,
+                           const float* __restrict__ srow, const T* __restrict__ x,
+                           const T* __restrict__ ct, const M* __restrict__ m,
+                           float* __restrict__ dtab_plus, float* __restrict__ part, int bd,
+                           int bs, int d, int cap, bool aligned, bool vec) {
+  constexpr int W = kStripBytes / sizeof(M);
+  constexpr int kCols = W / kBwdWarps;  // columns whose sums a warp owns
+  extern __shared__ uint4 smem_u4[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem_u4);
+  T* stash = reinterpret_cast<T*>(ring + kStages * kStageBytes);  // [cap][d]
+  int* list_row = reinterpret_cast<int*>(stash + static_cast<size_t>(cap) * d);
+  float* list_mv = reinterpret_cast<float*>(list_row + cap);
+  float* list_ab = list_mv + cap;
+  float* list_dp = list_ab + cap;
+  int* col_rank = reinterpret_cast<int*>(list_dp + cap);
+  int* by_col = col_rank + cap;  // list indices, column by column
+  int* col_count = by_col + cap;  // [W + 1]: the last one counts past-the-end lanes
+  int* col_start = col_count + kStripBytes + 1;  // [W + 1]
+  int* warp_total = col_start + kStripBytes + 1;
+  int* carry_row = warp_total + kBwdWarps;  // [2]: into this flush, out of it
+  float* carry_sum = reinterpret_cast<float*>(carry_row + 2);
+  uint8_t* list_col = reinterpret_cast<uint8_t*>(carry_sum + 2);  // column in the strip
+
+  const int g = blockIdx.y;
+  const int col0 = blockIdx.x * W;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t g_rows = static_cast<size_t>(g) * bd;
+  const M* mg = m + g_rows * bs;
+  const float* ss = ssrc + static_cast<size_t>(g) * bs;
+  const T* xg = x + static_cast<size_t>(g) * bs * d;
+  const T* ctg = ct + g_rows * d;
+  float* part_g = part + (static_cast<size_t>(blockIdx.x) * gridDim.y + g) * bd;
+
+  // lane group `mine_col` of kLanes lanes holds column warp * kCols + mine_col
+  // of d_table, each lane kVals values from j0 on, and (lane j0 = 0) d_ssrc
+  constexpr int kLanes = 32 / kCols;
+  constexpr int kVals = 32 * KD / kLanes;
+  const int mine_col = lane / kLanes, j0 = (lane % kLanes) * kVals;
+  float acc[kVals], acc_ss = 0.f;
+#pragma unroll
+  for (int v = 0; v < kVals; ++v) acc[v] = 0.f;
+  if (tid == 0) carry_row[0] = -1;
+
+  auto flush = [&](int n) {
+    __syncthreads();  // the list is complete
+    if (warp == kBwdWarps - 1) {
+      // ---- the list in column order: a stable counting sort
+      for (int c = lane; c <= W; c += 32) col_count[c] = 0;
+      __syncwarp();
+      for (int base = 0; base < n; base += 32) {
+        const int i = base + lane;
+        const int c = i < n ? list_col[i] : W;
+        const unsigned same = __match_any_sync(kFull, c);
+        const int rank = __popc(same & ((1u << lane) - 1u));
+        const int before = col_count[c];
+        __syncwarp();
+        if (i < n) col_rank[i] = before + rank;
+        if (rank == 0) col_count[c] = before + __popc(same);
+        __syncwarp();
+      }
+      int sum = 0;  // exclusive scan of the counts, 32 columns at a time
+      for (int c0 = 0; c0 < W; c0 += 32) {
+        const int v = col_count[c0 + lane];
+        int incl = v;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += u;
+        }
+        col_start[c0 + lane] = sum + incl - v;
+        sum += __shfl_sync(kFull, incl, 31);
+      }
+      if (lane == 0) col_start[W] = sum;
+      __syncwarp();
+      for (int i = lane; i < n; i += 32) by_col[col_start[list_col[i]] + col_rank[i]] = i;
+    } else {
+      // ---- entries: one thread per non-zero
+      for (int i = tid; i < n; i += kBwdThreads - 32) {
+        const int r = list_row[i], s = col0 + list_col[i];
+        const size_t grow = g_rows + r;
+        const float pre = sdst[grow] + ss[s];
+        const float st = stab[grow], dn = den[grow], sr = srow[grow];
+        const T* ctr = ctg + static_cast<size_t>(r) * d;
+        const T* xr = xg + static_cast<size_t>(s) * d;
+        T* kept = stash + static_cast<size_t>(i) * d;
+        float da = 0.f;
+        if (vec) {
+          const int nq = d * static_cast<int>(sizeof(T)) / 16;
+#pragma unroll 1  // more in flight costs registers past 2 CTAs an SM
+          for (int q = 0; q < nq; ++q) {
+            const uint4 u = __ldg(reinterpret_cast<const uint4*>(ctr) + q);
+            reinterpret_cast<uint4*>(kept)[q] = u;
+            da = dot16<T>(u, __ldg(reinterpret_cast<const uint4*>(xr) + q), da);
+          }
+        } else {
+          for (int j = 0; j < d; ++j) {
+            const T cv = ctr[j];
+            kept[j] = cv;
+            da = fmaf(ign::to_f32(cv), ign::to_f32(xr[j]), da);
+          }
+        }
+        const float e = fmaxf(pre, kSlope * pre);
+        const float a = expf(e - st) * list_mv[i] / fmaxf(dn, kDenFloor);
+        list_ab[i] = ign::round_to<T>(a);
+        list_dp[i] = a * (pre > 0.f ? 1.f : kSlope) * (da - sr);
+      }
+    }
+    __syncthreads();
+    // ---- columns: each lane group adds its column's non-zeros in list order
+    const bool vec_slice = vec && (kVals * sizeof(T)) % 16 == 0 && j0 + kVals <= d;
+    const int my_col = warp * kCols + mine_col;
+    for (int k = col_start[my_col]; k < col_start[my_col + 1]; ++k) {
+      const int j = by_col[k];
+      const float ab = list_ab[j];
+      const T* kept = stash + static_cast<size_t>(j) * d + j0;
+      if (vec_slice) {
+        constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+        for (int q = 0; q < kVals / kPer; ++q) {
+          float f[kPer];
+          unpack16(reinterpret_cast<const uint4*>(kept)[q], f);
+#pragma unroll
+          for (int v = 0; v < kPer; ++v) acc[q * kPer + v] = fmaf(ab, f[v], acc[q * kPer + v]);
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < kVals; ++v)
+          if (j0 + v < d) acc[v] = fmaf(ab, ign::to_f32(kept[v]), acc[v]);
+      }
+      if (j0 == 0) acc_ss += list_dp[j];
+    }
+    // ---- rows: the first thread of each row's run adds the run in order
+    for (int i = tid; i < n; i += kBwdThreads) {
+      const int r = list_row[i];
+      if (i > 0 && list_row[i - 1] == r) continue;
+      float sum = 0.f;
+      if (i == 0) {
+        if (carry_row[0] == r)
+          sum = carry_sum[0];
+        else if (carry_row[0] >= 0)
+          part_g[carry_row[0]] = carry_sum[0];
+      }
+      int j = i;
+      for (; j < n && list_row[j] == r; ++j) sum += list_dp[j];
+      if (j == n) {  // the run may go on in the next flush
+        carry_row[1] = r;
+        carry_sum[1] = sum;
+      } else {
+        part_g[r] = sum;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      carry_row[0] = carry_row[1];
+      carry_sum[0] = carry_sum[1];
+    }
+  };
+
+  const int n_tiles = (bd + kTileRows - 1) / kTileRows;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles)
+      load_tile<M>(ring + t * kStageBytes, mg, t * kTileRows, bd, bs, col0, aligned);
+    cp_async_commit();
+  }
+  int listed = 0;  // non-zeros in the list; the same in every thread
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // the tile is in shared memory, and every thread is done with the last
+    const int ahead = tile + kStages - 1;  // into the stage of the last tile
+    if (ahead < n_tiles)
+      load_tile<M>(ring + (ahead % kStages) * kStageBytes, mg, ahead * kTileRows, bd, bs,
+                   col0, aligned);
+    cp_async_commit();
+
+    // ---- scan: this thread's row, its count and its place in the tile
+    const int row = tile * kTileRows + tid;
+    const uint8_t* stage = ring + (tile % kStages) * kStageBytes;
+    const unsigned long long nz = nonzero_mask<M>(stage, tid);
+    const int cnt = __popcll(nz);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_total[warp] = incl;
+    __syncthreads();
+    int off = incl - cnt, total = 0;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) {
+      const int v = warp_total[w];
+      off += w < warp ? v : 0;
+      total += v;
+    }
+    if (cnt == 0 && row < bd) part_g[row] = 0.f;
+
+    // ---- append the tile's non-zeros [b0, b0 + take) at `listed`
+    for (int b0 = 0; b0 < total;) {
+      if (listed == cap) {
+        flush(cap);
+        listed = 0;
+      }
+      const int take = min(total - b0, cap - listed);
+      if (cnt > 0 && off < b0 + take && off + cnt > b0) {
+        unsigned long long left = nz;
+        for (int k = off; left != 0ull && k < b0 + take; ++k) {  // columns ascending
+          const int c = __ffsll(static_cast<long long>(left)) - 1;
+          left &= left - 1;
+          if (k < b0) continue;
+          constexpr int kVec = 16 / sizeof(M);
+          const uint32_t bits = *reinterpret_cast<const M*>(
+              stage + chunk_at(tid, c / kVec) + (c % kVec) * sizeof(M));
+          list_row[listed + k - b0] = row;
+          list_col[listed + k - b0] = static_cast<uint8_t>(c);
+          list_mv[listed + k - b0] = Entry<M>::value(bits);
+        }
+      }
+      listed += take;
+      b0 += take;
+    }
+  }
+  cp_async_wait<0>();
+  if (listed > 0) flush(listed);
+  __syncthreads();
+  if (tid == 0 && carry_row[0] >= 0) part_g[carry_row[0]] = carry_sum[0];
+
+  // each lane's values of its column of dtab_plus: d_table, then d_ssrc
+  const int col = col0 + warp * kCols + mine_col;
+  if (col < bs) {
+    float* out = dtab_plus + (static_cast<size_t>(g) * bs + col) * (d + 1);
+#pragma unroll
+    for (int v = 0; v < kVals; ++v)
+      if (j0 + v < d) out[j0 + v] = acc[v];
+    if (j0 == 0) out[d] = acc_ss;
+  }
+}
+
+// d_sdst[g, row] = the strips' partials summed in strip order: warp w of a
+// CTA adds strips [w * per, (w + 1) * per) for 32 rows (lane = row), then
+// warp 0 adds the warps' sums in warp order.
+__global__ void __launch_bounds__(kSumWarps * 32)
+flash_gat_bwd_rowsum_kernel(const float* __restrict__ part, float* __restrict__ d_sdst,
+                            int bd, int n_strips) {
+  __shared__ float partial[kSumWarps][32];
+  const int g = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 32 + lane;
+  const int per = (n_strips + kSumWarps - 1) / kSumWarps;
+  const int p0 = min(n_strips, warp * per), p1 = min(n_strips, p0 + per);
+  const size_t stride = static_cast<size_t>(gridDim.y) * bd;
+  float sum = 0.f;
+  if (row < bd) {
+    const float* src = part + static_cast<size_t>(g) * bd + row;
+#pragma unroll 8
+    for (int p = p0; p < p1; ++p) sum += src[p * stride];
+  }
+  partial[warp][lane] = sum;
+  __syncthreads();
+  if (warp != 0 || row >= bd) return;
+  float total = 0.f;
+  for (int w = 0; w < kSumWarps; ++w) total += partial[w][lane];
+  d_sdst[static_cast<size_t>(g) * bd + row] = total;
 }
 
 // ------------------------------------------------------------- host side
@@ -391,7 +712,7 @@ struct Args {
   const float *ssrc, *sdst, *stab, *den, *srow;
   const void *x, *ct, *m;
   void* out;
-  float *den_out, *dtab_plus, *d_sdst;
+  float *den_out, *dtab_plus, *d_sdst, *part;
   int g, bd, bs, d;
   cudaStream_t stream;
 };
@@ -424,35 +745,26 @@ struct Forward {
 template <typename T, typename M, int KD>
 struct Backward {
   static int run(const Args& a) {
-    constexpr int kVec = 16 / sizeof(M);
-    const T* x = static_cast<const T*>(a.x);
-    const T* ct = static_cast<const T*>(a.ct);
-    const M* m = static_cast<const M*>(a.m);
-
-    const int split =
-        pick_split(static_cast<long long>(a.g) * a.bd, a.bs, 32 * kVec, kRowWarps);
-    const int rows_per_cta = kRowWarps / split;
-    const dim3 row_grid((a.bd + rows_per_cta - 1) / rows_per_cta, a.g);
-    flash_gat_bwd_rows_kernel<T, M, KD><<<row_grid, kRowWarps * 32, 0, a.stream>>>(
-        a.ssrc, a.sdst, a.stab, a.den, a.srow, x, ct, m, a.d_sdst, a.bd, a.bs, a.d, split);
-    int code = static_cast<int>(cudaGetLastError());
+    const BwdLayout lay = bwd_layout(a.bs, a.d, sizeof(T), sizeof(M));
+    const auto misaligned = [](const void* p) {
+      return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+    };
+    const bool aligned =
+        (static_cast<long long>(a.bs) * sizeof(M)) % 16 == 0 && !misaligned(a.m);
+    const bool vec = (a.d * sizeof(T)) % 16 == 0 && !misaligned(a.x) && !misaligned(a.ct);
+    const size_t smem = bwd_smem_bytes(lay.cap, a.d, sizeof(T));
+    auto kernel = flash_gat_bwd_strip_kernel<T, M, KD>;
+    int code = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
     if (code != 0) return code;
-
-    const int strips = (a.bs + kVec - 1) / kVec;
-    const int ranges =
-        pick_split(static_cast<long long>(a.g) * strips, a.bd, 32, kColWarps);
-    const int strips_per_cta = kColWarps / ranges;
-    const dim3 col_grid((strips + strips_per_cta - 1) / strips_per_cta, a.g);
-    const size_t smem = sizeof(float) * kColWarps * kVec * (a.d + 1);
-    auto kernel = flash_gat_bwd_cols_kernel<T, M, KD>;
-    if (smem > 48 * 1024) {
-      code = static_cast<int>(cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-      if (code != 0) return code;
-    }
-    kernel<<<col_grid, kColWarps * 32, smem, a.stream>>>(
-        a.ssrc, a.sdst, a.stab, a.den, a.srow, x, ct, m, a.dtab_plus, a.bd, a.bs, a.d,
-        ranges);
+    kernel<<<dim3(lay.strips, a.g), kBwdThreads, smem, a.stream>>>(
+        a.ssrc, a.sdst, a.stab, a.den, a.srow, static_cast<const T*>(a.x),
+        static_cast<const T*>(a.ct), static_cast<const M*>(a.m), a.dtab_plus, a.part, a.bd,
+        a.bs, a.d, lay.cap, aligned, vec);
+    code = static_cast<int>(cudaGetLastError());
+    if (code != 0) return code;
+    flash_gat_bwd_rowsum_kernel<<<dim3((a.bd + 31) / 32, a.g), kSumWarps * 32, 0, a.stream>>>(
+        a.part, a.d_sdst, a.bd, lay.strips);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -506,11 +818,13 @@ extern "C" int ign_flash_gat_fwd(const void* ssrc, const void* sdst, const void*
 
 // dtab_plus [g, bs, d + 1] f32 ([..., :d] = d_table, [..., d] = d_ssrc) and
 // d_sdst [g, bd] f32; den and srow [g, bd] f32, ct [g, bd, d] in x's type.
+// `part` is scratch of [strips, g, bd] f32, strips as
+// `ign_flash_gat_bwd_layout` gives them: each strip's partial of d_sdst.
 extern "C" int ign_flash_gat_bwd(const void* ssrc, const void* sdst, const void* stab,
                                  const void* den, const void* srow, const void* x,
                                  const void* ct, const void* m, void* dtab_plus,
-                                 void* d_sdst, int g, int bd, int bs, int d, int x_dtype,
-                                 int m_dtype, void* stream) {
+                                 void* d_sdst, void* part, int g, int bd, int bs, int d,
+                                 int x_dtype, int m_dtype, void* stream) {
   Args a{};
   a.ssrc = static_cast<const float*>(ssrc);
   a.sdst = static_cast<const float*>(sdst);
@@ -522,7 +836,23 @@ extern "C" int ign_flash_gat_bwd(const void* ssrc, const void* sdst, const void*
   a.m = m;
   a.dtab_plus = static_cast<float*>(dtab_plus);
   a.d_sdst = static_cast<float*>(d_sdst);
+  a.part = static_cast<float*>(part);
   a.g = g, a.bd = bd, a.bs = bs, a.d = d;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<Backward>(a, x_dtype, m_dtype);
+}
+
+// Kernel E's layout for bs columns at width d: *strips, the strip CTAs of a
+// graph (the first axis of `part`), and *cap, the non-zeros a strip's list
+// holds before it is handled.
+extern "C" int ign_flash_gat_bwd_layout(int bs, int d, int x_dtype, int m_dtype, int* strips,
+                                        int* cap) {
+  if (bs <= 0 || d <= 0 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int x_item = x_dtype == ign::kFloat32 ? 4 : x_dtype == ign::kBFloat16 ? 2 : 0;
+  const int m_item = m_dtype == ign::kInt8 ? 1 : m_dtype == ign::kBFloat16 ? 2 : 0;
+  if (x_item == 0 || m_item == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdLayout lay = bwd_layout(bs, d, x_item, m_item);
+  *strips = lay.strips;
+  *cap = lay.cap;
+  return 0;
 }

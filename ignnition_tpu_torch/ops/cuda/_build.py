@@ -153,8 +153,11 @@ def library() -> ctypes.CDLL:
             lib.ign_masked_gru_scan_bwd_smem.restype = ctypes.c_longlong
             lib.ign_flash_gat_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
             lib.ign_flash_gat_fwd.restype = i32
-            lib.ign_flash_gat_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+            lib.ign_flash_gat_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
             lib.ign_flash_gat_bwd.restype = i32
+            i32p = ctypes.POINTER(i32)
+            lib.ign_flash_gat_bwd_layout.argtypes = [i32] * 4 + [i32p] * 2
+            lib.ign_flash_gat_bwd_layout.restype = i32
             _lib = lib
         return _lib
 

@@ -24,12 +24,25 @@ of the rounded z; a row without support gives exactly 0. The backward
 recomputes a = z / max(den, 1e-30) in f32, rounds a and ct to x's dtype for
 the products and keeps dp = a * lrelu'(pre) * (ct . x[s] - srow) in f32.
 
+What bounds E on an H100 is the one read of m (33.5 MB at the flagship's
+[2048, 16384] int8, 0.010 ms at 3.35 TB/s); its ~131,000 non-zeros cost
+little arithmetic but, handled one at a time, a chain of dependent loads
+each. So E reads m once, in one launch over 64-byte column strips (a CTA
+owns whole columns and writes their d_table and d_ssrc itself) streamed
+through shared memory; it lists a strip's non-zeros, handles them one
+thread each, sums each column's in row order in a lane group, and writes
+each strip's partial row sums to a scratch [strips, G, bd] (`bwd_layout`
+asks the CUDA source for the strips) that a second launch adds in strip
+order into d_sdst: two launches a call (`BWD_LAUNCHES_PER_CALL`), no
+atomics, every sum in a fixed order, so two calls agree bitwise. `csrc/flash_gat.cu`'s header gives each choice.
+
 The plain versions below repeat that arithmetic over the whole matrix in
 PyTorch: they are the kernels' references, and what a CPU tensor gets.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -42,6 +55,23 @@ bwd_launch_count = 0  # launches of kernel E in this process
 _SLOPE = 0.2  # LeakyReLU negative slope of the GAT scores
 _DEN_FLOOR = 1e-30
 _MAX_WIDTH = 128
+
+# device launches of one call of kernel E: the strip kernel and the row sums
+BWD_LAUNCHES_PER_CALL = 2
+
+
+def bwd_layout(bs: int, d: int, x_dtype: torch.dtype, m_dtype: torch.dtype) -> Tuple[int, int]:
+    """(strips, cap) of kernel E at bs columns and width d, as the CUDA
+    source lays them out: the strip CTAs of a graph (the first axis of the
+    scratch of row partials) and the non-zeros a strip's list holds before
+    it is handled."""
+    strips, cap = ctypes.c_int(), ctypes.c_int()
+    code = _build.library().ign_flash_gat_bwd_layout(
+        bs, d, _build.DTYPE_CODES[x_dtype], _build.INCIDENCE_DTYPE_CODES[m_dtype],
+        ctypes.byref(strips), ctypes.byref(cap),
+    )
+    _build.check(code, "flash_gat_bwd_layout")
+    return strips.value, cap.value
 
 
 def _tile_z(ssrc, sdst, m, stab):
@@ -144,11 +174,14 @@ def _launch_backward(ssrc, sdst, x, m, stab, den, ct, srow):
         return dtab_plus.zero_(), d_sdst
     ssrc, sdst, stab, den, srow = (_f32(t) for t in (ssrc, sdst, stab, den, srow))
     x, m, ct = x.contiguous(), m.contiguous(), ct.to(x.dtype).contiguous()
+    # each strip's partial of d_sdst, summed in strip order by the second launch
+    strips, _ = bwd_layout(bs, d, x.dtype, m.dtype)
+    part = torch.empty((strips, g, bd), dtype=torch.float32, device=x.device)
     code = _build.library().ign_flash_gat_bwd(
         ssrc.data_ptr(), sdst.data_ptr(), stab.data_ptr(), den.data_ptr(), srow.data_ptr(),
         x.data_ptr(), ct.data_ptr(), m.data_ptr(), dtab_plus.data_ptr(), d_sdst.data_ptr(),
-        g, bd, bs, d, _build.DTYPE_CODES[x.dtype], _build.INCIDENCE_DTYPE_CODES[m.dtype],
-        _build.stream_handle(x.device),
+        part.data_ptr(), g, bd, bs, d, _build.DTYPE_CODES[x.dtype],
+        _build.INCIDENCE_DTYPE_CODES[m.dtype], _build.stream_handle(x.device),
     )
     _build.check(code, "flash_gat_bwd")
     bwd_launch_count += 1

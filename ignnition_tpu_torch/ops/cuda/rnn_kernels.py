@@ -84,6 +84,61 @@ def masked_gru_scan_bwd_plain(xs, lens, h0, params, ct):
         return torch.autograd.grad(out, leaves, ct.to(out.dtype))
 
 
+def masked_gru_scan_bwd_kernel_plain(xs, lens, h0, params, ct):
+    """Kernel C's function in plain PyTorch, with the TPU kernel's rounding
+    (`_make_bwd_kernel`): the forward recomputed in f32 from operands rounded
+    to xs's dtype, then the reverse sweep with the gate gradients `d_xw`,
+    `d_hw` and the carry `hprev` rounded to that dtype before each product,
+    every sum in f32 and the bias gradients summed from the unrounded gate
+    gradients. Autograd through `masked_gru_scan_plain`
+    (`masked_gru_scan_bwd_plain`) rounds the h-path product instead; in f32
+    the two agree. Returns (d_xs, d_h0, d_kernel, d_recurrent_kernel,
+    d_bias), each in its input's dtype."""
+    dtype, f32 = xs.dtype, torch.float32
+    rnd = lambda t: t.to(dtype).to(f32)
+    wx, wh, b = (p.to(f32) for p in _cast_params(params, dtype))
+    u = h0.shape[1]
+    h = rnd(h0)
+    stash = []
+    for t in range(xs.shape[0]):
+        xw = xs[t].to(f32) @ wx + b[0]
+        hw = rnd(h) @ wh + b[1]
+        z = torch.sigmoid(xw[:, :u] + hw[:, :u])
+        r = torch.sigmoid(xw[:, u : 2 * u] + hw[:, u : 2 * u])
+        hh = hw[:, 2 * u :]
+        hc = torch.tanh(xw[:, 2 * u :] + r * hh)
+        stash.append((h, z, r, hc, hh))
+        h = torch.where((lens > t)[:, None], z * h + (1.0 - z) * hc, h)
+
+    dh = rnd(ct)
+    d_wx, d_wh = torch.zeros_like(wx), torch.zeros_like(wh)
+    d_b = torch.zeros_like(b)
+    d_xs = torch.empty_like(xs, dtype=dtype)
+    for t in range(xs.shape[0] - 1, -1, -1):
+        hprev, z, r, hc, hh = stash[t]
+        valid = (lens > t)[:, None]
+        dh_upd = torch.where(valid, dh, 0.0)
+        dh_carry = torch.where(valid, 0.0, dh)
+        da_c = dh_upd * (1.0 - z) * (1.0 - hc * hc)
+        da_z = dh_upd * (hprev - hc) * z * (1.0 - z)
+        da_r = da_c * hh * r * (1.0 - r)
+        d_xw = torch.cat([da_z, da_r, da_c], dim=1)
+        d_hw = torch.cat([da_z, da_r, da_c * r], dim=1)
+        d_wx += xs[t].to(f32).T @ rnd(d_xw)
+        d_wh += rnd(hprev).T @ rnd(d_hw)
+        d_b[0] += d_xw.sum(dim=0)
+        d_b[1] += d_hw.sum(dim=0)
+        d_xs[t] = (rnd(d_xw) @ wx.T).to(dtype)
+        dh = rnd(d_hw) @ wh.T + dh_upd * z + dh_carry
+    return (
+        d_xs,
+        dh.to(dtype).to(h0.dtype),
+        d_wx.to(dtype).to(params["kernel"].dtype),
+        d_wh.to(dtype).to(params["recurrent_kernel"].dtype),
+        d_b.to(dtype).to(params["bias"].dtype),
+    )
+
+
 MAX_UNITS = 128
 
 

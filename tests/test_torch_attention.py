@@ -434,6 +434,75 @@ def test_flash_backward_kernel_matches_plain_on_cuda(cuda_device, shape, dtype, 
         torch.testing.assert_close(g_, w, atol=1e-4, rtol=1e-4, msg=name)
 
 
+# Kernel E's strip design: (G, bd, bs, D, density, m dtype) of each case;
+# kernel E's CTA owns 64 bytes of columns (64 int8 or 32 bf16 entries) over
+# all rows, in tiles of 256 rows, lists the strip's non-zeros and handles the
+# list whenever it is full (`attention_kernels.bwd_layout` gives how many it
+# holds: 544 at D=32 with bf16 x, 320 with f32 x) and at the strip's end.
+BWD_STRIP_CASES = {
+    # a column with a non-zero in every row: the longest column a strip walks
+    "full_column": (1, 700, 2048, 32, 0.01, torch.int8),
+    # bs a multiple of 16 bytes but not of the 64-byte strip: a part strip
+    "part_strip": (1, 300, 2000, 32, 0.02, torch.int8),
+    # rows of 1,001 bytes: the element-load path
+    "unaligned_rows": (1, 300, 1001, 32, 0.02, torch.int8),
+    # 4 graph blocks at the `blocks_g4` density (8 of 512 rows a column)
+    "blocks_g4": (4, 512, 4096, 32, 8 / 512, torch.int8),
+    "d20": (1, 300, 2048, 20, 0.02, torch.int8),
+    "d48": (1, 300, 2048, 48, 0.02, torch.int8),
+    "d128": (1, 300, 2048, 128, 0.02, torch.int8),
+    # a tile holding far more non-zeros than one batch of the list
+    "dense_tiles": (1, 600, 320, 32, 0.5, torch.int8),
+    "bf16_m": (1, 300, 2000, 32, 0.02, torch.bfloat16),
+    # row indices past 2**23: the list keeps a row in 32 bits of its own;
+    # sparse above (~80 non-zeros a column), 10% dense in the last 500 rows
+    "rows_past_2_23": (1, 2**23 + 300, 16, 8, 1e-5, torch.int8),
+}
+
+
+def _strip_case(dev, case, dtype, seed=50):
+    g, bd, bs, d, density, m_dtype = BWD_STRIP_CASES[case]
+    rng = np.random.default_rng(seed)
+    m = (rng.random((g, bd, bs)) < density).astype(np.float32)
+    m *= rng.integers(1, 4, m.shape)  # multiplicities 1-3
+    m[:, :7] = 0.0  # rows without support: den = 0
+    m[:, 7, :5] = 100.0  # large multiplicities
+    if case == "full_column":
+        m[:, 7:, 3] = 1.0
+        m[:, 7:, bs - 1] = 2.0
+    if case == "rows_past_2_23":
+        tail = m[:, -500:]
+        tail[...] = (rng.random(tail.shape) < 0.1) * rng.integers(1, 4, tail.shape)
+    f = lambda *s: _t(rng.standard_normal(s).astype(np.float32)).to(dev)
+    x, ct = f(g, bs, d).to(dtype), f(g, bd, d).to(dtype)
+    return f(g, bs), f(g, bd), x, _t(m).to(dev, m_dtype), ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BWD_STRIP_CASES))
+def test_flash_backward_kernel_strip_cases_on_cuda(cuda_device, case, dtype):
+    """Kernel E against its plain version at the limits of
+    `test_flash_backward_kernel_matches_plain_on_cuda`, twice and bitwise,
+    at the shapes that its strips, tiles and list batches meet."""
+    s1, s2, x, m, ct = _strip_case(cuda_device, case, dtype)
+    stab = t_seg._flash_stab(s1, s2)
+    out, den = t_ak.flash_gat_forward_plain(s1, s2, x, m, stab)
+    srow = (ct.float() * out.float()).sum(dim=2)
+    before = t_ak.bwd_launch_count
+    got = t_ak.flash_gat_backward(s1, s2, x, m, stab, den, ct, srow)
+    again = t_ak.flash_gat_backward(s1, s2, x, m, stab, den, ct, srow)
+    torch.cuda.synchronize()
+    assert t_ak.bwd_launch_count == before + 2
+    want = t_ak.flash_gat_backward_plain(s1, s2, x, m, stab, den, ct, srow)
+    assert bool((den[:, :7] == 0).all())
+    for name, g_, a_, w in zip(("dtab_plus", "d_sdst"), got, again, want):
+        assert torch.equal(g_, a_), name  # no atomics: bitwise repeatable
+        torch.testing.assert_close(g_, w, atol=1e-4, rtol=1e-4,
+                                   msg=lambda why, name=name: f"{name}: {why}")
+    assert not got[1][:, :7].any()  # a row without support sends nothing back
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [20, 32, 48])
