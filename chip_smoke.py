@@ -1175,50 +1175,69 @@ def incidence_of(sample, n_links: int, n_paths: int) -> np.ndarray:
     return m.astype(np.int8)
 
 
+def _d_ptxas() -> str:
+    """Every instance of kernel D (each template instantiation)."""
+    return _ptxas_of("kernel D", r"flash_gat_fwd_kernelI\w*?E(?=Ev)")
+
+
 def _e_ptxas() -> str:
     """Both kernels of kernel E: every instance of the strip kernel and the
     row-sum kernel."""
     return _ptxas_of("kernel E", r"flash_gat_bwd_(?:strip|rowsum)_kernel(?:I\w*?E(?=Ev))?")
 
 
-def _e_ran(ak, args, calls: int = 5) -> dict:
-    """{kernel E's `__global__` name: device ms a call} over `calls` calls by
-    torch.profiler. Raises unless the strip kernel and the row sums each ran
-    exactly `calls` times (the `BWD_LAUNCHES_PER_CALL` device launches of a
-    call) and nothing else ran. The profiler has missed the first kernel of
-    a profile now and then, so a short sleep kernel opens each profile; a
-    profile still short of a record is taken again whole, up to 3 times,
-    and one with a launch too many fails at once."""
+def _ran(what: str, call, args, design: list, pattern: str, calls: int = 5) -> dict:
+    """{`__global__` name: device ms a call} of `calls` calls of `call(*args)`
+    by torch.profiler. Raises unless each kernel of `design` ran exactly
+    `calls` times and nothing else ran. The profiler has missed the first
+    kernel of a profile now and then, so a short sleep kernel opens each
+    profile; a profile still short of a record is taken again whole, up to
+    3 times, and one with a launch too many fails at once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    design = ["flash_gat_bwd_rowsum_kernel", "flash_gat_bwd_strip_kernel"]
-    if len(design) != ak.BWD_LAUNCHES_PER_CALL:
-        raise AssertionError(f"kernel E makes {ak.BWD_LAUNCHES_PER_CALL} launches a call, "
-                             f"this check knows {design}")
-    ak.flash_gat_backward(*args)
+    call(*args)
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)  # the profile's first kernel, not counted
             torch.cuda.synchronize()
             for _ in range(calls):
-                ak.flash_gat_backward(*args)
+                call(*args)
             torch.cuda.synchronize()
         count, ms = {}, {}
         for e in prof.events():
             if e.device_type != DeviceType.CUDA or "spin_kernel" in e.name:
                 continue
-            found = re.search(r"flash_gat_bwd_\w+_kernel", e.name)
+            found = re.search(pattern, e.name)
             k = e.name if found is None else found.group(0)
             count[k] = count.get(k, 0) + 1
             ms[k] = ms.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
-        if sorted(count) == design and all(n == calls for n in count.values()):
+        if sorted(count) == sorted(design) and all(n == calls for n in count.values()):
             return ms
         if any(k not in design or n > calls for k, n in count.items()):
             break
-    raise AssertionError(f"{calls} calls of kernel E made device launches {count}; the design "
+    raise AssertionError(f"{calls} calls of {what} made device launches {count}; the design "
                          f"makes {calls} of each of {design}")
+
+
+def _d_ran(ak, args, calls: int = 5) -> dict:
+    """Kernel D's device ms a call by torch.profiler; raises unless each call
+    made exactly one device launch, of `flash_gat_fwd_kernel`."""
+    return _ran("kernel D", ak.flash_gat_forward, args, ["flash_gat_fwd_kernel"],
+                r"flash_gat_fwd_kernel", calls)
+
+
+def _e_ran(ak, args, calls: int = 5) -> dict:
+    """Kernel E's device ms a call by kernel; raises unless the strip kernel
+    and the row sums each ran once a call (the `BWD_LAUNCHES_PER_CALL`
+    device launches) and nothing else ran."""
+    design = ["flash_gat_bwd_rowsum_kernel", "flash_gat_bwd_strip_kernel"]
+    if len(design) != ak.BWD_LAUNCHES_PER_CALL:
+        raise AssertionError(f"kernel E makes {ak.BWD_LAUNCHES_PER_CALL} launches a call, "
+                             f"this check knows {design}")
+    return _ran("kernel E", ak.flash_gat_backward, args, design, r"flash_gat_bwd_\w+_kernel",
+                calls)
 
 
 def _print_e_lists(ak, blocks: np.ndarray, d: int, x_dtype, m_dtype) -> None:
@@ -1268,6 +1287,9 @@ def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m
         for a, b, which in zip(got, again, ("dtab_plus", "d_sdst")):
             if not torch.equal(a, b):
                 raise AssertionError(f"kernel E {which} differs between two runs")
+        d_ms = _d_ran(ak, (ssrc, sdst, x, m, stab))["flash_gat_fwd_kernel"]
+        print(f"  kernel D {name}: one device launch a call, {d_ms:.4f} device ms "
+              f"(torch.profiler, 5 calls)")
         e_kernels = _e_ran(ak, (ssrc, sdst, x, m, stab, den, ct, srow))
         print(f"  kernel E {name}: device ms a call by kernel (torch.profiler, 5 calls): "
               + ", ".join(f"{k} {ms:.4f}" for k, ms in e_kernels.items()))
@@ -1351,7 +1373,9 @@ def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m
 def check_attention_kernels(dev, rng) -> dict:
     """Kernels D and E at the flagship's [2048, 16384] int8 incidence (D=32,
     bf16 and f32), with a bf16 incidence, over 4 graph blocks of the
-    `blocks_g4` size, and at a shape the TPU tiles would refuse."""
+    `blocks_g4` size, at a shape the TPU tiles would refuse, and at a small
+    graph's [256, 2048] (bf16, timed beside the materializing route)."""
+    print(f"  kernel D, ptxas: {_d_ptxas()}")
     print(f"  kernel E kernels, ptxas: {_e_ptxas()}")
     both = (torch.bfloat16, torch.float32)
     size = FLAGSHIP
@@ -1368,6 +1392,11 @@ def check_attention_kernels(dev, rng) -> dict:
                     torch.int8, False)
     check_flash_gat(dev, rng, "ragged, bf16 incidence", ragged[None], 48,
                     (torch.float32,), torch.bfloat16, False)
+    # a small graph (256 links, 2,048 paths): where D and E stand against the
+    # materializing route when the matrix is small
+    small = incidence_of(make_sample(rng, 256, 2048, 8), 256, 2048)
+    main["small"] = check_flash_gat(dev, rng, "small graph", small[None], HS,
+                                    (torch.bfloat16,), torch.int8, True)
     return main
 
 
@@ -2078,6 +2107,7 @@ def main() -> None:
         at_width_8=both(seg_w8["ids"]))
     for k, which in ((by_name["flash_gat_fwd"], "fwd"), (by_name["flash_gat_bwd"], "bwd")):
         k["over_4_graph_blocks"] = gat["blocks"][which][bf16]
+        k["at_small_graph"] = gat["small"][which][bf16]
     print(json.dumps({"kernels": kernels, "latency": served["latency"],
                       "training": trained["steps"],
                       "attention": {k: v for k, v in attended.items() if k != "launches"},

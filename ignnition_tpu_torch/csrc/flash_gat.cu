@@ -23,13 +23,46 @@
 // wherever m is, so only the non-zero entries cost the D-wide work: the TPU
 // kernel's dense [TD, TS] tiles and MXU contractions are not carried over.
 //
-// Design of D. A warp scans a row of m in 16-byte loads per lane (16 int8 or
-// 8 bf16 entries; element-wise loads at ragged or unaligned edges), votes on
-// which lanes met a non-zero, and handles each such entry with all 32 lanes
-// over the D columns (lane j owns columns j, j+32, ...), in index order: one
-// warp per destination row, or `split` warps of a CTA on equal column ranges
-// of one row when there are few rows; the partial sums meet in shared memory
-// and are added in range order.
+// Design of D: one streamed pass over m, one launch.
+//   row blocks  a CTA of 8 warps owns R consecutive rows of one graph over
+//      all bs columns and writes their out and den itself. R is 8, a row a
+//      warp, unless that leaves fewer CTAs than the card has SMs: then R
+//      halves, down to 1, and the `split` = 8 / R warps of a row walk equal
+//      column ranges of it (whole 512-byte steps), whose partial sums meet in
+//      shared memory and are added in range order. 256 CTAs of 8 rows at the
+//      flagship and at [4, 512, 4096], 2 an SM.
+//   the ring  each warp streams its range of m through a ring of its own of
+//      4 stages of 2 KB, by 16-byte cp.async copies: 6 KB in flight a warp,
+//      96 KB an SM at 2 CTAs (Little's law asks ~25 KB at 3.35 TB/s). Lane l
+//      copies and later reads chunks 32 q + l of a stage, so each instruction
+//      covers 512 contiguous bytes, a warp's shared-memory reads hit no bank
+//      twice, and no lane waits for another's copies. cp.async and not TMA:
+//      the library stays plain C. Rows that cannot take 16-byte copies (bs *
+//      item size not a multiple of 16, an unaligned base) take element loads
+//      into the same ring.
+//   batches  a lane turns its four chunks of a stage into a bit mask of
+//      their non-zeros (byte or half-word compares); a warp scan of the
+//      counts appends (column, m value) to the warp's list in shared memory,
+//      in (lane, chunk, entry) order. The list holds 128, two flagship rows'
+//      worth, so most rows are handled once, at their end; a denser row is
+//      handled whenever the list is full, while the ring's copies stay in
+//      flight. Handling: groups of D * item / 16 lanes (4 at bf16 D = 32, a
+//      lane 16 bytes of a row) issue the x-row loads of a round (8 a lane)
+//      first; meanwhile one lane per non-zero loads ssrc[s] and forms z (32
+//      exps an instruction), which replaces m in the list; then each group
+//      adds its non-zeros. A row of x whose bytes are not a multiple of 16
+//      (D = 20 at bf16) takes scalar loads in the same groups. A full row
+//      only runs more batches: no shape is refused.
+//   fixed-order sums  each group adds its non-zeros (every ng-th of the
+//      list) in list order into f32 registers, and each lane the z of its
+//      list slots; at the range's end a fixed shuffle tree adds the groups
+//      and a butterfly the lanes. No atomics.
+//   Each batch costs one round trip for its ssrc and x rows, and the stream
+//   goes on in the other warps meanwhile: what is left is the read of m, the
+//   fill of the ring and each row's last batch (PERF.md §6). Batches of 32,
+//   each a round trip, cost 10-20% more; prefetching x or each listed
+//   non-zero's row into L2, 6 stages, and L2 prefetch hints on the copies
+//   gained nothing.
 //
 // Design of E: one streamed pass over m, two launches.
 //   strips  a CTA owns a strip of 64 bytes of columns (64 int8 or 32 bf16
@@ -81,8 +114,13 @@ namespace {
 constexpr float kSlope = 0.2f;     // LeakyReLU negative slope
 constexpr float kDenFloor = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowWarps = 4;       // warps of a CTA of kernel D
-constexpr int kTargetWarps = 8192; // warps wanted in flight before splitting stops
+constexpr int kFwdWarps = 8;      // warps of a CTA of kernel D: up to 8 rows
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kFwdChunks = 4;     // 16-byte chunks a lane copies into each stage
+constexpr int kSliceBytes = 32 * 16 * kFwdChunks;  // bytes of m a warp's stage holds
+constexpr int kFwdStages = 4;     // stages of a warp's ring: three in flight while one is read
+constexpr int kBatch = 128;       // non-zeros a warp lists, then handles together
+constexpr int kInFlight = 8;      // x-row loads a lane issues before its first fma
 
 // m's storage types: int8 as uint8_t, bf16 as uint16_t (raw bits).
 template <typename M>
@@ -92,15 +130,11 @@ struct Entry<uint8_t> {
   static __device__ __forceinline__ float value(uint32_t bits) {
     return static_cast<float>(static_cast<signed char>(bits));
   }
-  static __device__ __forceinline__ bool nonzero(uint32_t bits) { return bits != 0; }
 };
 template <>
 struct Entry<uint16_t> {
   static __device__ __forceinline__ float value(uint32_t bits) {
     return __uint_as_float(bits << 16);
-  }
-  static __device__ __forceinline__ bool nonzero(uint32_t bits) {
-    return (bits & 0x7fffu) != 0;
   }
 };
 
@@ -122,143 +156,306 @@ __device__ __forceinline__ uint4 load_chunk(const M* __restrict__ row, int col0,
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__device__ __forceinline__ bool any_bits(const uint4& c) {
-  return (c.x | c.y | c.z | c.w) != 0u;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Lane `src_lane`'s chunk, in every lane.
-__device__ __forceinline__ uint4 broadcast_chunk(const uint4& c, int src_lane) {
-  return make_uint4(__shfl_sync(kFull, c.x, src_lane), __shfl_sync(kFull, c.y, src_lane),
-                    __shfl_sync(kFull, c.z, src_lane), __shfl_sync(kFull, c.w, src_lane));
-}
-
-// Calls f(i, value) for each non-zero entry i of a chunk, in index order.
-// The chunk is the same in every lane, so the warp stays converged.
-template <typename M, typename F>
-__device__ __forceinline__ void for_each_nonzero(const uint4& c, F&& f) {
-  constexpr int kVec = 16 / sizeof(M);
-  constexpr int kPerWord = 4 / sizeof(M);
-  constexpr uint32_t kMask = sizeof(M) == 1 ? 0xffu : 0xffffu;
-  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
-  uint32_t live = 0u;
+// Bit i set where entry i of a 16-byte chunk of m is non-zero (16 / sizeof(M)
+// bits).
+template <typename M>
+__device__ __forceinline__ uint32_t chunk_mask(const uint4& q) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  uint32_t mask = 0u;
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    const uint32_t bits = (w[i / kPerWord] >> (8 * sizeof(M) * (i % kPerWord))) & kMask;
-    if (Entry<M>::nonzero(bits)) live |= 1u << i;
+  for (int k = 0; k < 4; ++k) {
+    uint32_t bits;
+    if (sizeof(M) == 1) {  // the top bit of each byte's compare, gathered into 4 bits
+      bits = ((__vcmpne4(w[k], 0u) & 0x80808080u) * 0x00204081u) >> 28;
+    } else {  // a bf16 of either sign that is not zero
+      const uint32_t h = __vcmpne2(w[k] & 0x7fff7fffu, 0u);
+      bits = (h & 1u) | ((h >> 15) & 2u);
+    }
+    mask |= bits << (k * (4 / sizeof(M)));
   }
-  while (live) {
-    const int i = __ffs(live) - 1;
-    live &= live - 1;
-    const int q = i / kPerWord;
-    const uint32_t word = q == 0 ? c.x : q == 1 ? c.y : q == 2 ? c.z : c.w;
-    const uint32_t bits = (word >> (8 * sizeof(M) * (i % kPerWord))) & kMask;
-    f(i, Entry<M>::value(bits));
-  }
+  return mask;
 }
 
-// Calls f(col, value) for every non-zero entry of row[col_begin:col_end), in
-// column order, with the whole warp converged at each call.
-template <typename M, typename F>
-__device__ __forceinline__ void walk_row(const M* __restrict__ row, int col_begin,
-                                         int col_end, int lane, F&& f) {
-  constexpr int kVec = 16 / sizeof(M);
-  constexpr int kStep = 32 * kVec;
-  uint4 cur = load_chunk<M>(row, col_begin + lane * kVec, col_end);
-  for (int base = col_begin; base < col_end; base += kStep) {
-    // the next chunk is on its way while this one is handled
-    const uint4 nxt = load_chunk<M>(row, base + kStep + lane * kVec, col_end);
-    unsigned hits = __ballot_sync(kFull, any_bits(cur));
-    while (hits) {
-      const int src_lane = __ffs(hits) - 1;
-      hits &= hits - 1;
-      const uint4 c = broadcast_chunk(cur, src_lane);
-      const int c0 = base + src_lane * kVec;
-      for_each_nonzero<M>(c, [&](int i, float mv) { f(c0 + i, mv); });
-    }
-    cur = nxt;
+// The values of a 16-byte chunk as floats: 8 bf16 or 4 f32, told apart by
+// the length of `f`.
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+// 16 bytes of T from 16 / sizeof(T) floats, each rounded to nearest.
+__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
 }
 
 __device__ __forceinline__ int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
-// The column range of `part` of `split` equal parts of a row of `bs` entries,
-// each a whole number of warp steps.
-template <typename M>
-__device__ __forceinline__ void part_range(int bs, int split, int part, int* c0, int* c1) {
-  constexpr int kStep = 32 * (16 / sizeof(M));
-  const int len = round_up((bs + split - 1) / split, kStep);
-  *c0 = min(bs, part * len);
-  *c1 = min(bs, *c0 + len);
-}
-
 // ---------------------------------------------------------------- kernel D
 
-template <typename T, typename M, int KD>
-__global__ void __launch_bounds__(kRowWarps * 32)
+// Shared memory of kernel D at width d: the warps' rings, their lists
+// (column, m value) and the partial sums of split rows ([warp][d + 1]).
+constexpr size_t fwd_smem_bytes(int d) {
+  return static_cast<size_t>(kFwdWarps) *
+         (kFwdStages * kSliceBytes + kBatch * (sizeof(int) + sizeof(float)) +
+          sizeof(float) * (d + 1));
+}
+
+// One CTA: rows blockIdx.x * R .. + R of graph blockIdx.y, R = kFwdWarps /
+// split; warp w walks part w % split of row w / split (every column when
+// split is 1). `aligned`: rows of whole 16-byte chunks at a 16-byte aligned
+// base (cp.async copies); `vec`: x rows and out rows of whole 16-byte
+// chunks at aligned bases (16-byte loads and stores).
+template <typename T, typename M>
+__global__ void __launch_bounds__(kFwdThreads, 2)
 flash_gat_fwd_kernel(const float* __restrict__ ssrc, const float* __restrict__ sdst,
                      const float* __restrict__ stab, const T* __restrict__ x,
                      const M* __restrict__ m, T* __restrict__ out,
-                     float* __restrict__ den, int bd, int bs, int d, int split) {
-  extern __shared__ float smem[];  // [kRowWarps][d + 1] partial sums when split > 1
-  const int g = blockIdx.y;
+                     float* __restrict__ den, int bd, int bs, int d, int split, bool aligned,
+                     bool vec) {
+  constexpr int kVec = 16 / sizeof(M);            // entries of m in a chunk
+  constexpr int kPer = 16 / sizeof(T);            // values of x in a chunk
+  constexpr int kW = kSliceBytes / sizeof(M);     // entries of m in a stage
+  extern __shared__ uint4 smem_u4[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kRowWarps / split) + warp / split;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem_u4) + warp * (kFwdStages * kSliceBytes);
+  float* lists = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(smem_u4) +
+                                          kFwdWarps * (kFwdStages * kSliceBytes));
+  int* list_col = reinterpret_cast<int*>(lists) + warp * kBatch;
+  float* list_mv = lists + (kFwdWarps + warp) * kBatch;
+  float* partial = lists + 2 * kFwdWarps * kBatch;
+
+  const int g = blockIdx.y;
+  const int row = blockIdx.x * (kFwdWarps / split) + warp / split;
   const int part = warp % split;
   const bool live = row < bd;
   const size_t grow = static_cast<size_t>(g) * bd + row;
 
-  float acc[KD];
+  // x rows are read by groups of lg lanes, lane `slice` of a group holding
+  // values j0 .. j0 + kPer of the row; ng groups a warp, the rest idle
+  const int lg = (d + kPer - 1) / kPer;
+  const int ng = 32 / lg;
+  const int grp = lane / lg, slice = lane % lg;
+  const int j0 = slice * kPer;
+  float acc[kPer];
 #pragma unroll
-  for (int k = 0; k < KD; ++k) acc[k] = 0.f;
-  float dsum = 0.f;
+  for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+  float dsum = 0.f;  // the z of this lane's list slots
+
   if (live) {
     const float* ss = ssrc + static_cast<size_t>(g) * bs;
     const T* xg = x + static_cast<size_t>(g) * bs * d;
+    const M* mrow = m + grow * bs;
     const float sd = sdst[grow], st = stab[grow];
-    int c0, c1;
-    part_range<M>(bs, split, part, &c0, &c1);
-    walk_row<M>(m + grow * bs, c0, c1, lane, [&](int s, float mv) {
-      const float pre = sd + ss[s];
-      const float e = fmaxf(pre, kSlope * pre);
-      const float z = ign::round_to<T>(expf(e - st) * mv);
-      dsum += z;
-      const T* xs = xg + static_cast<size_t>(s) * d;
+    const int len = round_up((bs + split - 1) / split, 32 * kVec);
+    const int c0 = min(bs, part * len), c1 = min(bs, c0 + len);
+    const int n_stages = (c1 - c0 + kW - 1) / kW;
+
+    // stage t: entries c0 + t * kW .. of the range; lane copies chunks
+    // q * 32 + lane, zeros past c1
+    auto load_stage = [&](int t) {
+      uint8_t* slot = ring + (t % kFwdStages) * kSliceBytes;
 #pragma unroll
-      for (int k = 0; k < KD; ++k) {
-        const int j = lane + 32 * k;
-        if (j < d) acc[k] = fmaf(z, ign::to_f32(xs[j]), acc[k]);
+      for (int q = 0; q < kFwdChunks; ++q) {
+        const int i = q * 32 + lane;
+        const int e = c0 + t * kW + i * kVec;
+        uint8_t* dst = slot + i * 16;
+        if (aligned)
+          cp_async16(dst, e < c1 ? static_cast<const void*>(mrow + e) : mrow, e < c1 ? 16 : 0);
+        else
+          *reinterpret_cast<uint4*>(dst) =
+              e < c1 ? load_chunk<M>(mrow, e, c1) : make_uint4(0u, 0u, 0u, 0u);
       }
-    });
-  }
-  if (split > 1) {
-    float* mine = smem + warp * (d + 1);
+    };
+
+    // the n listed non-zeros: z one lane each (z replaces m in the list), x
+    // rows by lane groups, the loads of a round issued before its first fma
+    auto handle = [&](int n) {
+      __syncwarp();  // the list is complete
+      for (int base = 0; base < n; base += ng * kInFlight) {
+        uint4 u[kInFlight];
 #pragma unroll
-    for (int k = 0; k < KD; ++k) {
-      const int j = lane + 32 * k;
-      if (j < d) mine[j] = acc[k];
+        for (int t = 0; t < kInFlight; ++t) {
+          const int j = base + grp + ng * t;
+          u[t] = make_uint4(0u, 0u, 0u, 0u);
+          if (vec && grp < ng && j < n)
+            u[t] = __ldg(reinterpret_cast<const uint4*>(
+                xg + static_cast<size_t>(list_col[j]) * d + j0));
+        }
+        if (base == 0) {  // while the first round's x rows are on their way
+          float sv[kBatch / 32];
+#pragma unroll
+          for (int r = 0; r < kBatch / 32; ++r) {
+            const int i = r * 32 + lane;
+            sv[r] = i < n ? __ldg(ss + list_col[i]) : 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < kBatch / 32; ++r) {
+            const int i = r * 32 + lane;
+            if (i >= n) continue;
+            const float pre = sd + sv[r];
+            const float e = fmaxf(pre, kSlope * pre);
+            const float z = ign::round_to<T>(expf(e - st) * list_mv[i]);
+            list_mv[i] = z;
+            dsum += z;
+          }
+          __syncwarp();
+        }
+#pragma unroll
+        for (int t = 0; t < kInFlight; ++t) {
+          const int j = base + grp + ng * t;
+          if (grp >= ng || j >= n) continue;
+          const float zj = list_mv[j];
+          if (vec) {
+            float f[kPer];
+            unpack16(u[t], f);
+#pragma unroll
+            for (int k = 0; k < kPer; ++k) acc[k] = fmaf(zj, f[k], acc[k]);
+          } else {
+            const T* xr = xg + static_cast<size_t>(list_col[j]) * d;
+#pragma unroll
+            for (int k = 0; k < kPer; ++k)
+              if (j0 + k < d) acc[k] = fmaf(zj, ign::to_f32(xr[j0 + k]), acc[k]);
+          }
+        }
+      }
+      __syncwarp();  // the list may be written again
+    };
+
+#pragma unroll
+    for (int t = 0; t < kFwdStages - 1; ++t) {
+      if (t < n_stages) load_stage(t);
+      cp_async_commit();
+    }
+    int listed = 0;  // entries in the list; the same in every lane
+    for (int t = 0; t < n_stages; ++t) {
+      cp_async_wait<kFwdStages - 2>();  // this lane's copies of stage t have landed
+      if (t + kFwdStages - 1 < n_stages) load_stage(t + kFwdStages - 1);
+      cp_async_commit();
+
+      // this lane's non-zeros of the stage: bit q * kVec + b is entry b of
+      // chunk q * 32 + lane
+      const uint8_t* slot = ring + (t % kFwdStages) * kSliceBytes;
+      unsigned long long mask = 0ull;
+#pragma unroll
+      for (int q = 0; q < kFwdChunks; ++q) {
+        const uint4 c = *reinterpret_cast<const uint4*>(slot + (q * 32 + lane) * 16);
+        if ((c.x | c.y | c.z | c.w) != 0u)
+          mask |= static_cast<unsigned long long>(chunk_mask<M>(c)) << (q * kVec);
+      }
+      const int cnt = __popcll(mask);
+      int incl = cnt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int total = __shfl_sync(kFull, incl, 31);
+      // append the stage's entries [b0, b0 + take) at `listed`, a batch at a time
+      int k = incl - cnt;  // this lane's next entry, by its rank in the stage
+      for (int b0 = 0; b0 < total;) {
+        const int take = min(total - b0, kBatch - listed);
+        for (; mask != 0ull && k < b0 + take; ++k) {
+          const int bit = __ffsll(static_cast<long long>(mask)) - 1;
+          mask &= mask - 1;
+          const int i = (bit / kVec) * 32 + lane, b = bit % kVec;
+          list_col[listed + k - b0] = c0 + t * kW + i * kVec + b;
+          list_mv[listed + k - b0] =
+              Entry<M>::value(*reinterpret_cast<const M*>(slot + i * 16 + b * sizeof(M)));
+        }
+        listed += take;
+        b0 += take;
+        if (listed == kBatch) {
+          handle(kBatch);
+          listed = 0;
+        }
+      }
+    }
+    cp_async_wait<0>();
+    if (listed > 0) handle(listed);
+  }
+
+  // the lanes' z in a fixed butterfly; the groups' sums into group 0
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) dsum += __shfl_xor_sync(kFull, dsum, o);
+  for (int o = 1; o < ng; o <<= 1) {
+    const bool adds = grp % (2 * o) == 0 && grp + o < ng;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const float v = __shfl_down_sync(kFull, acc[k], o * lg);
+      if (adds) acc[k] += v;
+    }
+  }
+  if (split > 1) {  // the ranges' partial sums, added in range order
+    float* mine = partial + warp * (d + 1);
+    if (grp == 0) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        if (j0 + k < d) mine[j0 + k] = acc[k];
     }
     if (lane == 0) mine[d] = dsum;
     __syncthreads();
     if (part != 0) return;
     dsum = 0.f;
 #pragma unroll
-    for (int k = 0; k < KD; ++k) acc[k] = 0.f;
-    for (int p = 0; p < split; ++p) {  // in range order
-      const float* other = smem + (warp + p) * (d + 1);
+    for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+    for (int p = 0; p < split; ++p) {
+      const float* other = partial + (warp + p) * (d + 1);
+      if (grp == 0) {
 #pragma unroll
-      for (int k = 0; k < KD; ++k) {
-        const int j = lane + 32 * k;
-        if (j < d) acc[k] += other[j];
+        for (int k = 0; k < kPer; ++k)
+          if (j0 + k < d) acc[k] += other[j0 + k];
       }
       dsum += other[d];
     }
   }
   if (!live) return;
-  const float denom = fmaxf(dsum, kDenFloor);
+  if (grp == 0) {
+    const float denom = fmaxf(dsum, kDenFloor);
+    float v[kPer];
 #pragma unroll
-  for (int k = 0; k < KD; ++k) {
-    const int j = lane + 32 * k;
-    if (j < d) out[grow * d + j] = ign::from_f32<T>(acc[k] / denom);
+    for (int k = 0; k < kPer; ++k) v[k] = acc[k] / denom;
+    T* o = out + grow * d + j0;
+    if (vec) {
+      *reinterpret_cast<uint4*>(o) = pack16(v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        if (j0 + k < d) o[k] = ign::from_f32<T>(v[k]);
+    }
   }
   if (lane == 0) den[grow] = dsum;
 }
@@ -274,20 +471,6 @@ constexpr int kStageBytes = kTileRows * kStripBytes;
 constexpr int kListMax = 1024;    // non-zeros a strip lists before it handles them
 constexpr int kSmemPerCta = 113 * 1024;  // 2 CTAs an SM
 constexpr int kSumWarps = 16;     // warps of a CTA of the row-sum kernel, 32 rows a CTA
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Where 16-byte chunk `chunk` of row `r` of a stage lies: the chunks of a row
 // are permuted by (r / 2) % 4, so that eight threads reading chunk q of
@@ -329,18 +512,7 @@ __device__ __forceinline__ unsigned long long nonzero_mask(const uint8_t* stage,
   for (int i = 0; i < kStripBytes / 16; ++i) {
     const uint4 q = *reinterpret_cast<const uint4*>(stage + chunk_at(r, i));
     if ((q.x | q.y | q.z | q.w) == 0u) continue;
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      uint32_t bits;
-      if (sizeof(M) == 1) {  // the top bit of each byte's compare, gathered into 4 bits
-        bits = ((__vcmpne4(w[k], 0u) & 0x80808080u) * 0x00204081u) >> 28;
-      } else {  // a bf16 of either sign that is not zero
-        const uint32_t h = __vcmpne2(w[k] & 0x7fff7fffu, 0u);
-        bits = (h & 1u) | ((h >> 15) & 2u);
-      }
-      mask |= static_cast<unsigned long long>(bits) << ((4 * i + k) * (4 / sizeof(M)));
-    }
+    mask |= static_cast<unsigned long long>(chunk_mask<M>(q)) << (i * (16 / sizeof(M)));
   }
   return mask;
 }
@@ -367,23 +539,6 @@ __device__ __forceinline__ float dot16<float>(const uint4& a, const uint4& b, fl
   s = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), s);
   s = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), s);
   return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), s);
-}
-
-// The values of a 16-byte chunk as floats: 8 bf16 or 4 f32, told apart by
-// the length of `f`.
-__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
 }
 
 // Shared memory of the strip kernel with a list of `cap` non-zeros: the
@@ -717,66 +872,66 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Warps on one row (or row ranges on one strip): the smallest power of two
-// up to `most` that puts kTargetWarps warps in flight, each with at least
-// `least` of its `extent` entries to walk.
-int pick_split(long long units, int extent, int least, int most) {
-  int split = 1;
-  while (split < most && units * split < kTargetWarps && extent / (2 * split) >= least)
-    split *= 2;
-  return split;
-}
+bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; }
 
-template <typename T, typename M, int KD>
+template <typename T, typename M>
 struct Forward {
   static int run(const Args& a) {
-    constexpr int kStep = 32 * (16 / sizeof(M));
-    const int split = pick_split(static_cast<long long>(a.g) * a.bd, a.bs, kStep, kRowWarps);
-    const int rows_per_cta = kRowWarps / split;
+    // rows a CTA: 8, halved while that leaves an SM without a CTA
+    int rows_per_cta = kFwdWarps;
+    while (rows_per_cta > 1 &&
+           static_cast<long long>(a.g) * ((a.bd + rows_per_cta - 1) / rows_per_cta) <
+               ign::sm_count())
+      rows_per_cta /= 2;
+    const int split = kFwdWarps / rows_per_cta;
+    const bool aligned =
+        (static_cast<long long>(a.bs) * sizeof(M)) % 16 == 0 && !misaligned(a.m);
+    const bool vec = (a.d * sizeof(T)) % 16 == 0 && !misaligned(a.x) && !misaligned(a.out);
+    const size_t smem = fwd_smem_bytes(a.d);
+    auto kernel = flash_gat_fwd_kernel<T, M>;
+    const int code = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    if (code != 0) return code;
     const dim3 grid((a.bd + rows_per_cta - 1) / rows_per_cta, a.g);
-    const size_t smem = split > 1 ? sizeof(float) * kRowWarps * (a.d + 1) : 0;
-    flash_gat_fwd_kernel<T, M, KD><<<grid, kRowWarps * 32, smem, a.stream>>>(
+    kernel<<<grid, kFwdThreads, smem, a.stream>>>(
         a.ssrc, a.sdst, a.stab, static_cast<const T*>(a.x), static_cast<const M*>(a.m),
-        static_cast<T*>(a.out), a.den_out, a.bd, a.bs, a.d, split);
+        static_cast<T*>(a.out), a.den_out, a.bd, a.bs, a.d, split, aligned, vec);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 template <typename T, typename M, int KD>
+int run_backward(const Args& a) {
+  const BwdLayout lay = bwd_layout(a.bs, a.d, sizeof(T), sizeof(M));
+  const bool aligned =
+      (static_cast<long long>(a.bs) * sizeof(M)) % 16 == 0 && !misaligned(a.m);
+  const bool vec = (a.d * sizeof(T)) % 16 == 0 && !misaligned(a.x) && !misaligned(a.ct);
+  const size_t smem = bwd_smem_bytes(lay.cap, a.d, sizeof(T));
+  auto kernel = flash_gat_bwd_strip_kernel<T, M, KD>;
+  int code = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+  if (code != 0) return code;
+  kernel<<<dim3(lay.strips, a.g), kBwdThreads, smem, a.stream>>>(
+      a.ssrc, a.sdst, a.stab, a.den, a.srow, static_cast<const T*>(a.x),
+      static_cast<const T*>(a.ct), static_cast<const M*>(a.m), a.dtab_plus, a.part, a.bd,
+      a.bs, a.d, lay.cap, aligned, vec);
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  flash_gat_bwd_rowsum_kernel<<<dim3((a.bd + 31) / 32, a.g), kSumWarps * 32, 0, a.stream>>>(
+      a.part, a.d_sdst, a.bd, lay.strips);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename M>
 struct Backward {
   static int run(const Args& a) {
-    const BwdLayout lay = bwd_layout(a.bs, a.d, sizeof(T), sizeof(M));
-    const auto misaligned = [](const void* p) {
-      return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
-    };
-    const bool aligned =
-        (static_cast<long long>(a.bs) * sizeof(M)) % 16 == 0 && !misaligned(a.m);
-    const bool vec = (a.d * sizeof(T)) % 16 == 0 && !misaligned(a.x) && !misaligned(a.ct);
-    const size_t smem = bwd_smem_bytes(lay.cap, a.d, sizeof(T));
-    auto kernel = flash_gat_bwd_strip_kernel<T, M, KD>;
-    int code = static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-    if (code != 0) return code;
-    kernel<<<dim3(lay.strips, a.g), kBwdThreads, smem, a.stream>>>(
-        a.ssrc, a.sdst, a.stab, a.den, a.srow, static_cast<const T*>(a.x),
-        static_cast<const T*>(a.ct), static_cast<const M*>(a.m), a.dtab_plus, a.part, a.bd,
-        a.bs, a.d, lay.cap, aligned, vec);
-    code = static_cast<int>(cudaGetLastError());
-    if (code != 0) return code;
-    flash_gat_bwd_rowsum_kernel<<<dim3((a.bd + 31) / 32, a.g), kSumWarps * 32, 0, a.stream>>>(
-        a.part, a.d_sdst, a.bd, lay.strips);
-    return static_cast<int>(cudaGetLastError());
+    if (a.d <= 32) return run_backward<T, M, 1>(a);
+    if (a.d <= 64) return run_backward<T, M, 2>(a);
+    return run_backward<T, M, 4>(a);
   }
 };
 
-template <template <typename, typename, int> class Op, typename T, typename M>
-int dispatch_width(const Args& a) {
-  if (a.d <= 32) return Op<T, M, 1>::run(a);
-  if (a.d <= 64) return Op<T, M, 2>::run(a);
-  return Op<T, M, 4>::run(a);
-}
-
-template <template <typename, typename, int> class Op>
+template <template <typename, typename> class Op>
 int dispatch(const Args& a, int x_dtype, int m_dtype) {
   if (a.g <= 0 || a.bd <= 0 || a.bs <= 0 || a.d <= 0 || a.d > 128 || a.g > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -784,11 +939,9 @@ int dispatch(const Args& a, int x_dtype, int m_dtype) {
   if (!m_int8 && m_dtype != ign::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   switch (x_dtype) {
     case ign::kFloat32:
-      return m_int8 ? dispatch_width<Op, float, uint8_t>(a)
-                    : dispatch_width<Op, float, uint16_t>(a);
+      return m_int8 ? Op<float, uint8_t>::run(a) : Op<float, uint16_t>::run(a);
     case ign::kBFloat16:
-      return m_int8 ? dispatch_width<Op, __nv_bfloat16, uint8_t>(a)
-                    : dispatch_width<Op, __nv_bfloat16, uint16_t>(a);
+      return m_int8 ? Op<__nv_bfloat16, uint8_t>::run(a) : Op<__nv_bfloat16, uint16_t>::run(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

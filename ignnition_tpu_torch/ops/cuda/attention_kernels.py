@@ -24,17 +24,23 @@ of the rounded z; a row without support gives exactly 0. The backward
 recomputes a = z / max(den, 1e-30) in f32, rounds a and ct to x's dtype for
 the products and keeps dp = a * lrelu'(pre) * (ct . x[s] - srow) in f32.
 
-What bounds E on an H100 is the one read of m (33.5 MB at the flagship's
-[2048, 16384] int8, 0.010 ms at 3.35 TB/s); its ~131,000 non-zeros cost
-little arithmetic but, handled one at a time, a chain of dependent loads
-each. So E reads m once, in one launch over 64-byte column strips (a CTA
-owns whole columns and writes their d_table and d_ssrc itself) streamed
-through shared memory; it lists a strip's non-zeros, handles them one
-thread each, sums each column's in row order in a lane group, and writes
-each strip's partial row sums to a scratch [strips, G, bd] (`bwd_layout`
-asks the CUDA source for the strips) that a second launch adds in strip
-order into d_sdst: two launches a call (`BWD_LAUNCHES_PER_CALL`), no
-atomics, every sum in a fixed order, so two calls agree bitwise. `csrc/flash_gat.cu`'s header gives each choice.
+What bounds D and E on an H100 is the one read of m (33.5 MB at the
+flagship's [2048, 16384] int8, 0.010 ms at 3.35 TB/s); its ~131,000
+non-zeros cost little arithmetic but, handled one at a time, a chain of
+dependent loads each. So D streams m once, in one launch over blocks of up
+to 8 rows (a warp a row, or a row's columns split over the warps when the
+rows are few), through a cp.async ring of its own in each warp; it lists a
+row's non-zeros and handles up to 128 at once, one lane each for z and
+lane groups gathering the x rows with 16-byte loads, and adds each row's
+sums in a fixed order. E reads m once, in one launch over 64-byte column
+strips (a CTA owns whole columns and writes their d_table and d_ssrc
+itself) streamed through shared memory; it lists a strip's non-zeros,
+handles them one thread each, sums each column's in row order in a lane
+group, and writes each strip's partial row sums to a scratch
+[strips, G, bd] (`bwd_layout` asks the CUDA source for the strips) that a
+second launch adds in strip order into d_sdst: two launches a call
+(`BWD_LAUNCHES_PER_CALL`). No atomics: every sum has a fixed order, so two
+calls agree bitwise. `csrc/flash_gat.cu`'s header gives each choice.
 
 The plain versions below repeat that arithmetic over the whole matrix in
 PyTorch: they are the kernels' references, and what a CPU tensor gets.

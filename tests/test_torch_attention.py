@@ -97,6 +97,26 @@ def test_flash_plain_matches_pallas_kernels_f32(shape, m_dtype):
     np.testing.assert_allclose(dsdst, w_dsdst[:, 0], **BWD_TOL)
 
 
+@pytest.mark.parametrize("m_dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_flash_plain_forward_full_row_matches_pallas_kernel(m_dtype):
+    """The plain forward against the Pallas forward in interpret mode on a
+    matrix with a row holding every column and multiplicities of 100: the
+    rows kernel D's batches run most often."""
+    ssrc, sdst, x, m, ct = _case(16, 1024, seed=5)
+    rng = np.random.default_rng(6)
+    m[3] = rng.integers(1, 4, m.shape[1])  # every column non-zero
+    m[5, :9] = 100.0  # large multiplicities
+    td, ts = pick_tiles(*m.shape)
+    stab = j_seg._flash_stab(jnp.asarray(ssrc), jnp.asarray(sdst))
+    w_out, w_den = j_flash_fwd(jnp.asarray(ssrc), jnp.asarray(sdst), jnp.asarray(x),
+                               jnp.asarray(m, jnp.bfloat16), stab, td=td, ts=ts,
+                               interpret=True)
+    out, den, *_ = _port_pair(ssrc, sdst, x, m, ct, m_dtype=m_dtype)
+    np.testing.assert_allclose(out, np.asarray(w_out), **FWD_TOL)
+    np.testing.assert_allclose(den, np.asarray(w_den)[:, 0], **FWD_TOL)
+    np.testing.assert_array_equal(out[0], 0.0)  # the isolated destination
+
+
 def test_flash_plain_score_outliers_do_not_underflow_rows():
     """The case of tests/test_flash_attention.py: a +60-nat sdst outlier on
     one row and a +60-nat ssrc outlier outside another row's support. The
@@ -460,16 +480,53 @@ BWD_STRIP_CASES = {
 }
 
 
-def _strip_case(dev, case, dtype, seed=50):
-    g, bd, bs, d, density, m_dtype = BWD_STRIP_CASES[case]
+# Kernel D's row blocks: (G, bd, bs, D, density, m dtype) of each case.
+# Kernel D's CTA owns up to 8 rows (fewer, and a row's columns split into
+# ranges over its 8 warps, when the rows leave an SM without a CTA); a warp
+# streams its range in stages of 2 KB and handles its non-zeros in batches
+# of 32. Every case has rows without support (den = 0) and multiplicities
+# of 100 (`_empty_rows`).
+FWD_ROW_CASES = {
+    # one row with every column non-zero: 2048 entries, 64 full batches
+    "full_row": (1, 300, 2048, 32, 0.02, torch.int8),
+    # bd not a multiple of the rows a CTA owns
+    "ragged_rows": (1, 1003, 2048, 32, 0.02, torch.int8),
+    # bs a multiple of 16 bytes but not of the 2 KB stage: a part stage
+    "part_stage": (1, 600, 3008, 32, 0.02, torch.int8),
+    # rows of 1,001 bytes: the element-load path
+    "unaligned_rows": (1, 300, 1001, 32, 0.02, torch.int8),
+    # few rows over many columns: each row's columns split over 8 warps
+    "few_rows": (1, 3, 40000, 32, 0.02, torch.int8),
+    # 4 graph blocks at the `blocks_g4` density (8 of 512 rows a column)
+    "blocks_g4": (4, 512, 4096, 32, 8 / 512, torch.int8),
+    # D=20: rows of x of 40 bytes at bf16 take the scalar path
+    "d20": (1, 300, 2048, 20, 0.02, torch.int8),
+    "d48": (1, 300, 2048, 48, 0.02, torch.int8),
+    "d128": (1, 300, 2048, 128, 0.02, torch.int8),
+    "bf16_m": (1, 300, 2000, 32, 0.02, torch.bfloat16),
+    # row indices past 2**23; sparse above, 10% dense in the last 500 rows
+    "rows_past_2_23": (1, 2**23 + 300, 16, 8, 1e-5, torch.int8),
+}
+
+
+def _empty_rows(bd):
+    """Rows without support at the top of a case: 7, fewer where bd is small."""
+    return min(7, bd // 3)
+
+
+def _strip_case(dev, case, dtype, seed=50, cases=BWD_STRIP_CASES):
+    g, bd, bs, d, density, m_dtype = cases[case]
     rng = np.random.default_rng(seed)
     m = (rng.random((g, bd, bs)) < density).astype(np.float32)
     m *= rng.integers(1, 4, m.shape)  # multiplicities 1-3
-    m[:, :7] = 0.0  # rows without support: den = 0
-    m[:, 7, :5] = 100.0  # large multiplicities
+    empty = _empty_rows(bd)
+    m[:, :empty] = 0.0  # rows without support: den = 0
+    m[:, empty, :5] = 100.0  # large multiplicities
     if case == "full_column":
         m[:, 7:, 3] = 1.0
         m[:, 7:, bs - 1] = 2.0
+    if case == "full_row":
+        m[:, 8] = rng.integers(1, 4, (g, bs))
     if case == "rows_past_2_23":
         tail = m[:, -500:]
         tail[...] = (rng.random(tail.shape) < 0.1) * rng.integers(1, 4, tail.shape)
@@ -501,6 +558,33 @@ def test_flash_backward_kernel_strip_cases_on_cuda(cuda_device, case, dtype):
         torch.testing.assert_close(g_, w, atol=1e-4, rtol=1e-4,
                                    msg=lambda why, name=name: f"{name}: {why}")
     assert not got[1][:, :7].any()  # a row without support sends nothing back
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FWD_ROW_CASES))
+def test_flash_forward_kernel_row_cases_on_cuda(cuda_device, case, dtype):
+    """Kernel D against its plain version at the limits of
+    `test_flash_forward_kernel_matches_plain_on_cuda`, twice and bitwise,
+    at the shapes that its row blocks, ring stages, batches and column
+    ranges meet."""
+    s1, s2, x, m, _ = _strip_case(cuda_device, case, dtype, seed=60, cases=FWD_ROW_CASES)
+    stab = t_seg._flash_stab(s1, s2)
+    before = t_ak.fwd_launch_count
+    out, den = t_ak.flash_gat_forward(s1, s2, x, m, stab)
+    out2, den2 = t_ak.flash_gat_forward(s1, s2, x, m, stab)
+    torch.cuda.synchronize()
+    assert t_ak.fwd_launch_count == before + 2
+    assert torch.equal(out, out2) and torch.equal(den, den2)  # no atomics: bitwise repeatable
+    w_out, w_den = t_ak.flash_gat_forward_plain(s1, s2, x, m, stab)
+    assert out.dtype == dtype and den.dtype == torch.float32
+    # f32: sums in another order; bf16: the rounding of out may flip by one
+    # ulp, at most 2**-7 of the value
+    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-4, 2.0**-7)
+    torch.testing.assert_close(out.float(), w_out.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(den, w_den, atol=1e-5, rtol=1e-5)
+    empty = _empty_rows(m.shape[1])
+    assert bool((den[:, :empty] == 0).all()) and not out[:, :empty].any()  # no support
 
 
 @pytest.mark.cuda
