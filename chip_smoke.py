@@ -5,7 +5,9 @@
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1. print the card's name and power limit, build the port's CUDA kernels
-     from the checkout's sources and print the build time;
+     from the checkout's sources and print the build time; build and load the
+     port's native batch helpers (g++, `ignnition_tpu_torch/native/*.cpp`) and
+     check that the library loaded is the one in `ignnition_tpu_torch/_build/`;
   2. hold each kernel (A: CSR segment sum, with its windowed entry; the
      id-keyed segment sum; B: masked GRU scan, C: its backward, D and E:
      flash-GAT attention forward and backward) against its plain PyTorch
@@ -44,7 +46,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      (8,192 links, 65,536 paths). Check that the predictions are finite and
      of the right shape, that kernels A and B ran on that path (launch
      counts), and that the kernel path agrees with the plain path (the same
-     model on the CPU) in f32 and in bf16; then time the requests;
+     model on the CPU) in f32 and in bf16; then time the requests and
+     `build_batch` alone, through the native helpers and through numpy;
   4. train it through `Trainer` (bf16 compute over f32 masters, MSE + L2,
      Adam with ExponentialDecay): 5 steps on one batch at the flagship size
      and 2 at 4x. Check that every loss is finite; at the flagship size that
@@ -67,7 +70,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      kernel A 16 times per forward) and one of a small model at hs=48 (the
      id-keyed kernel 8 times per forward), each against the plain path, and
      the small model's step-0 gradients (the per-edge backward through kernel
-     A and the id-keyed kernel).
+     A and the id-keyed kernel);
+  6. the Q-size model of `examples/qsize` (link, node and path states; stage
+     1 interleaves link and node states into each path's sequence, stage 2
+     sums paths into links and nodes) at the shapes of `tools/bench_qsize.py`:
+     2,048 links, 2,048 nodes, 16,384 paths of 4 hops (8 interleaved steps),
+     hs=32, 8 iterations. Serve three requests (kernel B 8 times per forward,
+     through the combined slice map), hold the predictions to the plain path
+     in f32 and bf16, time the forward, the request and `build_batch`; train
+     5 bf16 steps (B 8, C 8 and A 7 times per step: A is the interleave
+     gather's backward, which iteration 1 does not need), with the step-0
+     gradients against the plain path in f32, then time the step.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -191,6 +204,88 @@ def attention_description(num_iterations: int = ITERATIONS, hs: int = HS) -> dic
 
 FEATURE_DIMS = {"link_capacity": 1, "traffic": 1}
 
+# the Q-size model at the shapes of `tools/bench_qsize.py`: each path visits
+# `hops` links and `hops` nodes, interleaved link, node, ... (8 steps)
+QSIZE = dict(n_links=2048, n_nodes=2048, n_paths=16384, hops=4)
+QSIZE_FEATURE_DIMS = {"link_capacity": 1, "traffic": 1, "queue_sizes": 1}
+QSIZE_REQUESTS = 3
+QSIZE_TRAIN_STEPS = 5
+
+
+def normalization_queue_size(feature, name):
+    """The Q-size example's normalization (`examples/qsize/main.py`)."""
+    if name == "delay":
+        return (np.log(feature) + 1.78) / 0.93
+    if name == "traffic":
+        return (feature - 0.28) / 0.15
+    if name == "jitter":
+        return (feature - 1.5) / 1.5
+    if name == "link_capacity":
+        return (feature - 27.0) / 14.86
+    if name == "queue_sizes":
+        return (feature - 16.5) / 15.5
+    return feature
+
+
+def qsize_description(num_iterations: int = ITERATIONS, hs: int = HS) -> dict:
+    """The Q-size model of `examples/qsize/model_description.yaml` (three
+    entities; stage 1 interleaves link and node states into each path's
+    sequence, stage 2 sums paths into links and into nodes; a 256-256-1 selu
+    readout), as a dict: this script reads no file of the repo."""
+    state = {"type": "recurrent_neural_network", "nn_name": "state_gru"}
+    direct = [{"type": "direct_assignation"}]
+
+    def entity(name, feature):
+        return {"name": name, "hidden_state_dimension": hs,
+                "features": [{"name": feature, "normalization": "normalization_queue_size"}]}
+
+    def from_paths(dst, adj):
+        return {"destination_entity": dst,
+                "source_entities": [{"name": "path", "adj_vector": adj, "message": direct}],
+                "aggregation": {"type": "sum"}, "update": state}
+
+    dense = lambda units, act, reg: {"type_layer": "Dense", "units": units,
+                                     "activation": act, "kernel_regularizer": reg}
+    return {
+        "entities": [entity("link", "link_capacity"), entity("path", "traffic"),
+                     entity("node", "queue_sizes")],
+        "message_passing": {
+            "num_iterations": num_iterations,
+            "stages": [
+                {"stage_name": "paths_collect", "stage_mp": [{
+                    "destination_entity": "path",
+                    "source_entities": [
+                        {"name": "link", "adj_vector": "adj_links_paths", "message": direct},
+                        {"name": "node", "adj_vector": "adj_nodes_paths", "message": direct},
+                    ],
+                    "aggregation": {"type": "interleave",
+                                    "interleave_definition": "path_interleave"},
+                    "update": state,
+                }]},
+                {"stage_name": "links_and_nodes_collect", "stage_mp": [
+                    from_paths("link", "adj_paths_links"),
+                    from_paths("node", "adj_paths_nodes"),
+                ]},
+            ],
+        },
+        "readout": [{"type": "predict", "input": ["path"], "label": "delay",
+                     "label_normalization": "normalization_queue_size",
+                     "nn_name": "delay_readout"}],
+        "neural_networks": [
+            {"nn_name": "delay_readout", "nn_type": "feed_forward",
+             "nn_architecture": [dense(256, "selu", 0.1), dense(256, "selu", 0.1),
+                                 dense(1, "None", 0.01)]},
+            {"nn_name": "state_gru", "nn_type": "recurrent_neural_network",
+             "recurrent_type": "GRU"},
+        ],
+        "learning_options": {
+            "loss": "MeanSquaredError",
+            "optimizer": {"type": "Adam", "schedule": {
+                "type": "ExponentialDecay", "initial_learning_rate": 0.001,
+                "decay_steps": 82000, "decay_rate": 0.8, "staircase": "True"}},
+        },
+    }
+
 
 def make_sample(rng, n_links, n_paths, path_len):
     """One random RouteNet graph built straight as arrays, as
@@ -201,15 +296,7 @@ def make_sample(rng, n_links, n_paths, path_len):
     src_lp = links.reshape(-1).astype(np.int32)
     dst_lp = np.repeat(np.arange(n_paths, dtype=np.int32), path_len)
     seq_lp = np.tile(np.arange(path_len, dtype=np.int32), n_paths)
-    order = np.argsort(src_lp, kind="stable")
-    src_pl = dst_lp[order].copy()
-    dst_pl = src_lp[order].copy()
-    counts = np.bincount(dst_pl, minlength=n_links)
-    seq_pl = (
-        np.concatenate([np.arange(c, dtype=np.int32) for c in counts])
-        if counts.sum()
-        else np.zeros(0, np.int32)
-    )
+    src_pl, dst_pl, seq_pl = _reverse(src_lp, dst_lp, n_links)
     return GraphSample(
         num_nodes={"link": n_links, "path": n_paths},
         features={
@@ -219,6 +306,52 @@ def make_sample(rng, n_links, n_paths, path_len):
         adjacencies={
             "adj_links_paths": AdjacencyArrays(src_lp, dst_lp, seq_lp),
             "adj_paths_links": AdjacencyArrays(src_pl, dst_pl, seq_pl),
+        },
+        label=rng.uniform(0.1, 1.0, n_paths).astype(np.float32),
+    )
+
+
+def _reverse(src, dst, n_dst):
+    """The reverse adjacency of a destination-sorted edge list, sorted by its
+    new destination, with each destination's sequence positions."""
+    order = np.argsort(src, kind="stable")
+    rsrc, rdst = dst[order].copy(), src[order].copy()
+    counts = np.bincount(rdst, minlength=n_dst)
+    rseq = (np.concatenate([np.arange(c, dtype=np.int32) for c in counts])
+            if counts.sum() else np.zeros(0, np.int32))
+    return rsrc, rdst, rseq
+
+
+def make_qsize_sample(rng, n_links, n_nodes, n_paths, hops):
+    """One random Q-size graph built straight as arrays, as
+    `tools/bench_qsize.py` builds it: each path takes `hops` random links and
+    `hops` random nodes, interleaved link, node, ...; stage 2 runs over the
+    reverse adjacencies."""
+    from ignnition_tpu_torch.data.dataset import AdjacencyArrays, GraphSample
+
+    def stage1(n_src):
+        picks = rng.integers(0, n_src, size=(n_paths, hops))
+        return (picks.reshape(-1).astype(np.int32),
+                np.repeat(np.arange(n_paths, dtype=np.int32), hops),
+                np.tile(np.arange(hops, dtype=np.int32), n_paths))
+
+    lp, np_ = stage1(n_links), stage1(n_nodes)
+    return GraphSample(
+        num_nodes={"link": n_links, "node": n_nodes, "path": n_paths},
+        features={
+            "link_capacity": rng.uniform(20, 40, (n_links, 1)).astype(np.float32),
+            "queue_sizes": rng.uniform(1, 8, (n_nodes, 1)).astype(np.float32),
+            "traffic": rng.uniform(0.2, 0.8, (n_paths, 1)).astype(np.float32),
+        },
+        adjacencies={
+            "adj_links_paths": AdjacencyArrays(*lp),
+            "adj_nodes_paths": AdjacencyArrays(*np_),
+            "adj_paths_links": AdjacencyArrays(*_reverse(lp[0], lp[1], n_links)),
+            "adj_paths_nodes": AdjacencyArrays(*_reverse(np_[0], np_[1], n_nodes)),
+        },
+        interleave={
+            ("link", "path"): (2 * np.arange(hops)).astype(np.int64),
+            ("node", "path"): (2 * np.arange(hops) + 1).astype(np.int64),
         },
         label=rng.uniform(0.1, 1.0, n_paths).astype(np.float32),
     )
@@ -377,23 +510,64 @@ def forward_ms(server, batch, runs: int = 20, warmup: int = 3) -> list:
     return out
 
 
+def build_batch_ms(what: str, build, card: str, runs: int = 5) -> dict:
+    """Host milliseconds of `build()` (a `build_batch` call) through the
+    port's native helpers, median of `runs`, and for the record through its
+    numpy routines (the data layer's module flag off), median of 3. Both give
+    the same arrays."""
+    from ignnition_tpu_torch.data import graph as t_graph
+
+    def timed(n):
+        times, arrays = [], None
+        for _ in range(n):
+            t1 = time.perf_counter()
+            arrays = build()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(times)), arrays
+
+    native_ms, native = timed(runs)
+    t_graph._USE_NATIVE_AUX = False
+    try:
+        numpy_ms, plain = timed(3)
+    finally:
+        t_graph._USE_NATIVE_AUX = True
+    if sorted(native) != sorted(plain) or not all(
+            native[k].dtype == plain[k].dtype and np.array_equal(native[k], plain[k])
+            for k in native):
+        raise AssertionError(f"{what}: build_batch through the native helpers and through "
+                             "numpy gave different arrays")
+    print(f"[latency] {what}: build_batch median {native_ms:.1f} ms through the native "
+          f"helpers ({runs} runs), {numpy_ms:.1f} ms through numpy (3 runs), the same "
+          f"arrays; host clock on {card}")
+    return dict(build_batch_ms=native_ms, build_batch_numpy_ms=numpy_ms)
+
+
 def device_time_by_kernel(fn, runs: int = 5) -> tuple:
     """({kernel name: device ms per call of `fn`}, kernels launched per call)
-    from torch.profiler's CUDA activity over `runs` calls."""
+    from torch.profiler's CUDA activity over `runs` calls. The profiler has
+    missed the first kernels of a profile now and then, and once a whole
+    profile: a short sleep kernel opens each profile (not counted), and a
+    profile without any device activity is taken again, up to 3 times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    per_name, count = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / runs
-            count += 1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        per_name, count = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
+                per_name[e.name] = (per_name.get(e.name, 0.0)
+                                    + e.time_range.elapsed_us() / 1e3 / runs)
+                count += 1
+        if count:
+            break
     return per_name, count / runs
 
 
@@ -1487,6 +1661,7 @@ def serve(dev, card: str) -> dict:
               f"(min {min(fwd):.3f}, max {max(fwd):.3f}, 20 runs, CUDA events); "
               f"whole request (build_batch + copy + forward + trim) median "
               f"{np.median(e2e):.1f} ms (5 runs, host clock) on {card}")
+        latency[name].update(build_batch_ms(name, lambda: server.build_batch([sample]), card))
 
         # ---- where the device time goes ----
         dev_batch = to_device(inputs, dev)
@@ -1544,8 +1719,7 @@ def time_training_step(name, step, state, batch, arrays, card) -> dict:
         if i >= 3:
             times.append(start.elapsed_time(end))
     step_ms = float(np.median(times))
-    edges = sum(int(np.sum(arrays[f"edge_mask_{adj}"] > 0))
-                for adj in ("adj_links_paths", "adj_paths_links"))
+    edges = sum(int(np.sum(v > 0)) for k, v in arrays.items() if k.startswith("edge_mask_"))
     rate = ITERATIONS * edges / (step_ms / 1e3)
     torch.cuda.reset_peak_memory_stats()
     step(state, batch)
@@ -1627,7 +1801,7 @@ def train(dev, card: str) -> dict:
         t0 = time.perf_counter()
         arrays, meta = igt.build_batch([make_sample(rng, **size)], ir, padding, training=True)
         print(f"[train] {name}: build_batch(training=True) {time.perf_counter() - t0:.2f} s "
-              f"(host, numpy routines)")
+              f"(host, native helpers)")
         # bf16 compute over f32 masters; no device argument: the card is the default
         trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
         if trainer.device.type != "cuda":
@@ -1867,6 +2041,8 @@ def attention(dev, card: str) -> dict:
     print(f"[latency] attention flagship: device forward median {np.median(fwd):.3f} ms "
           f"(min {min(fwd):.3f}, max {max(fwd):.3f}, 20 runs, CUDA events); whole request "
           f"median {np.median(e2e):.1f} ms (3 runs, host clock) on {card}")
+    result["serving"].update(build_batch_ms(
+        "attention flagship", lambda: server.build_batch([samples[0]]), card))
     result["serving"].update(print_profile(
         "attention flagship forward", lambda: server.forward_device(inputs),
         result["serving"]["forward_ms"]))
@@ -1966,6 +2142,120 @@ def attention(dev, card: str) -> dict:
     return dict(launches=total, **result)
 
 
+# --------------------------------------------------------------------------
+# phase 6: the Q-size model
+# --------------------------------------------------------------------------
+
+
+def qsize(dev, card: str) -> dict:
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params
+
+    counts = Counts()
+    total = {k: 0 for k in counts.read()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    igt.register_normalization("normalization_queue_size", normalization_queue_size)
+    ir = igt.parse_model_description(qsize_description(), QSIZE_FEATURE_DIMS)
+    params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    tag = "path_s0m0"  # the interleave's companions
+    result = {}
+
+    # ---- serving: stage 1 through the combined slice map into kernel B ----
+    samples = [make_qsize_sample(rng, **QSIZE) for _ in range(QSIZE_REQUESTS)]
+    server = serve_one_size(dev, ir, params, samples, padding)
+    arrays = server.build_batch([samples[0]])
+    for key in (f"ilv_slice_{tag}", "dense_inc_adj_paths_links", "dense_inc_adj_paths_nodes"):
+        if key not in arrays:
+            raise AssertionError(f"qsize: the batch has no {key}")
+    incs = [arrays[f"dense_inc_adj_paths_{e}"] for e in ("links", "nodes")]
+    print(f"[qsize] {QSIZE}: interleave slice map {arrays[f'ilv_slice_{tag}'].shape}, stage-2 "
+          f"incidence " + ", ".join(f"{m.dtype} {m.shape} ({int(np.count_nonzero(m))} "
+                                    f"non-zeros)" for m in incs))
+    for i, sample in enumerate(samples):
+        counts.reset()
+        preds = server.predict_samples([sample])
+        got = counts.read()
+        add(got)
+        if preds.shape != (QSIZE["n_paths"],) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"qsize request {i}: {preds.shape} or non-finite")
+        # kernel B: stage 1's path update, once per iteration; stage 2 is two
+        # incidence products (library matmuls)
+        expect_counts(f"qsize request {i} ({preds.shape[0]} predictions, mean "
+                      f"{preds.mean():.5f})", got, masked_gru_scan=ITERATIONS)
+    kernels_vs_plain_forward("qsize", server, ir, params, samples[0], dev,
+                             (None, torch.bfloat16))
+    inputs = to_device({k: v for k, v in arrays.items()
+                        if k not in ("label", "label_mask")}, dev)
+    fwd = forward_ms(server, inputs)
+    e2e = []
+    for i in range(6):
+        t1 = time.perf_counter()
+        server.predict_samples([samples[0]])
+        if i >= 1:
+            e2e.append((time.perf_counter() - t1) * 1e3)
+    result["serving"] = dict(forward_ms=float(np.median(fwd)), request_ms=float(np.median(e2e)))
+    print(f"[latency] qsize: device forward median {np.median(fwd):.3f} ms (min "
+          f"{min(fwd):.3f}, max {max(fwd):.3f}, 20 runs, CUDA events); whole request "
+          f"(build_batch + copy + forward + trim) median {np.median(e2e):.1f} ms (5 runs, "
+          f"host clock) on {card}")
+    result["serving"].update(build_batch_ms(
+        "qsize", lambda: server.build_batch([samples[0]]), card))
+    result["serving"].update(print_profile(
+        "qsize forward", lambda: server.forward_device(inputs), result["serving"]["forward_ms"]))
+
+    # ---- training: kernels B and C, kernel A as the interleave's backward ----
+    t0 = time.perf_counter()
+    arrays, meta = igt.build_batch([make_qsize_sample(rng, **QSIZE)], ir, padding,
+                                   training=True)
+    print(f"[qsize] build_batch(training=True) {time.perf_counter() - t0:.2f} s "
+          f"(host, native helpers)")
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+    batch = to_device(arrays, trainer.device)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    init_tree, _, _ = step0_gradients_vs_plain("qsize", ir, padding, arrays, meta, state, batch)
+    init_params = flatten_params(init_tree)
+    windows = ((arrays[f"ilv_sort_row_ptr_{tag}"].shape[0] - 1)
+               // (meta.nodes("link") + meta.nodes("node")))
+    step = trainer.train_step_fn(meta)
+    metrics = []
+    for i in range(QSIZE_TRAIN_STEPS):
+        counts.reset()
+        state, m = step(state, batch)
+        got = counts.read()
+        add(got)
+        # kernel A: the interleave gather's backward over `ilv_sort_*` (its
+        # windows in one launch), but for the first iteration, whose link and
+        # node states come from the features alone and need no gradient
+        expect_counts(f"qsize training step {i} ({windows} slice-sort windows)", got,
+                      csr_segment_sum=ITERATIONS - 1,
+                      csr_segment_sum_windows=ITERATIONS - 1 if windows > 1 else 0,
+                      masked_gru_scan=ITERATIONS, masked_gru_scan_bwd=ITERATIONS)
+        metrics.append({k: float(v) for k, v in m.items()})
+    print("  qsize training: " + "; ".join(
+        f"{k} " + " ".join(f"{m[k]:.5f}" for m in metrics) for k in ("total", "loss", "reg")))
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("qsize training: a loss is not finite")
+    if state.step != QSIZE_TRAIN_STEPS:
+        raise AssertionError(f"qsize training: the state counts {state.step} steps")
+    moved = max(float((v.detach().cpu() - init_params[k]).abs().max())
+                for k, v in flatten_params(state.params).items())
+    if not 0.0 < moved < 0.1:
+        raise AssertionError(f"qsize training: parameters moved by {moved}")
+    result["training"] = dict(
+        losses=[m["total"] for m in metrics],
+        **time_training_step("qsize", step, state, batch, arrays, card))
+    print("[qsize] main path launch counts: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, **result)
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -1997,6 +2287,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ignnition_tpu_torch.data import native_loader
     from ignnition_tpu_torch.ops.cuda import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2017,6 +2308,15 @@ def main() -> None:
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0:.1f} s)"
           f" -> {_build.library_path().name}")
     print_ptxas(_build.build_log)
+    t0 = time.perf_counter()
+    if not native_loader.available():
+        raise AssertionError("the native batch helpers did not load")
+    lib = os.path.realpath(native_loader.library_path())
+    want_dir = os.path.realpath(_build.BUILD_DIR)
+    if os.path.dirname(lib) != want_dir:
+        raise AssertionError(f"the native batch helpers load from {lib}, not {want_dir}")
+    print(f"[build] native batch helpers (g++) built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib)}")
 
     # ---- phase 2: kernels against their plain versions ----
     seconds = {"build": time.perf_counter() - t_start}
@@ -2061,6 +2361,10 @@ def main() -> None:
     # ---- phase 5: the attention family ----
     attended = attention(dev, card)
     seconds["attention"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 6: the Q-size model ----
+    qsized = qsize(dev, card)
+    seconds["qsize"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -2088,13 +2392,14 @@ def main() -> None:
         on_serving = served["launches"].get(name, 0)
         on_training = trained["launches"].get(name, 0)
         on_attention = attended["launches"][name]
-        if on_serving + on_training + on_attention == 0:
+        on_qsize = qsized["launches"][name]
+        if on_serving + on_training + on_attention + on_qsize == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=on_serving + on_training + on_attention,
+            launches=on_serving + on_training + on_attention + on_qsize,
             launches_serving=on_serving, launches_training=on_training,
-            launches_attention=on_attention,
+            launches_attention=on_attention, launches_qsize=on_qsize,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -2111,6 +2416,7 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "latency": served["latency"],
                       "training": trained["steps"],
                       "attention": {k: v for k, v in attended.items() if k != "launches"},
+                      "qsize": {k: v for k, v in qsized.items() if k != "launches"},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

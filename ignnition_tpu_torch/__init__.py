@@ -5,14 +5,18 @@ torch and never JAX, and nothing of the JAX package: its host code (the
 model-description front end, dataset reading and batch building, the
 normalization registry, the evaluation metrics) is its own.
 
-Ported so far: the flagship RouteNet path. Serving: `build` a `GnnModel`
-from a parsed description, move a `build_batch` result to the device with
-`batch.to_device`, and serve it with `ServingModel`. Training: `Trainer`
-(`init_state`, `train_step_fn`, `eval_step_fn`) with the losses, Adam/SGD
-and the learning-rate schedules. The entry points run on the current CUDA
-device unless `device="cpu"` is passed. The three hand-written Hopper
-kernels (CSR segment sum, masked GRU scan forward and backward) are in
-`ops/cuda/`.
+Ported so far: the flagship RouteNet path, its attention family and the
+Q-size model (multi-source message passing; ordered, interleave, concat,
+sum and attention aggregations of direct messages). Serving: `build` a
+`GnnModel` from a parsed description, move a `build_batch` result to the
+device with `batch.to_device`, and serve it with `ServingModel`. Training:
+`Trainer` (`init_state`, `train_step_fn`, `eval_step_fn`) with the losses,
+Adam/SGD and the learning-rate schedules. The entry points run on the
+current CUDA device unless `device="cpu"` is passed. The hand-written Hopper
+kernels (CSR and id-keyed segment sums, masked GRU scan forward and
+backward, flash-GAT forward and backward) are in `csrc/`, their wrappers in
+`ops/cuda/`; `build_batch` runs on the port's native C++ helpers
+(`native/`, built with g++ at first use).
 """
 
 from .data import BatchMeta, PaddingConfig, SampleSpec, build_batch, convert_sample

@@ -353,9 +353,9 @@ def iter_samples(
 ) -> Iterator[GraphSample]:
     """Walk `directory/*.tar.gz` and yield converted samples.
 
-    use_native: "auto" uses the C++ loading core (native/loader.cpp) when its
-    shared library is built, falling back to python per sample on format
-    quirks; "never" forces pure python.
+    use_native: "auto" uses the port's C++ loading core (native/loader.cpp,
+    built at first use; a failed build raises), falling back to python per
+    sample on format quirks; "never" forces pure python.
 
     readers > 1 parses/converts that many ARCHIVES concurrently (the gunzip
     and the native JSON parse release the GIL, so reader threads scale);

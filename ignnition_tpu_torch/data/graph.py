@@ -369,11 +369,13 @@ def adjacency_aux_arrays(
       slice_sort_*       sort of slice_src's flattened slots by source, for
                          the transpose (a sorted segment sum)
 
-    The heavy index computations run in the native C++ core when built
-    (native/aux.cpp, O(E) counting sorts that release the GIL — the numpy
-    argsorts hold it, defeating multi-worker batch producers); the numpy
-    path below is the reference implementation and fallback, and
-    tests/test_native_aux.py enforces their exact equality.
+    The heavy index computations run in the port's native C++ core
+    (native/aux.cpp, built at first use by data/native_build.py; O(E)
+    counting sorts that release the GIL — the numpy argsorts hold it,
+    defeating multi-worker batch producers) unless
+    IGNNITION_TPU_NATIVE_AUX=0; the numpy path below is the reference
+    implementation, and tests/test_torch_native.py holds the two bitwise
+    equal.
     """
     if dst.size and np.any(np.diff(dst) < 0):
         raise ValueError(
@@ -519,8 +521,8 @@ def slice_sort_companions(
     by a dense [windows, n_src, D] reduction.
 
     Runs natively (native/aux.cpp ign_slice_sort, O(slots) counting sorts,
-    GIL released) when the library is built; numpy argsort fallback below,
-    exact-parity tested (tests/test_native_aux.py)."""
+    GIL released) unless IGNNITION_TPU_NATIVE_AUX=0; the numpy argsort
+    reference below is held bitwise equal to it (tests/test_torch_native.py)."""
     if _USE_NATIVE_AUX:
         from .native_loader import slice_sort_native
 

@@ -1,39 +1,53 @@
 """ctypes wrapper for the native (C++) data-loading core.
 
-The shared library (native/loader.cpp, `_native_loader.so` beside this
-file once it is built there) parses `data.json` buffers and
-performs the index-building hot loop natively. This wrapper exposes it as
+The shared library (the port's `native/loader.cpp` and `native/aux.cpp`,
+compiled with g++ at first use into `ignnition_tpu_torch/_build/` by
+`native_build`) parses `data.json` buffers and performs the index-building
+hot loops natively. This wrapper exposes it as
 `convert_archive(json_bytes, spec) -> list[GraphSample]` with identical
 semantics to the pure-python `dataset.convert_sample`; on any per-sample
 format problem it falls back to the python path so users still get the
 friendly error messages.
 
-If the library is absent, as it is until the port builds it, everything
-takes the python and numpy routines (`available()` -> False).
+The library is built, not looked for: when the compiler is missing or the
+build fails, the first call raises with the compiler's output rather than
+leaving the caller on the numpy routines unseen. `available()` is True once
+the library is loaded. `IGNNITION_TPU_NATIVE_AUX=0` keeps `build_batch` on
+its numpy routines (`data.graph`), and `iter_samples(use_native="never")`
+keeps the loader in Python.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import os
+import threading
 from typing import List, Optional
 
 import numpy as np
 
+from . import native_build
 from .dataset import AdjacencyArrays, GraphSample, SampleSpec, convert_sample
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "_native_loader.so")
 _lib = None
+_lock = threading.Lock()
+
+
+def library_path() -> str:
+    """The path of the library this module loaded (built on first use)."""
+    return _load()._name
 
 
 def _load():
     global _lib
-    if _lib is not None:
-        return _lib
-    if not os.path.exists(_LIB_PATH):
-        return None
-    lib = ctypes.CDLL(_LIB_PATH)
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(native_build.build())))
+    return _lib
+
+
+def _bind(lib):
+    """Declare the C entries' signatures on a freshly loaded library."""
     lib.ign_parse.restype = ctypes.c_void_p
     lib.ign_parse.argtypes = [ctypes.c_char_p, ctypes.c_long]
     lib.ign_free.argtypes = [ctypes.c_void_p]
@@ -81,27 +95,22 @@ def _load():
     ]
     lib.ign_has_key.restype = ctypes.c_int
     lib.ign_has_key.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_char_p]
-    if hasattr(lib, "ign_slice_sort"):
-        I32P_ = ctypes.POINTER(ctypes.c_int32)
-        lib.ign_slice_sort.restype = ctypes.c_long
-        lib.ign_slice_sort.argtypes = (
-            [I32P_] + [ctypes.c_long] * 3 + [I32P_, I32P_, I32P_]
-        )
-    if hasattr(lib, "ign_adjacency_aux"):
-        I32P = ctypes.POINTER(ctypes.c_int32)
-        F32P = ctypes.POINTER(ctypes.c_float)
-        lib.ign_adjacency_aux.restype = ctypes.c_long
-        lib.ign_adjacency_aux.argtypes = (
-            [I32P, I32P, F32P]
-            + [ctypes.c_long] * 7
-            + [I32P, F32P, I32P, I32P, I32P, I32P, F32P, F32P, I32P, I32P,
-               I32P, I32P, I32P]
-        )
-    _lib = lib
+    I32P = ctypes.POINTER(ctypes.c_int32)
+    F32P = ctypes.POINTER(ctypes.c_float)
+    lib.ign_slice_sort.restype = ctypes.c_long
+    lib.ign_slice_sort.argtypes = [I32P] + [ctypes.c_long] * 3 + [I32P, I32P, I32P]
+    lib.ign_adjacency_aux.restype = ctypes.c_long
+    lib.ign_adjacency_aux.argtypes = (
+        [I32P, I32P, F32P]
+        + [ctypes.c_long] * 7
+        + [I32P, F32P, I32P, I32P, I32P, I32P, F32P, F32P, I32P, I32P,
+           I32P, I32P, I32P]
+    )
     return lib
 
 
 def available() -> bool:
+    """True once the library is built and loaded; a failed build raises."""
     return _load() is not None
 
 
@@ -120,8 +129,6 @@ def convert_archive(json_bytes: bytes, spec: SampleSpec) -> List[GraphSample]:
     mismatch, interleave patterns) is re-converted through the python path
     (which produces the friendly diagnostics)."""
     lib = _load()
-    if lib is None:
-        raise RuntimeError("native loader not built (run: make -C native)")
     handle = lib.ign_parse(json_bytes, len(json_bytes))
     if not handle:
         # unparseable by the native parser: let python raise properly
@@ -268,11 +275,9 @@ def adjacency_aux_native(
 
     Returns the same dict as the numpy path of
     data.graph.adjacency_aux_arrays (minus dense_inc, which stays in
-    python), or None if the library is unavailable / rejects the input.
+    python), or None if the library rejects the input.
     """
     lib = _load()
-    if lib is None or not hasattr(lib, "ign_adjacency_aux"):
-        return None
     e = int(len(src))
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
@@ -328,11 +333,9 @@ def slice_sort_native(slice_src: np.ndarray, n_src_pad: int, slice_chunk: int):
     """Native windowed slice sort (native/aux.cpp ign_slice_sort).
 
     Returns the slice_sort_{perm,ids,row_ptr} dict of
-    data.graph.slice_sort_companions, or None if the library is
-    unavailable / rejects the input."""
+    data.graph.slice_sort_companions, or None if the library rejects the
+    input."""
     lib = _load()
-    if lib is None or not hasattr(lib, "ign_slice_sort"):
-        return None
     flat = np.ascontiguousarray(slice_src, np.int32).reshape(-1)
     n_slots = int(flat.size)
     n_chunks = max(1, -(-n_slots // slice_chunk))

@@ -1,18 +1,29 @@
 """Compiler back-end for the ported slices: ModelIR -> `GnnModel`
 (counterpart of `ignnition_tpu/model/builder.py`), serving and training.
 
-Ported: the flagship RouteNet path and its attention family. Each message
-passing has one source with direct-assignation messages and a recurrent
-update; its aggregation is one of
-  * `ordered`: the time slices are gathered from the source state table
-    through the host slice map (`seg.gather_state_slices`) and run through
-    the masked scan (`RNN.masked_update_stacked`, kernels B and C for GRU);
-  * `sum`: the best of the block-diagonal / dense incidence products and
-    the CSR sums (`_one_source_sum`, kernel A), then one cell step;
-  * `attention` (per-destination GAT softmax): block-diagonal or dense
-    attention over the int8 incidence matrix (kernels D and E), else the
-    per-edge form over the sorted edge list (`_attention`, kernel A), then
-    one cell step.
+Ported: the flagship RouteNet path, its attention family and the Q-size
+model. Each message passing has direct-assignation messages from one or
+more sources and a recurrent update; the sequence aggregations run the
+masked scan (`RNN.masked_update_stacked`: kernels B and C for a GRU), the
+vector ones one cell step. By branch, in the JAX package's order:
+  * `ordered`, one source: the time slices are gathered from the source
+    state table through the host slice map (`seg.gather_state_slices`; its
+    backward is kernel A), or without the map from the sorted edge messages
+    (`RNN.masked_update_from_edges`);
+  * `interleave`: the sources' tables, zeroed on padding rows, are stacked
+    and read through the combined slice map `ilv_slice_*` (one
+    `gather_state_slices`, its backward kernel A over `ilv_sort_*`);
+  * `concat` (axis 1, time, or 2, features) and multi-source `ordered`: one
+    slice gather per source, stacked;
+  * any sequence aggregation without its companions: the padded sequences
+    of `seg.scatter_to_sequences` (interleave permuted by
+    `interleave_perm_*`) into `RNN.masked_update`;
+  * `sum`: per source, the best of the block-diagonal / dense incidence
+    products and the CSR sums (`_one_source_sum`, kernel A), added;
+  * `attention` (per-destination GAT softmax, one source): block-diagonal
+    or dense attention over the int8 incidence matrix (kernels D and E),
+    else the per-edge form over the sorted edge list (`_attention`,
+    kernel A).
 The readout is `predict` through a Dense feed-forward network. Any other
 DSL feature raises NotImplementedError naming it, when the model is built.
 
@@ -40,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.graph import BatchMeta
+from ..data.graph import interleave_tag as IVT
 from ..nn import mlp as MLP
 from ..nn import rnn as RNN
 from ..nn.layers import glorot_uniform
@@ -48,6 +60,10 @@ from ..ops import segment as seg
 
 class BuildError(ValueError):
     pass
+
+
+_SEQUENCE_AGGS = ("ordered", "concat", "interleave")
+_PORTED_AGGS = _SEQUENCE_AGGS + ("sum", "attention")
 
 
 def _unported(feature: str) -> NotImplementedError:
@@ -121,17 +137,18 @@ class GnnModel(nn.Module):
         ir = self.ir
         for stage in ir.stages:
             for mp in stage.passes:
-                if len(mp.sources) != 1:
-                    raise _unported(
-                        f"multi-source message passing (destination '{mp.destination}')"
-                    )
-                if any(op.kind != "direct" for op in mp.sources[0].ops):
+                if any(op.kind != "direct" for src in mp.sources for op in src.ops):
                     raise _unported(
                         "message neural networks (a message other than "
                         "direct_assignation)"
                     )
-                if mp.aggregation.kind not in ("ordered", "sum", "attention"):
+                if mp.aggregation.kind not in _PORTED_AGGS:
                     raise _unported(f"the '{mp.aggregation.kind}' aggregation")
+                if len(mp.sources) != 1 and mp.aggregation.kind == "attention":
+                    raise _unported(
+                        f"multi-source message passing with the attention "
+                        f"aggregation (destination '{mp.destination}')"
+                    )
                 if (
                     mp.aggregation.kind == "attention"
                     and mp.aggregation.attention_softmax != "per_destination"
@@ -164,14 +181,15 @@ class GnnModel(nn.Module):
         upd_in_dims: Dict[str, int] = {}
         for si, stage in enumerate(ir.stages):
             for mi, mp in enumerate(stage.passes):
-                agg_dim = self.state_dims[mp.sources[0].entity]  # direct messages
+                msg_dim = self.state_dims[mp.sources[0].entity]  # direct messages
+                agg_dim = self._aggregated_dim(mp)
                 dst_dim = self.state_dims[mp.destination]
                 if mp.aggregation.kind == "attention":
                     # drawn before the pass's update, as in the JAX package
                     params["aggregation"][f"s{si}/m{mi}"] = {
-                        "kernel1": glorot_uniform(generator, (agg_dim, agg_dim)),
-                        "kernel2": glorot_uniform(generator, (dst_dim, agg_dim)),
-                        "attn_kernel": glorot_uniform(generator, (2 * agg_dim, 1)),
+                        "kernel1": glorot_uniform(generator, (msg_dim, msg_dim)),
+                        "kernel2": glorot_uniform(generator, (dst_dim, msg_dim)),
+                        "attn_kernel": glorot_uniform(generator, (2 * msg_dim, 1)),
                     }
                 key = f"{mp.destination}_update"
                 if key not in params["update"]:
@@ -191,6 +209,15 @@ class GnnModel(nn.Module):
             params["readout"][f"op{i}"], _ = MLP.init(generator, op.mlp, in_dim)
         self.load_params(params)
         return params
+
+    def _aggregated_dim(self, mp) -> int:
+        """The update's input width (the JAX `_resolve_dims`): a concat on
+        the feature axis adds the sources' message widths, every other
+        aggregation takes the first source's."""
+        widths = [self.state_dims[src.entity] for src in mp.sources]  # direct messages
+        if mp.aggregation.kind == "concat" and mp.aggregation.concat_axis == 2:
+            return sum(widths)
+        return widths[0]
 
     def load_params(self, params, device=None) -> None:
         """Register a parameter tree (JAX layout) on the module."""
@@ -289,33 +316,25 @@ class GnnModel(nn.Module):
             for mi, mp in enumerate(stage.passes):
                 dst = mp.destination
                 dst_states = new_states[dst]
-                src = mp.sources[0]
-                a = src.adj_name
-                # direct assignation: the message table is the source state
-                table = new_states[src.entity]
+                # direct assignation: each source's message table is its state
+                # table; (adjacency, entity, table) per source
+                sources = [(s.adj_name, s.entity, new_states[s.entity]) for s in mp.sources]
                 up = params["update"][f"{dst}_update"]
-                if mp.aggregation.kind == "ordered":
-                    if f"row_ptr_{a}" not in batch or f"slice_src_{a}" not in batch:
-                        raise _unported(
-                            "the ordered update without the host slice map "
-                            "(masked_update_from_edges)"
-                        )
-                    xs = seg.gather_state_slices(
-                        table,
-                        batch[f"slice_src_{a}"],
-                        batch.get(f"slice_sort_perm_{a}"),
-                        batch.get(f"slice_sort_ids_{a}"),
-                        batch.get(f"slice_sort_row_ptr_{a}"),
-                    )
-                    new_state = RNN.masked_update_stacked(
-                        mp.update.rnn, up, xs, batch[f"lens_{a}"], dst_states
+                kind = mp.aggregation.kind
+                if kind in _SEQUENCE_AGGS:
+                    new_state = self._sequence_update(
+                        mp, IVT(dst, si, mi), up, sources, dst_states, batch, meta
                     )
                 else:
-                    if mp.aggregation.kind == "sum":
-                        part = self._one_source_sum(
-                            table, batch, meta, a, meta.nodes(dst), cache
-                        )
+                    if kind == "sum":
+                        # per source, each on its own best lowering; the parts add
+                        parts = [
+                            self._one_source_sum(table, batch, meta, a, meta.nodes(dst), cache)
+                            for a, _, table in sources
+                        ]
+                        part = sum(parts[1:], parts[0])
                     else:
+                        ((a, _, table),) = sources
                         part = self._attention_aggregate(
                             params["aggregation"][f"s{si}/m{mi}"], table, dst_states,
                             batch, a, meta.nodes(dst),
@@ -326,6 +345,101 @@ class GnnModel(nn.Module):
                 node_mask = batch[f"node_mask_{dst}"]
                 new_states[dst] = new_state * node_mask[:, None].to(new_state.dtype)
         return new_states
+
+    @staticmethod
+    def _edge_messages(batch, a, table):
+        """Per-edge messages of one source, zero on padding edges. The mask
+        multiply stays in the graph: it annihilates what a backward credits
+        to padding edges."""
+        messages = table[batch[f"src_{a}"]]
+        return messages * batch[f"edge_mask_{a}"][:, None].to(messages.dtype)
+
+    def _sequence_update(self, mp, tag, up, sources, dst_states, batch, meta):
+        """An ordered, interleave or concat aggregation into the masked scan,
+        by the first branch the batch's companions allow, in the JAX
+        package's order: the ordered update through the slice map, then
+        without it; the interleave through the combined slice map; concat
+        and multi-source ordered through one slice map per source; else the
+        padded sequences of every source (`interleave_perm_*` reorders an
+        interleave's time axis)."""
+        agg = mp.aggregation
+        spec = mp.update.rnn
+        n_dst = meta.nodes(mp.destination)
+        a0, _, table0 = sources[0]
+
+        def lens():
+            """Real messages per destination and source: the data layer's
+            `lens_*`, or counted from the edge masks."""
+            return [
+                batch[f"lens_{a}"] if f"lens_{a}" in batch
+                else seg.segment_count(batch[f"dst_{a}"], n_dst, batch[f"edge_mask_{a}"])
+                for a, _, _ in sources
+            ]
+
+        def slices(table, map_name, sort_name, suffix):
+            """The time slices of `table` read through a slice map and, where
+            the batch has them, its sort companions (the backward)."""
+            return seg.gather_state_slices(
+                table, batch[f"{map_name}_{suffix}"],
+                *(batch.get(f"{sort_name}_{part}_{suffix}") for part in ("perm", "ids", "row_ptr")),
+            )
+
+        def zero_padding_rows(entity, table):
+            # empty slots read a padding row: it must hold exact zeros
+            return table * batch[f"node_mask_{entity}"][:, None].to(table.dtype)
+
+        if agg.kind == "ordered" and len(sources) == 1 and f"row_ptr_{a0}" in batch:
+            if f"slice_src_{a0}" in batch:
+                xs = slices(table0, "slice_src", "slice_sort", a0)
+                return RNN.masked_update_stacked(spec, up, xs, batch[f"lens_{a0}"], dst_states)
+            return RNN.masked_update_from_edges(
+                spec, up, self._edge_messages(batch, a0, table0),
+                batch[f"row_ptr_{a0}"][:-1], batch[f"seq_{a0}"], batch[f"dst_{a0}"],
+                batch[f"lens_{a0}"], dst_states, meta.maxlen(a0),
+            )
+        one_width = len({int(table.shape[1]) for _, _, table in sources}) == 1
+        if agg.kind == "interleave" and f"ilv_slice_{tag}" in batch and one_width:
+            combined = torch.cat([zero_padding_rows(e, t) for _, e, t in sources], 0)
+            xs = slices(combined, "ilv_slice", "ilv_sort", tag)
+            return RNN.masked_update_stacked(spec, up, xs, sum(lens()), dst_states)
+        axis = agg.concat_axis if agg.kind == "concat" else 1
+        if (
+            agg.kind in ("concat", "ordered")
+            and all(f"slice_src_{a}" in batch for a, _, _ in sources)
+            and (
+                one_width if axis != 2
+                else len({meta.maxlen(a) for a, _, _ in sources}) == 1
+            )
+        ):
+            blocks = [
+                slices(zero_padding_rows(e, t), "slice_src", "slice_sort", a)
+                for a, e, t in sources
+            ]
+            if axis == 2:
+                return RNN.masked_update_stacked(
+                    spec, up, torch.cat(blocks, 2), lens()[0], dst_states
+                )
+            return RNN.masked_update_stacked(
+                spec, up, torch.cat(blocks, 0), sum(lens()), dst_states
+            )
+        blocks = [
+            seg.scatter_to_sequences(
+                self._edge_messages(batch, a, table), batch[f"dst_{a}"], batch[f"seq_{a}"],
+                n_dst, meta.maxlen(a),
+            )
+            for a, _, table in sources
+        ]
+        if axis == 2:
+            aggregated, final_len = torch.cat(blocks, 2), lens()[0]
+        else:
+            aggregated, final_len = torch.cat(blocks, 1), sum(lens())
+            if agg.kind == "interleave":
+                rows = batch[f"interleave_perm_{tag}"][batch[f"graph_id_{mp.destination}"]]
+                index = rows[:, :, None].expand(-1, -1, aggregated.shape[2])
+                aggregated = torch.gather(aggregated, 1, index)
+        return RNN.masked_update(
+            spec, up, aggregated.to(dst_states.dtype), final_len, dst_states
+        )
 
     @staticmethod
     def _upcast(batch, key, dtype, cache):

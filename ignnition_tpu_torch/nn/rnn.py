@@ -5,6 +5,9 @@ GRU follows Keras v2 with `reset_after=True` (bias [2, 3u]); LSTM uses
 `unit_forget_bias=True`. Params keep the JAX tree. `cell_step` and the
 step loop differentiate by autograd; the GRU scan goes through kernel B
 and, in the backward, kernel C (`ops/cuda/rnn_kernels.masked_gru_scan`).
+Every sequence update (`masked_update` over padded [N, L, D] sequences,
+`masked_update_from_edges` over destination-sorted edge messages) ends in
+`masked_update_stacked`, so a GRU takes the kernels on each of them.
 """
 
 from __future__ import annotations
@@ -88,3 +91,71 @@ def masked_update_stacked(
             h = torch.where(valid, h_new, h)
             c = torch.where(valid, c_new, c)
     return h
+
+
+def masked_update(
+    spec,
+    params,
+    seq_inputs: torch.Tensor,  # [num_dst, max_len, dim]
+    lengths: torch.Tensor,  # [num_dst]
+    init_state: torch.Tensor,  # [num_dst, units]
+) -> torch.Tensor:
+    """The masked scan over padded per-destination sequences: the state after
+    each destination's last valid step. Runs as `masked_update_stacked` on
+    the time-major transpose."""
+    xs = seq_inputs.transpose(0, 1).contiguous()
+    return masked_update_stacked(spec, params, xs, lengths, init_state)
+
+
+class _GatherTimeSlices(torch.autograd.Function):
+    """xs[t, d] = messages[min(row_ptr[d] + t, E - 1)], whose transpose is one
+    flat gather of the cotangent (the JAX `_gts_bwd`): every real edge e is
+    read by exactly the slot (seq[e], dst[e]). Padding edges receive the
+    cotangent of the slot their clamped position names; the edge-mask
+    multiply upstream of this gather sends those credits to zero."""
+
+    @staticmethod
+    def forward(ctx, messages, row_ptr, seq, dst, max_len):
+        ctx.save_for_backward(seq, dst)
+        e = messages.shape[0]
+        t = torch.arange(max_len, device=messages.device, dtype=row_ptr.dtype)
+        idx = torch.clamp(row_ptr[None, :] + t[:, None], max=e - 1)  # [L, num_dst]
+        return messages[idx.long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        seq, dst = ctx.saved_tensors
+        l, n, d = ct.shape
+        flat = ct.reshape(l * n, d)
+        return flat[torch.clamp(seq.long(), max=l - 1) * n + dst.long()], None, None, None, None
+
+
+def gather_time_slices(
+    messages: torch.Tensor,  # [E, dim] destination-sorted, seq-ascending
+    row_ptr: torch.Tensor,  # [num_dst] first edge of each destination
+    seq: torch.Tensor,  # [E] position of each edge within its destination
+    dst: torch.Tensor,  # [E] destination of each edge
+    max_len: int,
+) -> torch.Tensor:
+    """[max_len, num_dst, dim] time slices of a destination-sorted edge-message
+    array; slice t row d = messages[row_ptr[d] + t] (clamped to the last
+    edge). The backward is one gather (`_GatherTimeSlices`)."""
+    return _GatherTimeSlices.apply(messages, row_ptr, seq, dst, int(max_len))
+
+
+def masked_update_from_edges(
+    spec,
+    params,
+    messages: torch.Tensor,  # [E, dim] destination-sorted, seq-ascending
+    row_ptr: torch.Tensor,  # [num_dst] first edge of each destination
+    seq: torch.Tensor,  # [E]
+    dst: torch.Tensor,  # [E]
+    lengths: torch.Tensor,  # [num_dst] real message count per destination
+    init_state: torch.Tensor,  # [num_dst, units]
+    max_len: int,
+) -> torch.Tensor:
+    """The ordered update without the host slice map and without the padded
+    [num_dst, max_len, dim] sequences: destination d's t-th message is
+    messages[row_ptr[d] + t], gathered per time slice, then the masked scan."""
+    xs = gather_time_slices(messages, row_ptr, seq, dst, max_len)
+    return masked_update_stacked(spec, params, xs, lengths, init_state)

@@ -103,6 +103,33 @@ def gather_state_slices(
     return _GatherStateSlices.apply(states, slice_src, sort_perm, sort_row_ptr)
 
 
+def segment_count(
+    segment_ids: torch.Tensor, num_segments: int, mask: torch.Tensor
+) -> torch.Tensor:
+    """Number of real edges per segment (the sum of `mask` by segment), in
+    `mask`'s dtype: the in-degrees of a batch made without its `lens_*`
+    companions."""
+    out = torch.zeros(num_segments, dtype=mask.dtype, device=mask.device)
+    return out.index_add_(0, segment_ids, mask)
+
+
+def scatter_to_sequences(
+    messages: torch.Tensor,  # [E, D], zero on padding edges
+    dst_idx: torch.Tensor,  # [E]
+    seq: torch.Tensor,  # [E] position within the destination
+    num_dst: int,
+    max_len: int,
+) -> torch.Tensor:
+    """The padded per-destination sequences [num_dst, max_len, D] of the
+    generic sequence path. An additive scatter over the flat slot index:
+    real (dst, seq) slots are unique and padding edges carry zero messages,
+    so adding is setting. Its backward is autograd's gather."""
+    d = messages.shape[-1]
+    flat = dst_idx * max_len + seq
+    out = torch.zeros((num_dst * max_len, d), dtype=messages.dtype, device=messages.device)
+    return out.index_add(0, flat, messages).reshape(num_dst, max_len, d)
+
+
 def segment_sum(
     data: torch.Tensor,
     segment_ids: torch.Tensor,

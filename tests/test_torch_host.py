@@ -28,7 +28,7 @@ from ignnition_tpu_torch.data.graph import PaddingConfig
 from ignnition_tpu_torch.data.synthetic import make_routenet_sample
 
 from __graft_entry__ import _flagship
-from helpers import qsize_description, routenet_description
+from helpers import dense, qsize_description, routenet_description
 
 torch.set_num_threads(1)
 
@@ -144,6 +144,51 @@ def test_chip_smoke_description_matches_flagship():
     assert repr(got) == repr(_flagship())
 
 
+def test_chip_smoke_qsize_description_is_the_example():
+    """`chip_smoke.qsize_description` is `examples/qsize/model_description.yaml`
+    and parses to the IR the JAX package makes of it."""
+    import yaml
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    example = yaml.safe_load((REPO / "examples/qsize/model_description.yaml").read_text())
+    assert chip_smoke.qsize_description() == example
+    igt.register_normalization("normalization_queue_size", chip_smoke.normalization_queue_size)
+    got = igt.parse_model_description(chip_smoke.qsize_description(), chip_smoke.QSIZE_FEATURE_DIMS)
+    want = j_parse(example, chip_smoke.QSIZE_FEATURE_DIMS)
+    assert repr(got) == repr(want)
+
+
+def test_chip_smoke_qsize_path_runs_on_the_cpu_at_a_small_size():
+    """The Q-size phase's own samples and entry points, at 2 iterations, hs=8
+    and a few dozen nodes, with `device="cpu"`: the batch takes the fast
+    interleave and the dense stage-2 products, `ServingModel.predict_samples`
+    answers every real path, and `Trainer` steps."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    igt.register_normalization("normalization_queue_size", chip_smoke.normalization_queue_size)
+    ir = igt.parse_model_description(chip_smoke.qsize_description(2, 8),
+                                     chip_smoke.QSIZE_FEATURE_DIMS)
+    size = dict(n_links=24, n_nodes=20, n_paths=40, hops=4)
+    sample = chip_smoke.make_qsize_sample(np.random.default_rng(0), **size)
+    model = igt.build(ir)
+    params = model.init(torch.Generator().manual_seed(0))
+    padding = igt.PaddingConfig(mode="multiple", multiple=16, min_size=16)
+    arrays, meta = igt.build_batch([sample], ir, padding, training=True)
+    assert "ilv_slice_path_s0m0" in arrays
+    assert {"dense_inc_adj_paths_links", "dense_inc_adj_paths_nodes"} <= set(arrays)
+    assert arrays["ilv_slice_path_s0m0"].shape[0] == 2 * size["hops"]
+    server = igt.ServingModel(model, params, meta, ir, compute_dtype=None, device="cpu")
+    preds = server.predict_samples([sample])
+    assert preds.shape == (size["n_paths"],) and np.all(np.isfinite(preds))
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=None, device="cpu")
+    state = trainer.init_state(params=params)
+    state, metrics = trainer.train_step_fn(meta)(state, to_device(arrays, "cpu"))
+    assert state.step == 1 and np.isfinite(float(metrics["total"]))
+
+
 @pytest.mark.parametrize(
     "name,n_graphs", [("flagship", 1), ("flagship", 2), ("routenet", 3)]
 )
@@ -194,10 +239,18 @@ def test_to_device_conversions():
 
 
 def test_unported_feature_raises_naming_it():
+    """Q-size with its link messages made by a neural network: message
+    neural networks are not ported, and the build says so."""
     desc = qsize_description()
+    desc["neural_networks"].append(
+        {"nn_name": "src_msg", "nn_type": "feed_forward",
+         "nn_architecture": [dense(16, "relu")]}
+    )
+    link = desc["message_passing"]["stages"][0]["stage_mp"][0]["source_entities"][0]
+    link["message"] = [{"type": "neural_network", "nn_name": "src_msg", "input": ["hs_source"]}]
     dims = {f["name"]: 1 for e in desc["entities"] for f in e.get("features", [])}
     ir = igt.parse_model_description(desc, dims)
-    with pytest.raises(NotImplementedError, match="multi-source message passing"):
+    with pytest.raises(NotImplementedError, match="message neural networks"):
         igt.build(ir)
 
 

@@ -13,6 +13,7 @@ versions on the CPU) and the per-edge form (the JAX package's slot-rate
 lowering switched off, so that it takes its per-edge form too).
 f32 agrees at atol = rtol = 1e-4."""
 
+import collections
 import copy
 
 import jax
@@ -35,7 +36,7 @@ from ignnition_tpu_torch.batch import to_device
 from ignnition_tpu_torch.data.synthetic import make_routenet_sample
 
 from __graft_entry__ import _flagship
-from helpers import routenet_description
+from helpers import qsize_description, routenet_description
 
 torch.set_num_threads(1)
 
@@ -65,6 +66,70 @@ ATTENTION_BRANCHES = {
 }
 
 
+# Q-size (tests/helpers.qsize_description: link and node states interleaved
+# into each path's sequence, stage 2 summing paths into links and nodes) at
+# hs=8, 2 iterations: branch -> (graphs per batch, dense cap patched to 0,
+# keys dropped). Stage 1 takes the fast interleave through the combined
+# slice map, or without `ilv_*` the padded sequences permuted per graph;
+# stage 2 the incidence products (dense, blocks over 2 graphs) or the CSR
+# sums past the cap.
+QSIZE_DIMS = {"link_capacity": 1, "traffic": 1, "queue_sizes": 1}
+QSIZE_BRANCHES = {
+    "fast": (1, False, ()),
+    "fast_2g": (2, False, ()),
+    "fast_csr": (1, True, ()),
+    "generic": (1, False, ("ilv_",)),
+    "generic_2g": (2, False, ("ilv_",)),
+    "generic_csr_2g": (2, True, ("ilv_",)),
+    # slice sorts in windows of 50 slots (`_SLICE_SORT_CHUNK` in both)
+    "fast_windowed_2g": (2, False, (), 50),
+}
+# stage 1 of Q-size aggregated by concat, ordered or sum instead: variant ->
+# (aggregation, keys dropped); concat and ordered through one slice map per
+# source, or without the maps through the padded sequences; the sum adds
+# each source's incidence product
+STAGE1_VARIANTS = {
+    "concat1": ({"type": "concat", "concat_axis": 1}, ()),
+    "concat1_generic": ({"type": "concat", "concat_axis": 1}, ("slice_src_",)),
+    "concat2": ({"type": "concat", "concat_axis": 2}, ()),
+    "concat2_generic": ({"type": "concat", "concat_axis": 2}, ("slice_src_",)),
+    "ordered": ({"type": "ordered"}, ()),
+    "ordered_generic": ({"type": "ordered"}, ("slice_src_",)),
+    "sum": ({"type": "sum"}, ()),
+}
+
+
+def qsize_dict(aggregation=None, num_iterations=2, hs=8):
+    d = qsize_description(num_iterations=num_iterations, hs=hs)
+    if aggregation is not None:
+        d["message_passing"]["stages"][0]["stage_mp"][0]["aggregation"] = aggregation
+    return d
+
+
+def sequence_variant(name):
+    """(description, branches entry) of a stage-1 variant of Q-size."""
+    aggregation, drop = STAGE1_VARIANTS[name]
+    return qsize_dict(aggregation), (1, False, drop)
+
+
+def spy_routes(monkeypatch):
+    """Count the builder's calls of each sequence route of the port."""
+    import ignnition_tpu_torch.nn.rnn as t_rnn
+    import ignnition_tpu_torch.ops.segment as t_seg
+
+    calls = collections.Counter()
+    for mod, name in ((t_rnn, "masked_update"), (t_rnn, "masked_update_from_edges"),
+                      (t_seg, "gather_state_slices"), (t_seg, "scatter_to_sequences")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    return calls
+
+
 def to_attention(d):
     """`bench._mutate_attention`: stage 2 aggregates by attention."""
     d["message_passing"]["stages"][1]["stage_mp"][0]["aggregation"] = {"type": "attention"}
@@ -91,11 +156,11 @@ def flagship_dict(num_iterations=2, hs=8, mutate=None):
     return captured[0]
 
 
-def _batches(desc, n_graphs, seed=0):
+def _batches(desc, n_graphs, seed=0, dims=DIMS, with_nodes=False):
     """(JAX ir, port ir, JAX arrays, port arrays, meta) for one merged batch
     of the __graft_entry__._batch shape, built by each package."""
-    j_ir = j_parse(copy.deepcopy(desc), DIMS)
-    t_ir = igt.parse_model_description(copy.deepcopy(desc), DIMS)
+    j_ir = j_parse(copy.deepcopy(desc), dims)
+    t_ir = igt.parse_model_description(copy.deepcopy(desc), dims)
     out = []
     for ir, spec_cls, convert, make, build, pad in (
         (j_ir, JSampleSpec, j_convert, j_make_sample, j_build_batch, j_graph.PaddingConfig),
@@ -104,7 +169,9 @@ def _batches(desc, n_graphs, seed=0):
     ):
         rng = np.random.default_rng(seed)
         spec = spec_cls.from_ir(ir)
-        samples = [convert(make(rng, 32, 24, 6), spec) for _ in range(n_graphs)]
+        samples = [
+            convert(make(rng, 32, 24, 6, with_nodes=with_nodes), spec) for _ in range(n_graphs)
+        ]
         out.append(build(samples, ir, pad(mode="multiple", multiple=64, min_size=64)))
     (j_arrays, meta), (t_arrays, _) = out
     return j_ir, t_ir, j_arrays, t_arrays, meta
@@ -116,15 +183,30 @@ def _port_model(t_ir, j_params):
     return model
 
 
-def _run_both(desc, branch, monkeypatch, compute_dtype, branches=BRANCHES):
-    n_graphs, cap0, drop = branches[branch]
+def prepared_batches(desc, entry, monkeypatch):
+    """`_batches` for a branch entry (graphs per batch, dense cap patched to
+    0, keys dropped[, slice-sort window]): the knobs patched and the keys
+    deleted in both packages' batches. A description with a `node` entity
+    (Q-size) gets graphs with nodes."""
+    n_graphs, cap0, drop, *chunk = entry
     patch_branch(monkeypatch, cap0)
-    j_ir, t_ir, j_arrays, t_arrays, meta = _batches(desc, n_graphs)
-    for arrays in (j_arrays, t_arrays):
+    for g in (j_graph, t_graph):
+        for c in chunk:
+            monkeypatch.setattr(g, "_SLICE_SORT_CHUNK", c)
+    qsize = any(e["name"] == "node" for e in desc["entities"])
+    out = _batches(desc, n_graphs, dims=QSIZE_DIMS if qsize else DIMS, with_nodes=qsize)
+    for arrays in out[2:4]:
         for k in [k for k in arrays if k.startswith(drop)] if drop else []:
             del arrays[k]
-    inc = sorted(k for k in t_arrays if "inc" in k)
-    assert bool(inc) == (branch in ("blocks", "dense")), inc
+    inc = sorted(k for k in out[3] if "inc" in k)
+    assert bool(inc) == (not cap0), inc
+    return out
+
+
+def _run_both(desc, branch, monkeypatch, compute_dtype, branches=BRANCHES):
+    j_ir, t_ir, j_arrays, t_arrays, meta = prepared_batches(
+        desc, branches[branch], monkeypatch
+    )
     model = j_build(j_ir)
     j_params = model.init(jax.random.PRNGKey(0))
     want = model.apply(
@@ -165,6 +247,57 @@ def test_attention_forward_matches_jax_bf16(branch, monkeypatch):
         ATTENTION_BRANCHES,
     )
     np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+def qsize_routes(branch_or_variant, iterations=2):
+    """The sequence routes a Q-size forward takes at stage 1 (`spy_routes`):
+    the combined or per-source slice gathers, or the padded sequences of
+    both sources and one padded scan, each iteration."""
+    if branch_or_variant.startswith("generic") or branch_or_variant.endswith("_generic"):
+        return {"scatter_to_sequences": 2 * iterations, "masked_update": iterations}
+    if branch_or_variant == "sum":
+        return {}
+    if branch_or_variant in STAGE1_VARIANTS:
+        return {"gather_state_slices": 2 * iterations}
+    return {"gather_state_slices": iterations}
+
+
+@pytest.mark.parametrize("branch", sorted(QSIZE_BRANCHES))
+def test_qsize_forward_matches_jax_f32(branch, monkeypatch):
+    calls = spy_routes(monkeypatch)
+    got, want = _run_both(qsize_dict(), branch, monkeypatch, None, QSIZE_BRANCHES)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    assert calls == qsize_routes(branch)
+
+
+@pytest.mark.parametrize("branch", ["fast", "generic_2g"])
+def test_qsize_forward_matches_jax_bf16(branch, monkeypatch):
+    got, want = _run_both(qsize_dict(), branch, monkeypatch, torch.bfloat16, QSIZE_BRANCHES)
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("variant", sorted(STAGE1_VARIANTS))
+def test_qsize_stage1_variants_forward_matches_jax_f32(variant, monkeypatch):
+    """Stage 1 of Q-size by concat on the time axis (1) or the feature axis
+    (2, a GRU over 16-wide inputs), by multi-source ordered and by a
+    multi-source sum."""
+    calls = spy_routes(monkeypatch)
+    desc, entry = sequence_variant(variant)
+    got, want = _run_both(desc, variant, monkeypatch, None, {variant: entry})
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    assert calls == qsize_routes(variant)
+
+
+# the flagship with its stage-1 slice maps deleted: the ordered update reads
+# the sorted edge messages (`masked_update_from_edges`)
+UNMAPPED = {"dense_unmapped": (1, False, ("slice_src_", "slice_sort_"))}
+
+
+def test_flagship_ordered_update_without_slice_map_matches_jax(monkeypatch):
+    calls = spy_routes(monkeypatch)
+    got, want = _run_both(flagship_dict(), "dense_unmapped", monkeypatch, None, UNMAPPED)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    assert calls == {"masked_update_from_edges": 2}
 
 
 def test_attention_at_a_width_off_128_takes_the_id_keyed_sum(monkeypatch):

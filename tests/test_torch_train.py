@@ -29,6 +29,7 @@ import ignnition_tpu_torch.data.graph as t_graph
 from ignnition_tpu.frontend.ir import OptimizerSpec as JOptimizerSpec
 from ignnition_tpu.frontend.ir import ScheduleSpec as JScheduleSpec
 from ignnition_tpu.model import build as j_build
+from ignnition_tpu.nn import rnn as j_rnn
 from ignnition_tpu.ops import segment as j_seg
 from ignnition_tpu.training import losses as j_losses
 from ignnition_tpu.training import optimizers as j_opt
@@ -36,13 +37,15 @@ from ignnition_tpu.training.trainer import Trainer as JTrainer
 from ignnition_tpu_torch.batch import to_device
 from ignnition_tpu_torch.frontend.ir import OptimizerSpec, ScheduleSpec
 from ignnition_tpu_torch.model.builder import flatten_params
+from ignnition_tpu_torch.nn import rnn as t_rnn
 from ignnition_tpu_torch.ops import segment as t_seg
 from ignnition_tpu_torch.ops.cuda import segment_kernels as t_sk
 from ignnition_tpu_torch.training import losses as t_losses
 from ignnition_tpu_torch.training import optimizers as t_opt
 
 from test_torch_model import (
-    ATTENTION_BRANCHES, BRANCHES, _batches, flagship_dict, patch_branch, to_attention,
+    ATTENTION_BRANCHES, BRANCHES, QSIZE_BRANCHES, STAGE1_VARIANTS, UNMAPPED, _batches,
+    flagship_dict, prepared_batches, qsize_dict, sequence_variant, to_attention,
 )
 
 torch.set_num_threads(1)
@@ -168,6 +171,85 @@ def test_gather_state_slices_backward_keeps_state_dtype(monkeypatch):
     (g,) = torch.autograd.grad(out, x, torch.ones_like(out))
     assert t[f"slice_sort_row_ptr_{a}"].dtype == torch.int32  # kernel A's type
     assert g.dtype == torch.bfloat16  # kernel A sums in f32; cast back
+
+
+def _edge_case(j, a, rng, width=8):
+    """Messages of one adjacency (zero on padding edges, as the model makes
+    them) and the edge mask, from seeded numpy."""
+    emask = j[f"edge_mask_{a}"]
+    messages = rng.standard_normal((emask.shape[0], width)).astype(np.float32)
+    return messages, emask
+
+
+def test_gather_time_slices_matches_jax(monkeypatch):
+    """Forward and backward (one flat gather) against the JAX custom VJP,
+    with the edge-mask multiply upstream that annihilates what the backward
+    credits to padding edges."""
+    j, t, meta = _csr_batch(monkeypatch)
+    a = "adj_links_paths"
+    L = meta.maxlen(a)
+    messages, emask = _edge_case(j, a, np.random.default_rng(5))
+    args_j = (j[f"row_ptr_{a}"][:-1], j[f"seq_{a}"], j[f"dst_{a}"])
+    want = j_rnn.gather_time_slices(jnp.asarray(messages) * emask[:, None], *args_j, L)
+    ct = np.random.default_rng(6).standard_normal(want.shape).astype(np.float32)
+    want_g = jax.grad(lambda m: jnp.sum(
+        j_rnn.gather_time_slices(m * emask[:, None], *args_j, L) * ct))(jnp.asarray(messages))
+    x = _t(messages).requires_grad_(True)
+    out = t_rnn.gather_time_slices(
+        x * t[f"edge_mask_{a}"][:, None], t[f"row_ptr_{a}"][:-1], t[f"seq_{a}"],
+        t[f"dst_{a}"], L,
+    )
+    (got_g,) = torch.autograd.grad(out, x, _t(ct))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **F32_TOL)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **F32_TOL)
+    assert np.abs(np.asarray(want_g)[emask == 0]).max() == 0.0
+
+
+def test_scatter_to_sequences_and_segment_count_match_jax(monkeypatch):
+    j, t, meta = _csr_batch(monkeypatch)
+    a = "adj_links_paths"
+    n, L = meta.nodes("path"), meta.maxlen(a)
+    messages, emask = _edge_case(j, a, np.random.default_rng(7))
+    messages = messages * emask[:, None]
+    want = j_seg.scatter_to_sequences(jnp.asarray(messages), j[f"dst_{a}"], j[f"seq_{a}"], n, L)
+    ct = np.random.default_rng(8).standard_normal(want.shape).astype(np.float32)
+    want_g = jax.grad(lambda m: jnp.sum(j_seg.scatter_to_sequences(
+        m, j[f"dst_{a}"], j[f"seq_{a}"], n, L) * ct))(jnp.asarray(messages))
+    x = _t(messages).requires_grad_(True)
+    out = t_seg.scatter_to_sequences(x, t[f"dst_{a}"], t[f"seq_{a}"], n, L)
+    (got_g,) = torch.autograd.grad(out, x, _t(ct))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **F32_TOL)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **F32_TOL)
+    count = t_seg.segment_count(t[f"dst_{a}"], n, t[f"edge_mask_{a}"])
+    want_count = j_seg.segment_count(j[f"dst_{a}"], n, j[f"edge_mask_{a}"])
+    np.testing.assert_array_equal(count.numpy(), np.asarray(want_count))
+    np.testing.assert_array_equal(count.numpy(), j[f"lens_{a}"])
+
+
+@pytest.mark.parametrize("chunk", [None, 50], ids=["one_window", "windowed"])
+def test_interleave_slice_gather_backward_matches_jax(monkeypatch, chunk):
+    """The Q-size interleave's combined slice map over the stacked link and
+    node tables: `gather_state_slices`' backward (kernel A's plain version
+    over `ilv_sort_*`, several windows when the chunk is small) against
+    `jax.grad`. Its windows count the combined table's rows."""
+    entry = (2, False, ()) + (() if chunk is None else (chunk,))
+    j, t, meta = prepared_batches(qsize_dict(), entry, monkeypatch)[2:]
+    t = to_device(t, "cpu")
+    tag = "path_s0m0"
+    rows = meta.nodes("link") + meta.nodes("node")
+    windows = (j[f"ilv_sort_row_ptr_{tag}"].shape[0] - 1) // rows
+    assert (windows > 1) == (chunk is not None)
+    keys = ("ilv_slice", "ilv_sort_perm", "ilv_sort_ids", "ilv_sort_row_ptr")
+    rng = np.random.default_rng(9)
+    states = rng.standard_normal((rows, 8)).astype(np.float32)
+    ct = rng.standard_normal(j[f"ilv_slice_{tag}"].shape + (8,)).astype(np.float32)
+    want = jax.grad(
+        lambda s: jnp.sum(j_seg.gather_state_slices(s, *(j[f"{k}_{tag}"] for k in keys)) * ct)
+    )(jnp.asarray(states))
+    x = _t(states).requires_grad_(True)
+    out = t_seg.gather_state_slices(x, *(t[f"{k}_{tag}"] for k in keys))
+    (got,) = torch.autograd.grad(out, x, _t(ct))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
 @pytest.mark.parametrize("fn", ["direct_segment_sum", "direct_segment_sum_sliced"])
@@ -339,14 +421,15 @@ def test_optimizer_options_raise_as_in_jax():
 TRAIN_BRANCHES = ["dense", "csr_direct", "csr_sliced"]
 
 
-def _trainers(branch, monkeypatch, compute_dtype=None, attention=False):
-    n_graphs, cap0, drop = (ATTENTION_BRANCHES if attention else BRANCHES)[branch]
-    patch_branch(monkeypatch, cap0)
-    desc = flagship_dict(mutate=to_attention if attention else None)
-    j_ir, t_ir, j_arrays, t_arrays, meta = _batches(desc, n_graphs)
-    for arrays in (j_arrays, t_arrays):
-        for k in [k for k in arrays if k.startswith(drop)] if drop else []:
-            del arrays[k]
+def _trainers(branch, monkeypatch, compute_dtype=None, attention=False, desc=None,
+              branches=None):
+    if branches is None:
+        branches = ATTENTION_BRANCHES if attention else BRANCHES
+    if desc is None:
+        desc = flagship_dict(mutate=to_attention if attention else None)
+    j_ir, t_ir, j_arrays, t_arrays, meta = prepared_batches(
+        desc, branches[branch], monkeypatch
+    )
     j_trainer = JTrainer(
         j_build(j_ir), compute_dtype=None if compute_dtype is None else jnp.bfloat16
     )
@@ -462,6 +545,65 @@ def test_attention_adam_trajectory_matches_jax(branch, monkeypatch):
     """The attention leaves' gradients are of order 1e-5 here with f32 noise
     of ~3e-8: elements under 5e-6 count as noise."""
     _check_adam_trajectory(_trainers(branch, monkeypatch, attention=True), noise_floor=5e-6)
+
+
+# Q-size on each of its branches, stage 1 of Q-size by concat and by
+# multi-source ordered, and the flagship's ordered update without its slice
+# map (tests/test_torch_model.py names each)
+SEQUENCE_SLICES = sorted(QSIZE_BRANCHES) + sorted(STAGE1_VARIANTS) + sorted(UNMAPPED)
+
+
+def _sequence_trainers(name, monkeypatch, compute_dtype=None):
+    if name in QSIZE_BRANCHES:
+        return _trainers(name, monkeypatch, compute_dtype, desc=qsize_dict(),
+                         branches=QSIZE_BRANCHES)
+    if name in STAGE1_VARIANTS:
+        desc, entry = sequence_variant(name)
+        return _trainers(name, monkeypatch, compute_dtype, desc=desc, branches={name: entry})
+    return _trainers(name, monkeypatch, compute_dtype, branches=UNMAPPED)
+
+
+@pytest.mark.parametrize("name", SEQUENCE_SLICES)
+def test_sequence_slices_loss_and_gradients_match_jax(name, monkeypatch):
+    _check_loss_and_gradients(_sequence_trainers(name, monkeypatch))
+
+
+@pytest.mark.parametrize("name", SEQUENCE_SLICES)
+def test_sequence_slices_adam_trajectory_matches_jax(name, monkeypatch):
+    _check_adam_trajectory(_sequence_trainers(name, monkeypatch))
+
+
+def test_qsize_bf16_step_and_serving_match_jax(monkeypatch):
+    """Q-size in bf16 over f32 masters: the loss to bf16 precision (as the
+    flagship's bf16 step), f32 gradients; then `ServingModel.predict_samples`
+    on the same graph against the JAX forward, trimmed to the real paths."""
+    j_tr, t_tr, j_state, t_state, j_batch, t_batch, meta = _sequence_trainers(
+        "fast", monkeypatch, torch.bfloat16
+    )
+    (_, (want_loss, want_reg)), _ = jax.value_and_grad(j_tr._loss, has_aux=True)(
+        j_state.params, j_batch, meta, jax.random.PRNGKey(1)
+    )
+    got_g, got = t_tr.grads_fn(meta)(t_state.params, t_batch)
+    np.testing.assert_allclose(got["loss"].item(), float(want_loss), atol=3e-2, rtol=3e-2)
+    np.testing.assert_allclose(got["reg"].item(), float(want_reg), **SLICE_TOL)
+    for k, v in flatten_params(got_g).items():
+        assert v.dtype == torch.float32 and torch.isfinite(v).all(), k
+
+    from ignnition_tpu_torch.data.synthetic import make_routenet_sample
+
+    sample = igt.convert_sample(
+        make_routenet_sample(np.random.default_rng(0), 32, 24, 6, with_nodes=True),
+        igt.SampleSpec.from_ir(t_tr.ir),
+    )
+    server = igt.ServingModel(
+        igt.build(t_tr.ir), t_state.params, meta, t_tr.ir, compute_dtype=None, device="cpu"
+    )
+    got_preds = server.predict_samples([sample], denormalize=False)
+    arrays = server.build_batch([sample])
+    want = np.asarray(j_tr.model.apply(j_state.params, arrays, meta))
+    want = want[arrays["node_mask_path"] > 0]
+    assert got_preds.shape == (24,)
+    np.testing.assert_allclose(got_preds, want, **SLICE_TOL)
 
 
 def test_attention_serving_matches_jax(monkeypatch):
