@@ -80,7 +80,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      in f32 and bf16, time the forward, the request and `build_batch`; train
      5 bf16 steps (B 8, C 8 and A 7 times per step: A is the interleave
      gather's backward, which iteration 1 does not need), with the step-0
-     gradients against the plain path in f32, then time the step.
+     gradients against the plain path in f32, then time the step;
+  7. the mlp_message family (the flagship with a message network of 32 relu
+     units, then 32 linear, over [hs_source, hs_dest] on both stages;
+     `bench._mutate_mlp_message`) at the flagship size, 8 iterations. Print
+     each stage's lowering (stage 1: one slice gather of `link_states @
+     Ksrc` plus the destination part, the network's tail over the [8, n, 32]
+     slot tensor, then kernel B; stage 2: the slot-rate sum while its slots
+     stay under 3 x the edges). Serve three requests (kernel B 8 times per
+     forward, nothing else of the port's), time the forward, the request and
+     `build_batch`; hold kernel A on the stage-2 slot map's own sort against
+     its plain version and time it; train 5 bf16 steps (B 8, C 8 and A 15
+     times per step: stage 1's slot map at every iteration, since `Ksrc`
+     needs its gradient, stage 2's but for the last, 7 of them windowed),
+     then time the step. The kernel path is held to the plain path (f32 and
+     bf16 predictions, step-0 loss and gradients in f32) at 2 iterations:
+     at 8 this random-weight model amplifies f32 rounding past the limits,
+     which the phase measures against the plain path in f64 and prints.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -202,6 +218,29 @@ def attention_description(num_iterations: int = ITERATIONS, hs: int = HS) -> dic
     return desc
 
 
+def mlp_message_description(num_iterations: int = ITERATIONS, hs: int = HS) -> dict:
+    """The flagship with a message network on both stages: 32 relu units,
+    then 32 linear, over [hs_source, hs_dest] (`_mutate_mlp_message` in
+    `bench.py`)."""
+    desc = flagship_description(num_iterations, hs)
+    desc["neural_networks"].append({
+        "nn_name": "bench_msg",
+        "nn_type": "feed_forward",
+        "nn_architecture": [
+            {"type_layer": "Dense", "units": 32, "activation": "relu"},
+            {"type_layer": "Dense", "units": 32, "activation": "None"},
+        ],
+    })
+    for stage in desc["message_passing"]["stages"]:
+        for mp in stage["stage_mp"]:
+            for se in mp["source_entities"]:
+                se["message"] = [{"type": "neural_network", "nn_name": "bench_msg",
+                                  "input": ["hs_source", "hs_dest"]}]
+    return desc
+
+
+MLP_MESSAGE_REQUESTS = 3
+MLP_MESSAGE_TRAIN_STEPS = 5
 FEATURE_DIMS = {"link_capacity": 1, "traffic": 1}
 
 # the Q-size model at the shapes of `tools/bench_qsize.py`: each path visits
@@ -2256,6 +2295,279 @@ def qsize(dev, card: str) -> dict:
     return dict(launches=total, **result)
 
 
+# --------------------------------------------------------------------------
+# phase 7: the mlp_message family
+# --------------------------------------------------------------------------
+
+
+def check_slot_map_backward(dev, rng, arrays, meta, adj: str, src: str, d: int) -> dict:
+    """Kernel A as the backward of a slot map's gather (`_gss_bwd`) on this
+    batch's own sort companions: the cotangent of the [L, n_dst] slots (zero
+    past each destination's in-degree, as the masked sum leaves it) gathered
+    into source order and summed into the sources, every window in one launch.
+    Invalid slots point at the last source row, so that row's segment holds
+    every invalid slot. Against the plain version in bf16 and f32, timed
+    beside `torch.segment_reduce` over the same row pointers and the bound."""
+    from ignnition_tpu_torch.ops import segment as seg
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+    n_src = meta.nodes(src)
+    slice_src = arrays[f"slice_src_{adj}"]
+    rp = torch.from_numpy(arrays[f"slice_sort_row_ptr_{adj}"]).to(dev)
+    windows = (rp.shape[0] - 1) // n_src
+    perm = torch.from_numpy(arrays[f"slice_sort_perm_{adj}"]).to(dev)
+    whole = seg._whole_sort_perm(perm, windows) if windows > 1 else perm.to(torch.int64)
+    valid = np.arange(slice_src.shape[0])[:, None] < arrays[f"lens_{adj}"][None, :]
+    longest = int(np.diff(arrays[f"slice_sort_row_ptr_{adj}"]).max())
+    print(f"[mlp_message] stage-2 slot map {slice_src.shape}: {int(valid.sum())} real slots of "
+          f"{valid.size}, {windows} slice-sort windows, longest source segment {longest} "
+          f"slots (the invalid slots' row)")
+    # small integers: f32 sums exact in any order over the long segment
+    values = (rng.integers(-4, 5, size=slice_src.shape + (d,)) * valid[:, :, None])
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        ct = torch.from_numpy(values.astype(np.float32)).to(dev, dtype).reshape(-1, d)
+        sorted_ct = ct[whole]
+        before = sk.launch_count
+        call = lambda x, r: sk.sorted_segment_sum_csr_windows(x, r, n_src)
+        first, second = call(sorted_ct, rp), call(sorted_ct, rp)
+        torch.cuda.synchronize()
+        if sk.launch_count != before + 2:
+            raise AssertionError("the slot-map backward did not launch kernel A")
+        if not torch.equal(first, second):
+            raise AssertionError("the slot-map backward: two calls differ bitwise")
+        plain_call = lambda x, r: sk.sorted_segment_sum_csr_windows_plain(x, r, n_src)
+        plain = plain_call(sorted_ct, rp)
+        tag = f"[{ct.shape[0]}x{d}] -> [{n_src}x{d}] over {windows} windows {str(dtype)[6:]}"
+        err = compare(f"kernel A, stage-2 slot-map backward {tag}, bitwise repeatable", first,
+                      plain, atol=1e-4, rtol=1e-5,
+                      why=f"exact: sums of small integers over up to {longest} rows")
+        offsets = rp.to(torch.int64)
+        t = device_times(call, rotations((sorted_ct, rp)))
+        plain_ms = cuda_ms(lambda: plain_call(sorted_ct, rp))
+        t_lib = device_times(
+            lambda x, o: torch.segment_reduce(x, "sum", offsets=o, axis=0, unsafe=True),
+            rotations((sorted_ct, offsets)), guarded=True, what="torch.segment_reduce")
+        n_bytes = ct.shape[0] * d * ct.element_size() + rp.shape[0] * 4 + n_src * d * 4
+        bound_ms, bound_by = bound(n_bytes, ct.shape[0] * d, torch.float32)
+        print(f"    time: kernel {fmt_times(t)}, plain {plain_ms:.4f} ms, torch.segment_reduce "
+              f"{fmt_times(t_lib)} ({windows * n_src} segments, the windows not added), "
+              f"bound {bound_ms:.4f} ms by {bound_by}")
+        out[dtype] = dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=t_lib["ms"],
+                          library_graph_ms=t_lib["graph_ms"], library_cold_ms=t_lib["cold_ms"])
+    return out
+
+
+# the depth at which phase 7 holds the kernel path to the plain path: at 8
+# iterations this random-weight model amplifies f32 rounding past the limits
+# (the plain path alone lies ~2e-4 from its f64 result; its bf16 form ~0.4),
+# which `mlp_message_vs_plain` measures and prints in every run
+MLP_MESSAGE_CHECK_ITERATIONS = 2
+
+
+def _predictions(model, arrays, meta, device, compute_dtype):
+    from ignnition_tpu_torch.batch import to_device
+
+    inputs = {k: v for k, v in arrays.items() if k not in ("label", "label_mask")}
+    with torch.inference_mode():
+        out = model(to_device(inputs, device), meta, compute_dtype=compute_dtype)
+    return out.float().cpu()[torch.from_numpy(arrays["node_mask_path"] > 0)]
+
+
+def _grads(ir, params, arrays, meta, padding, device, compute_dtype):
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params, map_params
+
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=compute_dtype, device=device)
+    state = trainer.init_state(params=map_params(lambda v: v.clone(), params))
+    grads, _ = trainer.grads_fn(meta)(state.params, to_device(arrays, device))
+    return {k: v.double().cpu() for k, v in flatten_params(grads).items()}
+
+
+def mlp_message_vs_plain(dev, ir, params, serve_sample, train_arrays, train_meta,
+                         padding) -> dict:
+    """The kernel path against the plain path (the CPU) on the main path's
+    batches and weights. At the main path's 8 iterations, printed: how far
+    the kernel path's f32 predictions and step-0 gradients lie from the
+    plain path's, and how far the plain path's own f32 lies from its f64
+    (the rounding that 8 iterations of this random-weight model amplify).
+    Held, at `MLP_MESSAGE_CHECK_ITERATIONS` (full width, depth cut): f32
+    and bf16 predictions, the step-0 loss and every gradient leaf in f32,
+    at the limits of the other families."""
+    import ignnition_tpu_torch as igt
+
+    arrays, meta = igt.build_batch([serve_sample], ir, padding, training=False)
+    cpu, card = igt.build(ir), igt.build(ir)
+    cpu.load_params(params)
+    card.load_params(params, device=dev)
+    p = {name: _predictions(m, arrays, meta, d, cd) for name, m, d, cd in (
+        ("card", card, dev, None), ("cpu", cpu, "cpu", None),
+        ("cpu f64", cpu, "cpu", torch.float64))}
+    g = {name: _grads(ir, params, train_arrays, train_meta, padding, d, cd)
+         for name, d, cd in (("card", dev, None), ("cpu", "cpu", None),
+                             ("cpu f64", "cpu", torch.float64))}
+    gap = lambda a, b: float((p[a] - p[b]).abs().max())
+    ggap = lambda a, b: max(float((g[a][k] - v).abs().max() / v.abs().max())
+                            for k, v in g[b].items())
+    spread = dict(predictions_kernel_vs_plain=gap("card", "cpu"),
+                  predictions_plain_f32_vs_f64=gap("cpu", "cpu f64"),
+                  gradients_kernel_vs_plain=ggap("card", "cpu"),
+                  gradients_plain_f32_vs_f64=ggap("cpu", "cpu f64"))
+    print(f"[mlp_message] at {ir.num_iterations} iterations, f32, measured and not held: "
+          f"predictions kernels vs plain {spread['predictions_kernel_vs_plain']:.3e}, plain "
+          f"f32 vs plain f64 {spread['predictions_plain_f32_vs_f64']:.3e}; step-0 gradients "
+          f"(of each leaf's largest entry, the worst leaf) kernels vs plain "
+          f"{spread['gradients_kernel_vs_plain']:.3e}, plain f32 vs f64 "
+          f"{spread['gradients_plain_f32_vs_f64']:.3e} (the limits: 1e-4); the paths are held "
+          f"at {MLP_MESSAGE_CHECK_ITERATIONS} iterations")
+
+    cut = igt.parse_model_description(
+        mlp_message_description(num_iterations=MLP_MESSAGE_CHECK_ITERATIONS), FEATURE_DIMS)
+    cut_params = igt.build(cut).init(torch.Generator().manual_seed(SEED))
+    name = f"mlp_message ({MLP_MESSAGE_CHECK_ITERATIONS} iterations)"
+    server = serve_one_size(dev, cut, cut_params, [serve_sample], padding)
+    kernels_vs_plain_forward(name, server, cut, cut_params, serve_sample, dev,
+                             (None, torch.bfloat16))
+    arrays, meta = igt.build_batch([serve_sample], cut, padding, training=True)
+    trainer = igt.Trainer(igt.build(cut), padding, compute_dtype=torch.bfloat16)
+    state = trainer.init_state(params=cut_params)
+    from ignnition_tpu_torch.batch import to_device
+
+    step0_gradients_vs_plain(name, cut, padding, arrays, meta, state,
+                             to_device(arrays, trainer.device))
+    return spread
+
+
+def mlp_message(dev, card: str) -> dict:
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.frontend.ir import SLOT_PAD_CAP
+    from ignnition_tpu_torch.model.builder import flatten_params
+
+    counts = Counts()
+    total = {k: 0 for k in counts.read()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    ir = igt.parse_model_description(mlp_message_description(), FEATURE_DIMS)
+    params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+    leaves = [k for k in flatten_params(params) if k.startswith("message/")]
+    want_leaves = [f"message/s{si}/m0/src0/op0/layers/{j}/{w}"
+                   for si in (0, 1) for j in (0, 1) for w in ("kernel", "bias")]
+    if leaves != want_leaves:
+        raise AssertionError(f"mlp_message leaves {leaves}")
+    rng = np.random.default_rng(SEED + 3)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    s1, s2 = "adj_links_paths", "adj_paths_links"
+    result = {}
+
+    # ---- the lowering of each stage, as the builder decides it ----
+    samples = [make_sample(rng, **FLAGSHIP) for _ in range(MLP_MESSAGE_REQUESTS)]
+    server = serve_one_size(dev, ir, params, samples, padding)
+    meta = server.meta
+    slots = meta.maxlen(s2) * meta.nodes("link")
+    slot_sum = slots <= SLOT_PAD_CAP * meta.edges(s2)
+    print(f"[mlp_message] stage 1: slice map [{meta.maxlen(s1)}, {meta.nodes('path')}], the "
+          f"message network's tail over the slot tensor, then kernel B; stage 2: "
+          f"{slots} slots for {meta.edges(s2)} edges (cap {SLOT_PAD_CAP:g} x edges): "
+          + ("the slot-rate sum" if slot_sum else "past the cap, gather + the CSR sum"))
+    if not slot_sum:
+        raise AssertionError("mlp_message: stage 2 fell past the slot cap at the flagship "
+                             "size; the launch counts below assume the slot-rate sum")
+
+    # ---- serving: kernel B x8 a forward, and nothing else of the port's ----
+    for i, sample in enumerate(samples):
+        counts.reset()
+        preds = server.predict_samples([sample])
+        got = counts.read()
+        add(got)
+        if preds.shape != (FLAGSHIP["n_paths"],) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"mlp_message request {i}: {preds.shape} or non-finite")
+        # kernel B once per iteration: the step loop would launch none
+        expect_counts(f"mlp_message request {i} ({preds.shape[0]} predictions, mean "
+                      f"{preds.mean():.5f})", got, masked_gru_scan=ITERATIONS)
+    arrays = server.build_batch([samples[0]])
+    inputs = to_device({k: v for k, v in arrays.items()
+                        if k not in ("label", "label_mask")}, dev)
+    fwd = forward_ms(server, inputs)
+    e2e = []
+    for i in range(6):
+        t1 = time.perf_counter()
+        server.predict_samples([samples[0]])
+        if i >= 1:
+            e2e.append((time.perf_counter() - t1) * 1e3)
+    result["serving"] = dict(forward_ms=float(np.median(fwd)), request_ms=float(np.median(e2e)))
+    print(f"[latency] mlp_message: device forward median {np.median(fwd):.3f} ms (min "
+          f"{min(fwd):.3f}, max {max(fwd):.3f}, 20 runs, CUDA events); whole request "
+          f"(build_batch + copy + forward + trim) median {np.median(e2e):.1f} ms (5 runs, "
+          f"host clock) on {card}")
+    result["serving"].update(build_batch_ms(
+        "mlp_message", lambda: server.build_batch([samples[0]]), card))
+    print(f"    build_batch's share of the whole request "
+          f"{result['serving']['build_batch_ms'] / result['serving']['request_ms']:.0%}")
+    result["serving"].update(print_profile(
+        "mlp_message forward", lambda: server.forward_device(inputs),
+        result["serving"]["forward_ms"]))
+
+    # ---- training: B and C x8 a step, A as both slice gathers' backward ----
+    t0 = time.perf_counter()
+    arrays, meta = igt.build_batch([make_sample(rng, **FLAGSHIP)], ir, padding, training=True)
+    print(f"[mlp_message] build_batch(training=True) {time.perf_counter() - t0:.2f} s "
+          f"(host, native helpers)")
+    if meta.maxlen(s2) * meta.nodes("link") > SLOT_PAD_CAP * meta.edges(s2):
+        raise AssertionError("mlp_message: the training batch fell past the slot cap")
+    result["slot_map_backward"] = check_slot_map_backward(dev, rng, arrays, meta, s2, "path",
+                                                          HS)
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+    batch = to_device(arrays, trainer.device)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    init_params = {k: v.detach().cpu().clone() for k, v in flatten_params(state.params).items()}
+    result["vs_plain"] = mlp_message_vs_plain(dev, ir, params, samples[0], arrays, meta, padding)
+    windows = {a: (arrays[f"slice_sort_row_ptr_{a}"].shape[0] - 1) // meta.nodes(src)
+               for a, src in ((s1, "link"), (s2, "path"))}
+    # kernel A: each slice gather's backward. Stage 1's at every iteration:
+    # the gathered table is `link_states @ Ksrc`, and Ksrc needs its
+    # gradient even where the link states (iteration 1's) need none. Stage
+    # 2's but for the last iteration, whose link states reach no prediction.
+    per_stage = {s1: ITERATIONS, s2: ITERATIONS - 1}
+    want_a = sum(per_stage.values())
+    want_w = sum(n for a, n in per_stage.items() if windows[a] > 1)
+    print(f"[mlp_message] a step should launch kernel A {want_a} times ({per_stage[s1]} for "
+          f"stage 1's slot map, {windows[s1]} window(s); {per_stage[s2]} for stage 2's, "
+          f"{windows[s2]} window(s): {want_w} windowed), B and C {ITERATIONS} times each")
+    step = trainer.train_step_fn(meta)
+    metrics = []
+    for i in range(MLP_MESSAGE_TRAIN_STEPS):
+        counts.reset()
+        state, m = step(state, batch)
+        got = counts.read()
+        add(got)
+        expect_counts(f"mlp_message training step {i}", got, csr_segment_sum=want_a,
+                      csr_segment_sum_windows=want_w, masked_gru_scan=ITERATIONS,
+                      masked_gru_scan_bwd=ITERATIONS)
+        metrics.append({k: float(v) for k, v in m.items()})
+    print("  mlp_message training: " + "; ".join(
+        f"{k} " + " ".join(f"{m[k]:.5f}" for m in metrics) for k in ("total", "loss", "reg")))
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("mlp_message training: a loss is not finite")
+    if state.step != MLP_MESSAGE_TRAIN_STEPS:
+        raise AssertionError(f"mlp_message training: the state counts {state.step} steps")
+    moved = {k: float((v.detach().cpu() - init_params[k]).abs().max())
+             for k, v in flatten_params(state.params).items()}
+    if not all(0.0 < v < 0.1 for k, v in moved.items() if k.startswith("message/")):
+        raise AssertionError(f"mlp_message training: message parameters moved by {moved}")
+    result["training"] = dict(
+        losses=[m["total"] for m in metrics],
+        **time_training_step("mlp_message", step, state, batch, arrays, card))
+    print("[mlp_message] main path launch counts: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, **result)
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -2365,6 +2677,10 @@ def main() -> None:
     # ---- phase 6: the Q-size model ----
     qsized = qsize(dev, card)
     seconds["qsize"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 7: the mlp_message family ----
+    mlped = mlp_message(dev, card)
+    seconds["mlp_message"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -2393,13 +2709,15 @@ def main() -> None:
         on_training = trained["launches"].get(name, 0)
         on_attention = attended["launches"][name]
         on_qsize = qsized["launches"][name]
-        if on_serving + on_training + on_attention + on_qsize == 0:
+        on_mlp = mlped["launches"][name]
+        if on_serving + on_training + on_attention + on_qsize + on_mlp == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=on_serving + on_training + on_attention + on_qsize,
+            launches=on_serving + on_training + on_attention + on_qsize + on_mlp,
             launches_serving=on_serving, launches_training=on_training,
             launches_attention=on_attention, launches_qsize=on_qsize,
+            launches_mlp_message=on_mlp,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -2407,6 +2725,8 @@ def main() -> None:
     by_name["csr_segment_sum"].update(
         at_slice_gather_backward_shape=both(seg_bwd["csr"]), at_width_8=both(seg_w8["csr"]),
         at_width_48=both(seg_w48["csr"]))
+    by_name["csr_segment_sum_windows"].update(
+        at_mlp_message_slot_map=both(mlped["slot_map_backward"]))
     by_name["segment_sum_ids"].update(
         at_width_32=both(seg_bwd["ids"]), at_x4_shape=both(seg["ids"]),
         at_width_8=both(seg_w8["ids"]))
@@ -2417,6 +2737,8 @@ def main() -> None:
                       "training": trained["steps"],
                       "attention": {k: v for k, v in attended.items() if k != "launches"},
                       "qsize": {k: v for k, v in qsized.items() if k != "launches"},
+                      "mlp_message": {k: v for k, v in mlped.items()
+                                      if k not in ("launches", "slot_map_backward")},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

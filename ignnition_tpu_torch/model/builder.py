@@ -1,14 +1,31 @@
 """Compiler back-end for the ported slices: ModelIR -> `GnnModel`
 (counterpart of `ignnition_tpu/model/builder.py`), serving and training.
 
-Ported: the flagship RouteNet path, its attention family and the Q-size
-model. Each message passing has direct-assignation messages from one or
-more sources and a recurrent update; the sequence aggregations run the
-masked scan (`RNN.masked_update_stacked`: kernels B and C for a GRU), the
-vector ones one cell step. By branch, in the JAX package's order:
-  * `ordered`, one source: the time slices are gathered from the source
-    state table through the host slice map (`seg.gather_state_slices`; its
-    backward is kernel A), or without the map from the sorted edge messages
+Ported: the flagship RouteNet path, its attention family, the Q-size
+model and message neural networks (the mlp_message family). Each message
+passing has messages from one or more sources and a recurrent update; the
+sequence aggregations run the masked scan (`RNN.masked_update_stacked`:
+kernels B and C for a GRU), the vector ones one cell step.
+
+Messages (`_sources`, one `_Source` record per source): a direct
+assignation is the source state table; a chain that reads `hs_source`
+alone runs its networks once per source node into a message table
+(source-local), which every table lowering below reads as it reads states;
+any other chain makes per-edge messages, at first use: a first Dense layer
+over {hs_source, hs_dest, edge_params} splits into per-part matmuls at node
+rate, gathered per edge (`seg.gather_rows`, `seg.gather_by_dst`: their
+backwards are kernel A), else the inputs are concatenated per edge
+(`output_name` values included). Under a sum, a network that ends in a
+linear Dense layer leaves that layer to the node rate (`post`).
+
+Aggregations, by branch, in the JAX package's order:
+  * `ordered`, one source: the time slices are gathered from the message
+    table through the host slice map (`seg.gather_state_slices`; its
+    backward is kernel A); for a per-edge network over {hs_source, hs_dest,
+    edge_params}, one slice gather of `src_table @ Ksrc` plus the
+    destination part, then the network's tail over the whole
+    [L, n_dst, H] slot tensor (`_slot_messages`), so that the scan is still
+    kernel B; else from the sorted edge messages
     (`RNN.masked_update_from_edges`);
   * `interleave`: the sources' tables, zeroed on padding rows, are stacked
     and read through the combined slice map `ilv_slice_*` (one
@@ -18,12 +35,16 @@ vector ones one cell step. By branch, in the JAX package's order:
   * any sequence aggregation without its companions: the padded sequences
     of `seg.scatter_to_sequences` (interleave permuted by
     `interleave_perm_*`) into `RNN.masked_update`;
-  * `sum`: per source, the best of the block-diagonal / dense incidence
-    products and the CSR sums (`_one_source_sum`, kernel A), added;
+  * `sum`: per source, a per-edge network's slot-rate sum over the slice
+    map while the slots stay under `IR.SLOT_PAD_CAP` times the edges
+    (`_slot_rate_sum`), else the best of the block-diagonal / dense
+    incidence products (message tables) and the CSR sums
+    (`_one_source_sum`, kernel A); a factored last layer is applied to
+    each part at node rate (`_finish`); the parts add;
   * `attention` (per-destination GAT softmax, one source): block-diagonal
-    or dense attention over the int8 incidence matrix (kernels D and E),
-    else the per-edge form over the sorted edge list (`_attention`,
-    kernel A).
+    or dense attention over the int8 incidence matrix (message tables;
+    kernels D and E), else the per-edge form over the sorted edge
+    messages (`_attention`, kernel A).
 The readout is `predict` through a Dense feed-forward network. Any other
 DSL feature raises NotImplementedError naming it, when the model is built.
 
@@ -35,7 +56,8 @@ parameters, which never require grad: serving records no graph.
 
 Parameters keep the JAX package's tree and keys letter for letter
 (`update` -> `{dst}_update` -> `kernel`, `aggregation` -> `s{si}/m{mi}` ->
-`kernel1`, `readout` -> `op{i}` -> `layers` -> j -> `kernel`; a key may hold
+`kernel1`, `message` -> `s{si}/m{mi}/src{ki}/op{oi}` -> `layers` -> j ->
+`kernel`, `readout` -> `op{i}` -> `layers` -> j -> `kernel`; a key may hold
 a `/`), so `params_from_jax` moves a JAX tree across unchanged, and every
 rebuild of a tree keeps its structure (`map_params`, `with_leaves`). The
 module registers the leaves flat under `flatten_params`' names.
@@ -43,7 +65,8 @@ module registers the leaves flat under `flatten_params`' names.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +75,10 @@ from torch import nn
 
 from ..data.graph import BatchMeta
 from ..data.graph import interleave_tag as IVT
+from ..frontend import ir as IR
 from ..nn import mlp as MLP
 from ..nn import rnn as RNN
-from ..nn.layers import glorot_uniform
+from ..nn.layers import glorot_uniform, unsupported_layer
 from ..ops import segment as seg
 
 
@@ -68,6 +92,118 @@ _PORTED_AGGS = _SEQUENCE_AGGS + ("sum", "attention")
 
 def _unported(feature: str) -> NotImplementedError:
     return NotImplementedError(f"{feature} is not ported to ignnition_tpu_torch yet")
+
+
+_SPLIT_INPUTS = ("hs_source", "hs_dest", "edge_params")
+
+
+def _split_first_kernels(op, k0, w_src: int, w_dst: int, w_ep: int):
+    """The rows of a first-Dense kernel by the op's named inputs:
+    concat([hs_source | hs_dest | edge_params]) @ k0 == the per-part matmuls
+    with (ksrc, kdst, kep); a repeated input adds its slices. None for an
+    input the op does not read."""
+    ksrc = kdst = kep = None
+    lo = 0
+    for name in op.inputs:
+        w = {"hs_source": w_src, "hs_dest": w_dst}.get(name, w_ep)
+        sl = k0[lo : lo + w]
+        if name == "hs_source":
+            ksrc = sl if ksrc is None else ksrc + sl
+        elif name == "hs_dest":
+            kdst = sl if kdst is None else kdst + sl
+        else:
+            kep = sl if kep is None else kep + sl
+        lo += w
+    if lo != k0.shape[0]:
+        raise BuildError(f"first-Dense kernel layout: sliced {lo} rows of {k0.shape[0]}")
+    return ksrc, kdst, kep
+
+
+@dataclass(frozen=True)
+class _MessageDims:
+    """Widths resolved at build time (the JAX `_MessageDims`)."""
+
+    final_message_dim: Mapping[Tuple[int, int, int], int]  # (stage, mp, source)
+    aggregated_dim: Mapping[Tuple[int, int], int]  # (stage, mp) -> update input width
+    op_in_dims: Mapping[Tuple[int, int, int, int], int]  # (stage, mp, source, op)
+
+
+def _resolve_dims(model_ir) -> _MessageDims:
+    """Each message network's input width, each source's message width and
+    each update's input width: a concat on the feature axis adds its
+    sources' message widths, every other aggregation takes the first's."""
+    state_dims = model_ir.state_dims()
+    final: Dict[Tuple[int, int, int], int] = {}
+    named: Dict[str, int] = {}
+    aggregated: Dict[Tuple[int, int], int] = {}
+    op_in: Dict[Tuple[int, int, int, int], int] = {}
+    for si, stage in enumerate(model_ir.stages):
+        for mi, mp in enumerate(stage.passes):
+            widths = []
+            for ki, src in enumerate(mp.sources):
+                out_dim = state_dims[src.entity]  # direct assignation
+                for oi, op in enumerate(src.ops):
+                    if op.kind != "mlp":
+                        continue
+                    in_dim = 0
+                    for name in op.inputs:
+                        if name == "hs_source":
+                            in_dim += state_dims[src.entity]
+                        elif name == "hs_dest":
+                            in_dim += state_dims[mp.destination]
+                        elif name == "edge_params":
+                            in_dim += src.edge_param_dim
+                        elif name in named:
+                            in_dim += named[name]
+                        else:
+                            raise BuildError(f"message op input '{name}' has unknown width")
+                    op_in[(si, mi, ki, oi)] = in_dim
+                    out_dim = MLP.output_dim(op.mlp, in_dim)
+                    if op.output_name:
+                        named[op.output_name] = out_dim
+                final[(si, mi, ki)] = out_dim
+                widths.append(out_dim)
+            agg = mp.aggregation
+            concat2 = agg.kind == "concat" and agg.concat_axis == 2
+            aggregated[(si, mi)] = sum(widths) if concat2 else widths[0]
+    return _MessageDims(final, aggregated, op_in)
+
+
+class _Source:
+    """One source of a message passing, as its aggregation reads it (the JAX
+    per-source record): `table`, the per-node message table of a direct or
+    source-local chain (None for per-edge networks); `pkey`, the parameters
+    of the chain's first network, if it has one; `post`, the factored
+    last Dense layer (kernel, bias or None) of a per-edge network under a
+    sum; `messages`, the per-edge messages [E, D], zero on padding edges,
+    made by `make` at first use (the slot routes never read them)."""
+
+    def __init__(self, batch, src, table=None, pkey=None, post=None, make=None):
+        a = src.adj_name
+        self.spec, self.adj, self.entity, self.pkey = src, a, src.entity, pkey
+        self.dst_idx, self.seq = batch[f"dst_{a}"], batch[f"seq_{a}"]
+        self.mask = batch[f"edge_mask_{a}"]
+        self.table, self.post = table, post
+        self._make = make if make is not None else (lambda: table[batch[f"src_{a}"]])
+        self._messages = None
+
+    @property
+    def messages(self) -> torch.Tensor:
+        if self._messages is None:
+            m = self._make()
+            # the mask multiply stays in the graph: it annihilates what a
+            # backward credits to padding edges
+            self._messages = m * self.mask[:, None].to(m.dtype)
+        return self._messages
+
+
+def _slices(batch, table, map_name, sort_name, suffix):
+    """The time slices of `table` read through a slice map and, where the
+    batch has them, its sort companions (the backward: kernel A)."""
+    return seg.gather_state_slices(
+        table, batch[f"{map_name}_{suffix}"],
+        *(batch.get(f"{sort_name}_{part}_{suffix}") for part in ("perm", "ids", "row_ptr")),
+    )
 
 
 # --------------------------------------------------------------------------
@@ -130,6 +266,7 @@ class GnnModel(nn.Module):
         self.ir = model_ir
         self.state_dims = model_ir.state_dims()
         self._check_supported()
+        self.dims = _resolve_dims(model_ir)
         self._structure: Dict[str, Any] = {}
         self.params = nn.ParameterDict()
 
@@ -137,11 +274,10 @@ class GnnModel(nn.Module):
         ir = self.ir
         for stage in ir.stages:
             for mp in stage.passes:
-                if any(op.kind != "direct" for src in mp.sources for op in src.ops):
-                    raise _unported(
-                        "message neural networks (a message other than "
-                        "direct_assignation)"
-                    )
+                for op in (op for src in mp.sources for op in src.ops if op.kind == "mlp"):
+                    for layer in op.mlp.layers:
+                        if layer.kind != "Dense":
+                            raise unsupported_layer(layer.kind, op.mlp.name)
                 if mp.aggregation.kind not in _PORTED_AGGS:
                     raise _unported(f"the '{mp.aggregation.kind}' aggregation")
                 if len(mp.sources) != 1 and mp.aggregation.kind == "attention":
@@ -181,8 +317,14 @@ class GnnModel(nn.Module):
         upd_in_dims: Dict[str, int] = {}
         for si, stage in enumerate(ir.stages):
             for mi, mp in enumerate(stage.passes):
-                msg_dim = self.state_dims[mp.sources[0].entity]  # direct messages
-                agg_dim = self._aggregated_dim(mp)
+                for ki, src in enumerate(mp.sources):
+                    for oi, op in enumerate(src.ops):
+                        if op.kind == "mlp":
+                            params["message"][f"s{si}/m{mi}/src{ki}/op{oi}"], _ = MLP.init(
+                                generator, op.mlp, self.dims.op_in_dims[(si, mi, ki, oi)]
+                            )
+                msg_dim = self.dims.final_message_dim[(si, mi, 0)]
+                agg_dim = self.dims.aggregated_dim[(si, mi)]
                 dst_dim = self.state_dims[mp.destination]
                 if mp.aggregation.kind == "attention":
                     # drawn before the pass's update, as in the JAX package
@@ -210,15 +352,6 @@ class GnnModel(nn.Module):
         self.load_params(params)
         return params
 
-    def _aggregated_dim(self, mp) -> int:
-        """The update's input width (the JAX `_resolve_dims`): a concat on
-        the feature axis adds the sources' message widths, every other
-        aggregation takes the first source's."""
-        widths = [self.state_dims[src.entity] for src in mp.sources]  # direct messages
-        if mp.aggregation.kind == "concat" and mp.aggregation.concat_axis == 2:
-            return sum(widths)
-        return widths[0]
-
     def load_params(self, params, device=None) -> None:
         """Register a parameter tree (JAX layout) on the module."""
         flat = flatten_params(params)
@@ -243,14 +376,22 @@ class GnnModel(nn.Module):
     # ------------------------------------------------------------------
 
     def regularization_loss(self, params) -> torch.Tensor:
-        """Sum of all layers' l2 kernel penalties over a parameter tree (the
-        readout networks: message and feed-forward update networks are not
-        ported)."""
-        total = None
-        for i, op in enumerate(self.ir.readout):
-            part = MLP.l2_loss(op.mlp, params["readout"][f"op{i}"])
-            total = part if total is None else total + part
-        return total
+        """Sum of all layers' l2 kernel penalties over a parameter tree: the
+        message networks', then the readout's, in the JAX package's order
+        (feed-forward updates are not ported)."""
+        parts = [
+            MLP.l2_loss(op.mlp, params["message"][f"s{si}/m{mi}/src{ki}/op{oi}"])
+            for si, stage in enumerate(self.ir.stages)
+            for mi, mp in enumerate(stage.passes)
+            for ki, src in enumerate(mp.sources)
+            for oi, op in enumerate(src.ops)
+            if op.kind == "mlp"
+        ]
+        parts += [
+            MLP.l2_loss(op.mlp, params["readout"][f"op{i}"])
+            for i, op in enumerate(self.ir.readout)
+        ]
+        return sum(parts[1:], parts[0])
 
     def forward(
         self,
@@ -312,32 +453,38 @@ class GnnModel(nn.Module):
 
     def _message_passing_iteration(self, params, batch, meta, states, cache):
         new_states = dict(states)
+        edge_vars: Dict[str, torch.Tensor] = {}  # output_name -> per-edge values
         for si, stage in enumerate(self.ir.stages):
             for mi, mp in enumerate(stage.passes):
                 dst = mp.destination
+                n_dst = meta.nodes(dst)
                 dst_states = new_states[dst]
-                # direct assignation: each source's message table is its state
-                # table; (adjacency, entity, table) per source
-                sources = [(s.adj_name, s.entity, new_states[s.entity]) for s in mp.sources]
+                sources = self._sources(
+                    params["message"], si, mi, mp, batch, new_states, dst_states, edge_vars
+                )
                 up = params["update"][f"{dst}_update"]
                 kind = mp.aggregation.kind
                 if kind in _SEQUENCE_AGGS:
                     new_state = self._sequence_update(
-                        mp, IVT(dst, si, mi), up, sources, dst_states, batch, meta
+                        mp, IVT(dst, si, mi), up, sources, dst_states, new_states, batch, meta
                     )
                 else:
                     if kind == "sum":
                         # per source, each on its own best lowering; the parts add
                         parts = [
-                            self._one_source_sum(table, batch, meta, a, meta.nodes(dst), cache)
-                            for a, _, table in sources
+                            self._finish(
+                                self._one_source_sum(
+                                    s, dst_states, new_states, batch, meta, n_dst, cache
+                                ),
+                                s, batch, n_dst,
+                            )
+                            for s in sources
                         ]
                         part = sum(parts[1:], parts[0])
                     else:
-                        ((a, _, table),) = sources
+                        (s,) = sources
                         part = self._attention_aggregate(
-                            params["aggregation"][f"s{si}/m{mi}"], table, dst_states,
-                            batch, a, meta.nodes(dst),
+                            params["aggregation"][f"s{si}/m{mi}"], s, dst_states, batch, n_dst
                         )
                     # the sorted sums return f32 (the kernel's accumulator)
                     aggregated = part.to(dst_states.dtype)
@@ -346,74 +493,230 @@ class GnnModel(nn.Module):
                 new_states[dst] = new_state * node_mask[:, None].to(new_state.dtype)
         return new_states
 
-    @staticmethod
-    def _edge_messages(batch, a, table):
-        """Per-edge messages of one source, zero on padding edges. The mask
-        multiply stays in the graph: it annihilates what a backward credits
-        to padding edges."""
-        messages = table[batch[f"src_{a}"]]
-        return messages * batch[f"edge_mask_{a}"][:, None].to(messages.dtype)
+    # ------------------------------------------------------------------
+    # messages
+    # ------------------------------------------------------------------
 
-    def _sequence_update(self, mp, tag, up, sources, dst_states, batch, meta):
+    def _sources(self, mparams, si, mi, mp, batch, states, dst_states, edge_vars):
+        """One `_Source` per source of a message passing (the JAX message
+        creation): a direct or source-local chain becomes a per-node message
+        table; any other chain per-edge messages, made at first use."""
+        out = []
+        for ki, src in enumerate(mp.sources):
+            keys = lambda oi, _ki=ki: mparams[f"s{si}/m{mi}/src{_ki}/op{oi}"]
+            if IR.is_source_local(src.ops):
+                # the chain is a function of the source state: run it once per node
+                table = states[src.entity]
+                for oi, op in enumerate(src.ops):
+                    if op.kind == "direct":
+                        table = states[src.entity]
+                    else:
+                        x = torch.cat([states[src.entity]] * len(op.inputs), dim=1)
+                        table = MLP.apply(op.mlp, keys(oi), x)
+                out.append(_Source(batch, src, table=table))
+                continue
+            s = self._per_edge_source(mp, src, keys, batch, states, dst_states, edge_vars)
+            if any(op.output_name for op in src.ops):
+                s.messages  # publishes its named outputs in the JAX order
+            out.append(s)
+        return out
+
+    def _per_edge_source(self, mp, src, keys, batch, states, dst_states, edge_vars):
+        """A chain over per-edge inputs. A network whose first layer is Dense
+        over {hs_source, hs_dest, edge_params} runs that layer as per-part
+        matmuls at node rate, and the parts meet per edge (split first);
+        any other network concatenates its inputs per edge. Under a sum, a
+        last network ending in a linear Dense layer stops before it: that
+        layer is `post`, applied after the sum (factor last)."""
+        a = src.adj_name
+        src_idx, dst_idx = batch[f"src_{a}"], batch[f"dst_{a}"]
+        row_ptr = batch.get(f"row_ptr_{a}")
+        ops = src.ops
+        last = len(ops) - 1
+        factor_last = (
+            mp.aggregation.kind == "sum"
+            and ops[last].kind == "mlp"
+            and not ops[last].output_name
+            and len(ops[last].mlp.layers) >= 2
+            and MLP.can_factor_last(ops[last].mlp)
+        )
+        post = MLP.last_dense(ops[last].mlp, keys(last)) if factor_last else None
+        edge_params = batch.get(f"params_{a}")
+
+        def by_src(table):
+            # backward: the sorted segment sum over the source sort (kernel A)
+            return seg.gather_rows(
+                table, src_idx, batch.get(f"src_perm_{a}"), batch.get(f"src_row_ptr_{a}")
+            )
+
+        def by_dst(table):
+            if row_ptr is None:
+                return table[dst_idx]
+            return seg.gather_by_dst(table, dst_idx, row_ptr)
+
+        def make():
+            gathered = {}
+
+            def gathered_src():
+                if "src" not in gathered:
+                    gathered["src"] = by_src(states[src.entity])
+                return gathered["src"]
+
+            messages = None
+            for oi, op in enumerate(ops):
+                if op.kind == "direct":
+                    messages = gathered_src()
+                    continue
+                p = keys(oi)
+                prefix = factor_last and oi == last
+                if (
+                    MLP.can_split_first(op.mlp)
+                    and op.inputs
+                    and all(n in _SPLIT_INPUTS for n in op.inputs)
+                ):
+                    k0 = p["layers"][0]["kernel"]
+                    ksrc, kdst, kep = _split_first_kernels(
+                        op, k0, states[src.entity].shape[1], dst_states.shape[1],
+                        edge_params.shape[1] if edge_params is not None else 0,
+                    )
+                    pre = []
+                    if ksrc is not None:
+                        pre.append(by_src(states[src.entity] @ ksrc))
+                    if kdst is not None:
+                        pre.append(by_dst(dst_states @ kdst))
+                    if kep is not None:
+                        pre.append(edge_params.to(k0.dtype) @ kep)
+                    pre = sum(pre[1:], pre[0])
+                    finish = MLP.prefix_from_first_preact if prefix else MLP.apply_from_first_preact
+                    messages = finish(op.mlp, p, pre)
+                else:
+                    inputs = []
+                    for name in op.inputs:
+                        if name == "hs_source":
+                            inputs.append(gathered_src())
+                        elif name == "hs_dest":
+                            inputs.append(by_dst(dst_states))
+                        elif name == "edge_params":
+                            inputs.append(edge_params.to(dst_states.dtype))
+                        else:
+                            inputs.append(edge_vars[name])
+                    x = torch.cat(inputs, dim=1)
+                    messages = (MLP.apply_prefix if prefix else MLP.apply)(op.mlp, p, x)
+                if op.output_name:
+                    edge_vars[op.output_name] = messages
+            return messages
+
+        pkey = keys(0) if ops[0].kind == "mlp" else None
+        return _Source(batch, src, pkey=pkey, post=post, make=make)
+
+    def _slot_messages(self, s, dst_states, states, batch, meta, n_dst,
+                       want_prefix=False, capped=True):
+        """The [L, n_dst, D] slot tensor of one source over its in-degree
+        slice map, or None where the batch or the chain does not allow it: a
+        message table's slice gather, or for a per-edge network over
+        {hs_source, hs_dest, edge_params} one slice gather of
+        `src_table @ Ksrc`, the node-rate destination part broadcast over the
+        slots and the edge params relaid in the slot layout, then the
+        network's tail (or, with `want_prefix`, all but its last layer) over
+        the whole tensor: every layer acts on the last axis. `capped` skips
+        slot counts past `IR.SLOT_PAD_CAP` times the edges (an ordered update
+        scans the slot layout anyway, so it passes False). Invalid slots hold
+        finite values that every consumer masks by the in-degree."""
+        a = s.adj
+        if f"slice_src_{a}" not in batch or f"lens_{a}" not in batch:
+            return None
+        L = meta.maxlen(a)
+        if capped and L * n_dst > IR.SLOT_PAD_CAP * meta.edges(a):
+            return None
+        if s.table is not None:
+            return _slices(batch, s.table, "slice_src", "slice_sort", a)
+        ops, pkey = s.spec.ops, s.pkey
+        if pkey is None or not IR.is_slot_eligible(ops) or (
+            "edge_params" in ops[0].inputs and f"params_slice_{a}" not in batch
+        ):
+            return None
+        op = ops[0]
+        k0 = pkey["layers"][0]["kernel"]
+        params_slice = batch.get(f"params_slice_{a}")
+        ksrc, kdst, kep = _split_first_kernels(
+            op, k0, states[s.entity].shape[1], dst_states.shape[1],
+            params_slice.shape[-1] if params_slice is not None else 0,
+        )
+        pre = None
+        if ksrc is not None:
+            pre = _slices(batch, states[s.entity] @ ksrc, "slice_src", "slice_sort", a)
+        if kep is not None:
+            part = params_slice.to(k0.dtype) @ kep
+            pre = part if pre is None else pre + part
+        if kdst is not None:
+            part = (dst_states @ kdst)[None]
+            # an hs_dest-only chain: each of a destination's edges carries the
+            # same message, so it is broadcast over the slots
+            pre = part.expand((L,) + part.shape[1:]) if pre is None else pre + part
+        if want_prefix:
+            return MLP.prefix_from_first_preact(op.mlp, pkey, pre)
+        return MLP.apply_from_first_preact(op.mlp, pkey, pre)
+
+    # ------------------------------------------------------------------
+    # aggregations
+    # ------------------------------------------------------------------
+
+    def _sequence_update(self, mp, tag, up, sources, dst_states, states, batch, meta):
         """An ordered, interleave or concat aggregation into the masked scan,
-        by the first branch the batch's companions allow, in the JAX
-        package's order: the ordered update through the slice map, then
-        without it; the interleave through the combined slice map; concat
-        and multi-source ordered through one slice map per source; else the
-        padded sequences of every source (`interleave_perm_*` reorders an
-        interleave's time axis)."""
+        by the first branch the batch's companions and the messages allow,
+        in the JAX package's order: the ordered update through the slice map
+        (`_slot_messages`: a message table's slices, or a per-edge network's
+        slot tensor), then without it over the edge messages; the interleave
+        of message tables through the combined slice map; concat and
+        multi-source ordered of message tables through one slice map per
+        source; else the padded sequences of every source's edge messages
+        (`interleave_perm_*` reorders an interleave's time axis)."""
         agg = mp.aggregation
         spec = mp.update.rnn
         n_dst = meta.nodes(mp.destination)
-        a0, _, table0 = sources[0]
+        s0 = sources[0]
+        a0 = s0.adj
 
         def lens():
             """Real messages per destination and source: the data layer's
             `lens_*`, or counted from the edge masks."""
             return [
-                batch[f"lens_{a}"] if f"lens_{a}" in batch
-                else seg.segment_count(batch[f"dst_{a}"], n_dst, batch[f"edge_mask_{a}"])
-                for a, _, _ in sources
+                batch[f"lens_{s.adj}"] if f"lens_{s.adj}" in batch
+                else seg.segment_count(s.dst_idx, n_dst, s.mask)
+                for s in sources
             ]
 
-        def slices(table, map_name, sort_name, suffix):
-            """The time slices of `table` read through a slice map and, where
-            the batch has them, its sort companions (the backward)."""
-            return seg.gather_state_slices(
-                table, batch[f"{map_name}_{suffix}"],
-                *(batch.get(f"{sort_name}_{part}_{suffix}") for part in ("perm", "ids", "row_ptr")),
-            )
-
-        def zero_padding_rows(entity, table):
+        def zero_padding_rows(s):
             # empty slots read a padding row: it must hold exact zeros
-            return table * batch[f"node_mask_{entity}"][:, None].to(table.dtype)
+            return s.table * batch[f"node_mask_{s.entity}"][:, None].to(s.table.dtype)
 
         if agg.kind == "ordered" and len(sources) == 1 and f"row_ptr_{a0}" in batch:
-            if f"slice_src_{a0}" in batch:
-                xs = slices(table0, "slice_src", "slice_sort", a0)
+            xs = self._slot_messages(s0, dst_states, states, batch, meta, n_dst, capped=False)
+            if xs is not None:
                 return RNN.masked_update_stacked(spec, up, xs, batch[f"lens_{a0}"], dst_states)
             return RNN.masked_update_from_edges(
-                spec, up, self._edge_messages(batch, a0, table0),
-                batch[f"row_ptr_{a0}"][:-1], batch[f"seq_{a0}"], batch[f"dst_{a0}"],
+                spec, up, s0.messages, batch[f"row_ptr_{a0}"][:-1], s0.seq, s0.dst_idx,
                 batch[f"lens_{a0}"], dst_states, meta.maxlen(a0),
             )
-        one_width = len({int(table.shape[1]) for _, _, table in sources}) == 1
+        tables = all(s.table is not None for s in sources)
+        one_width = tables and len({int(s.table.shape[1]) for s in sources}) == 1
         if agg.kind == "interleave" and f"ilv_slice_{tag}" in batch and one_width:
-            combined = torch.cat([zero_padding_rows(e, t) for _, e, t in sources], 0)
-            xs = slices(combined, "ilv_slice", "ilv_sort", tag)
+            combined = torch.cat([zero_padding_rows(s) for s in sources], 0)
+            xs = _slices(batch, combined, "ilv_slice", "ilv_sort", tag)
             return RNN.masked_update_stacked(spec, up, xs, sum(lens()), dst_states)
         axis = agg.concat_axis if agg.kind == "concat" else 1
         if (
             agg.kind in ("concat", "ordered")
-            and all(f"slice_src_{a}" in batch for a, _, _ in sources)
+            and tables
+            and all(f"slice_src_{s.adj}" in batch for s in sources)
             and (
                 one_width if axis != 2
-                else len({meta.maxlen(a) for a, _, _ in sources}) == 1
+                else len({meta.maxlen(s.adj) for s in sources}) == 1
             )
         ):
             blocks = [
-                slices(zero_padding_rows(e, t), "slice_src", "slice_sort", a)
-                for a, e, t in sources
+                _slices(batch, zero_padding_rows(s), "slice_src", "slice_sort", s.adj)
+                for s in sources
             ]
             if axis == 2:
                 return RNN.masked_update_stacked(
@@ -423,11 +726,8 @@ class GnnModel(nn.Module):
                 spec, up, torch.cat(blocks, 0), sum(lens()), dst_states
             )
         blocks = [
-            seg.scatter_to_sequences(
-                self._edge_messages(batch, a, table), batch[f"dst_{a}"], batch[f"seq_{a}"],
-                n_dst, meta.maxlen(a),
-            )
-            for a, _, table in sources
+            seg.scatter_to_sequences(s.messages, s.dst_idx, s.seq, n_dst, meta.maxlen(s.adj))
+            for s in sources
         ]
         if axis == 2:
             aggregated, final_len = torch.cat(blocks, 2), lens()[0]
@@ -448,75 +748,115 @@ class GnnModel(nn.Module):
             cache[(key, dtype)] = batch[key].to(dtype)
         return cache[(key, dtype)]
 
-    def _one_source_sum(self, table, batch, meta, a, n_dst, cache):
+    def _slot_rate_sum(self, s, dst_states, states, batch, meta, n_dst):
+        """A per-edge network's sum at slot rate: its slot tensor (the prefix
+        where `s.post` factors the last layer out), slots past each
+        destination's in-degree zeroed, summed over the slots. No per-edge
+        gather and no segment sum, forward or backward (the slice gather's
+        backward is kernel A). None for message tables, which the incidence
+        products and CSR sums serve, and where `_slot_messages` gives none."""
+        if s.table is not None:
+            return None
+        slots = self._slot_messages(
+            s, dst_states, states, batch, meta, n_dst, want_prefix=s.post is not None
+        )
+        if slots is None:
+            return None
+        t = torch.arange(slots.shape[0], device=slots.device)
+        valid = t[:, None] < batch[f"lens_{s.adj}"][None, :]
+        return torch.sum(slots * valid[:, :, None].to(slots.dtype), dim=0)
+
+    @staticmethod
+    def _finish(part, s, batch, n_dst):
+        """A factored last Dense layer applied to a source's sum at node rate:
+        sum_e (g_e @ K + b) = (sum_e g_e) @ K + deg * b."""
+        if s.post is None:
+            return part
+        kernel, bias = s.post
+        out = part.to(kernel.dtype) @ kernel
+        if bias is not None:
+            deg = batch.get(f"lens_{s.adj}")
+            if deg is None:
+                deg = seg.segment_count(s.dst_idx, n_dst, s.mask)
+            out = out + deg.to(out.dtype)[:, None] * bias
+        return out
+
+    def _one_source_sum(self, s, dst_states, states, batch, meta, n_dst, cache):
         """Best available sum lowering for one destination-sorted source, in
-        the JAX package's order: block-diagonal matmul > dense-incidence
-        matmul > gather + CSR sum (kernel A) > sum of masked edge messages."""
-        if f"inc_blocks_{a}" in batch:
-            blocks = self._upcast(batch, f"inc_blocks_{a}", table.dtype, cache)
-            return seg.direct_segment_sum_blocks(table, blocks, n_dst)
-        if f"dense_inc_{a}" in batch:
-            inc = self._upcast(batch, f"dense_inc_{a}", table.dtype, cache)
-            return seg.direct_segment_sum_dense(table, inc)
+        the JAX package's order: a per-edge network's slot-rate sum; for a
+        message table the block-diagonal matmul > the dense-incidence matmul
+        > the CSR sums (kernel A); else, and last, the sorted sum of the edge
+        messages (kernel A with row pointers)."""
+        slots = self._slot_rate_sum(s, dst_states, states, batch, meta, n_dst)
+        if slots is not None:
+            return slots
+        a, table = s.adj, s.table
         row_ptr = batch.get(f"row_ptr_{a}")
-        if row_ptr is not None and f"bwd_slice_dst_{a}" in batch:
-            return seg.direct_segment_sum_sliced(
-                table, batch[f"src_{a}"], row_ptr, n_dst,
-                batch[f"bwd_slice_dst_{a}"], batch[f"out_lens_{a}"],
-            )
-        if row_ptr is not None and f"dst_in_src_order_{a}" in batch:
-            return seg.direct_segment_sum(
-                table, batch[f"src_{a}"], row_ptr, n_dst,
-                batch[f"dst_in_src_order_{a}"], batch[f"src_row_ptr_{a}"],
-            )
-        messages = table[batch[f"src_{a}"]]
-        messages = messages * batch[f"edge_mask_{a}"][:, None].to(messages.dtype)
+        if table is not None:
+            if f"inc_blocks_{a}" in batch:
+                blocks = self._upcast(batch, f"inc_blocks_{a}", table.dtype, cache)
+                return seg.direct_segment_sum_blocks(table, blocks, n_dst)
+            if f"dense_inc_{a}" in batch:
+                inc = self._upcast(batch, f"dense_inc_{a}", table.dtype, cache)
+                return seg.direct_segment_sum_dense(table, inc)
+            if row_ptr is not None and f"bwd_slice_dst_{a}" in batch:
+                return seg.direct_segment_sum_sliced(
+                    table, batch[f"src_{a}"], row_ptr, n_dst,
+                    batch[f"bwd_slice_dst_{a}"], batch[f"out_lens_{a}"],
+                )
+            if row_ptr is not None and f"dst_in_src_order_{a}" in batch:
+                return seg.direct_segment_sum(
+                    table, batch[f"src_{a}"], row_ptr, n_dst,
+                    batch[f"dst_in_src_order_{a}"], batch[f"src_row_ptr_{a}"],
+                )
         return seg.segment_sum(
-            messages, batch[f"dst_{a}"], n_dst, row_ptr=row_ptr, indices_are_sorted=True
+            s.messages, s.dst_idx, n_dst, row_ptr=row_ptr, indices_are_sorted=True
         )
 
-    def _attention_aggregate(self, ap, table, dst_states, batch, a, n_dst):
-        """Per-destination GAT attention over one destination-sorted source
-        with direct messages, by the best lowering the batch allows:
-        block-diagonal attention > dense attention over the incidence matrix
-        (both kernels D and E; the int8 matrix goes in as it is) > per-edge
-        attention (`_attention`, kernel A). The JAX package's slot-rate
-        lowering (`_slot_attention`), which it would try first where there
-        is no incidence matrix, is not ported: the per-edge form computes
-        the same function."""
-        if f"inc_blocks_{a}" in batch:
+    def _attention_aggregate(self, ap, s, dst_states, batch, n_dst):
+        """Per-destination GAT attention over one destination-sorted source,
+        by the best lowering the batch and the messages allow: for a message
+        table block-diagonal attention > dense attention over the incidence
+        matrix (both kernels D and E; the int8 matrix goes in as it is);
+        else per-edge attention over the edge messages (`_attention`, kernel
+        A). The JAX package's slot-rate lowering (`_slot_attention`), which
+        it would try first for per-edge networks and for tables without an
+        incidence matrix, is not ported: the per-edge form computes the same
+        function."""
+        a, table = s.adj, s.table
+        if table is not None and f"inc_blocks_{a}" in batch:
             return seg.dense_attention_aggregate_blocks(
                 table, dst_states, batch[f"inc_blocks_{a}"],
                 ap["kernel1"], ap["kernel2"], ap["attn_kernel"], n_dst,
             )
-        if f"dense_inc_{a}" in batch:
+        if table is not None and f"dense_inc_{a}" in batch:
             return seg.dense_attention_aggregate(
                 table, dst_states, batch[f"dense_inc_{a}"],
                 ap["kernel1"], ap["kernel2"], ap["attn_kernel"],
             )
-        return self._attention(ap, table, dst_states, batch, a, n_dst)
+        return self._attention(ap, s, dst_states, batch, n_dst)
 
-    def _attention(self, ap, table, dst_states, batch, a, n_dst):
+    def _attention(self, ap, s, dst_states, batch, n_dst):
         """Per-edge GAT attention in the `per_destination` mode over a sorted
         edge list: scores decompose into a per-edge source scalar and a
         per-node destination scalar gathered per edge (8 lanes wide, as in
         the JAX package; `seg.gather_by_dst`'s transpose is kernel A), then
         the fused `seg.sorted_softmax_aggregate`."""
-        row_ptr = batch.get(f"row_ptr_{a}")
+        row_ptr = batch.get(f"row_ptr_{s.adj}")
         if row_ptr is None:
             raise _unported(
                 "per-edge attention without CSR row pointers (segment_softmax)"
             )
-        dst_idx, mask = batch[f"dst_{a}"], batch[f"edge_mask_{a}"]
-        messages = table[batch[f"src_{a}"]]
-        messages = messages * mask[:, None].to(messages.dtype)  # zero padding edges
+        messages = s.messages
         d1 = ap["kernel1"].shape[1]
         s_src = ((messages @ ap["kernel1"]) @ ap["attn_kernel"][:d1]).reshape(-1)
         s_dst_node = (dst_states @ ap["kernel2"]) @ ap["attn_kernel"][d1:]
         s_dst8 = s_dst_node.expand(s_dst_node.shape[0], 8)
-        s_dst = seg.gather_by_dst(s_dst8, dst_idx, row_ptr)[:, 0]
+        s_dst = seg.gather_by_dst(s_dst8, s.dst_idx, row_ptr)[:, 0]
         scores = F.leaky_relu(s_src + s_dst, 0.2)
-        return seg.sorted_softmax_aggregate(messages, scores, dst_idx, n_dst, mask, row_ptr)
+        return seg.sorted_softmax_aggregate(
+            messages, scores, s.dst_idx, n_dst, s.mask, row_ptr
+        )
 
     def _readout(self, params, states):
         """The predict op over the final entity states."""

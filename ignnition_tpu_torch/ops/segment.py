@@ -94,13 +94,51 @@ def gather_state_slices(
     zero cotangent from the masked scan. `sort_ids` is the JAX function's
     argument for its id-based CPU sum; kernel A needs the row pointers only.
     Without companions (serving) the gather differentiates by autograd's
-    scatter-add."""
-    if sort_perm is None or sort_row_ptr is None:
+    scatter-add; a forward that records no graph (serving, inference mode)
+    is the plain gather."""
+    if (
+        sort_perm is None
+        or sort_row_ptr is None
+        or not (torch.is_grad_enabled() and states.requires_grad)
+    ):
         return states[slice_src]
     n_windows = (sort_row_ptr.shape[0] - 1) // states.shape[0]
     if n_windows > 1:
         sort_perm = _whole_sort_perm(sort_perm, n_windows)
     return _GatherStateSlices.apply(states, slice_src, sort_perm, sort_row_ptr)
+
+
+class _GatherRows(torch.autograd.Function):
+    """`states[idx]` whose transpose is the sorted segment sum of `ct[perm]`
+    over `row_ptr` (the JAX `_gr_bwd`): kernel A on the card."""
+
+    @staticmethod
+    def forward(ctx, states, idx, perm, row_ptr):
+        ctx.save_for_backward(idx, perm, row_ptr)
+        ctx.n, ctx.dtype = states.shape[0], states.dtype
+        return states[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, perm, row_ptr = ctx.saved_tensors
+        out = segment_sum(ct[perm], idx[perm], ctx.n, row_ptr=row_ptr)
+        return out.to(ctx.dtype), None, None, None
+
+
+def gather_rows(
+    states: torch.Tensor,
+    idx: torch.Tensor,
+    perm: Optional[torch.Tensor] = None,
+    row_ptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Row gather `states[idx]`. With a host-precomputed stable sort `perm` of
+    `idx` and its CSR pointers (`src_perm_*`, `src_row_ptr_*` of
+    `build_batch`) the backward is a sorted segment sum instead of autograd's
+    scatter-add. The pointers cover real edges only: padding edges, which
+    sort last, get no cotangent back, so theirs must be zero."""
+    if perm is None or row_ptr is None:
+        return states[idx]
+    return _GatherRows.apply(states, idx, perm, row_ptr)
 
 
 def segment_count(

@@ -238,20 +238,40 @@ def test_to_device_conversions():
     np.testing.assert_array_equal(out["src_adj"].numpy(), [0, 2, 1])
 
 
+def _qsize_ir(desc):
+    dims = {f["name"]: 1 for e in desc["entities"] for f in e.get("features", [])}
+    return igt.parse_model_description(desc, dims)
+
+
 def test_unported_feature_raises_naming_it():
-    """Q-size with its link messages made by a neural network: message
-    neural networks are not ported, and the build says so."""
+    """Q-size with its links updated by a feed-forward network after their
+    sum: feed-forward updates are not ported, and the build says so."""
+    desc = qsize_description()
+    desc["neural_networks"].append(
+        {"nn_name": "ff_update", "nn_type": "feed_forward",
+         "nn_architecture": [dense(16, "relu")]}
+    )
+    links = desc["message_passing"]["stages"][1]["stage_mp"][0]
+    assert links["aggregation"]["type"] == "sum"
+    links["update"] = {"type": "neural_network", "nn_name": "ff_update"}
+    with pytest.raises(NotImplementedError, match="feed-forward"):
+        igt.build(_qsize_ir(desc))
+
+
+def test_message_network_with_a_non_dense_layer_raises_naming_it():
+    """Message networks are ported with Dense layers only: a Dropout in one
+    makes the build raise, naming the layer and the network."""
     desc = qsize_description()
     desc["neural_networks"].append(
         {"nn_name": "src_msg", "nn_type": "feed_forward",
-         "nn_architecture": [dense(16, "relu")]}
+         "nn_architecture": [dense(16, "relu"), {"type_layer": "Dropout", "rate": 0.1}]}
     )
     link = desc["message_passing"]["stages"][0]["stage_mp"][0]["source_entities"][0]
     link["message"] = [{"type": "neural_network", "nn_name": "src_msg", "input": ["hs_source"]}]
-    dims = {f["name"]: 1 for e in desc["entities"] for f in e.get("features", [])}
-    ir = igt.parse_model_description(desc, dims)
-    with pytest.raises(NotImplementedError, match="message neural networks"):
-        igt.build(ir)
+    with pytest.raises(NotImplementedError, match="layer type 'Dropout' in network 'src_msg'"):
+        igt.build(_qsize_ir(desc))
+    desc["neural_networks"][-1]["nn_architecture"].pop()
+    igt.build(_qsize_ir(desc))  # the same network of Dense layers alone builds
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -449,11 +449,22 @@ def test_serving_predict_samples_matches_apply_and_trim():
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 
+def with_message_network(d):
+    """Stage 1's links send a message network's output over [hs_source,
+    hs_dest] (`bench._mutate_mlp_message` on one stage)."""
+    d["neural_networks"].append(
+        {"nn_name": "msg", "nn_type": "feed_forward",
+         "nn_architecture": [{"type_layer": "Dense", "units": 12, "activation": "relu"},
+                             {"type_layer": "Dense", "units": 8, "activation": "None"}]})
+    d["message_passing"]["stages"][0]["stage_mp"][0]["source_entities"][0]["message"] = [
+        {"type": "neural_network", "nn_name": "msg", "input": ["hs_source", "hs_dest"]}]
+
+
 def test_params_from_jax_keeps_every_key_path():
-    """Keys that hold a `/` (`s1/m0` under `aggregation`) stay one level,
-    through `params_from_jax`, the module's own tree, a compute-dtype cast
-    and the trainer's state and gradients."""
-    desc = flagship_dict(mutate=to_attention)
+    """Keys that hold a `/` (`s1/m0` under `aggregation`, `s0/m0/src0/op0`
+    under `message`) stay one level, through `params_from_jax`, the module's
+    own tree, a compute-dtype cast and the trainer's state and gradients."""
+    desc = flagship_dict(mutate=lambda d: (to_attention(d), with_message_network(d)))
     j_ir, t_ir, _, t_arrays, meta = _batches(desc, 1)
     j_params = j_build(j_ir).init(jax.random.PRNGKey(0))
 
@@ -472,9 +483,11 @@ def test_params_from_jax_keeps_every_key_path():
 
     want = sorted(paths(j_params), key=str)
     assert ("aggregation", "s1/m0", "kernel1") in want
+    assert ("message", "s0/m0/src0/op0", "layers", 1, "bias") in want
     t_params = igt.params_from_jax(j_params)
     assert sorted(t_paths(t_params), key=str) == want
     assert list(t_params["aggregation"]) == ["s1/m0"]
+    assert list(t_params["message"]) == ["s0/m0/src0/op0"]
     model = igt.build(t_ir)
     model.load_params(t_params)
     assert sorted(t_paths(model.param_tree()), key=str) == want
