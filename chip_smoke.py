@@ -96,7 +96,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      then time the step. The kernel path is held to the plain path (f32 and
      bf16 predictions, step-0 loss and gradients in f32) at 2 iterations:
      at 8 this random-weight model amplifies f32 rounding past the limits,
-     which the phase measures against the plain path in f64 and prints.
+     which the phase measures against the plain path in f64 and prints;
+  8. the homogeneous-graph models, `examples/graphprop` (attention with a
+     feed-forward update, convolution with a GRU, mean pooling to a
+     graph-level label; hs=32, 3 iterations) and `examples/linkpred` (a sum,
+     then `extend_adjacencies` and an element-wise product to an edge-level
+     label; hs=16, 2 iterations), read from their yaml files, over 1,024
+     graphs a batch of `data/synthetic.py` (out-degree 3): graphprop on a
+     CSR batch (graph sizes 96-160: the convolution's sum, the per-edge
+     attention through kernel A, mean pooling through the id-keyed kernel)
+     and on a block batch (every graph of 128 nodes: attention through D and
+     E over the [1024, 128, 128] blocks, the convolution a batched product),
+     linkpred on a CSR batch (the sum gather + kernel A, both readout
+     gathers transposed by kernel A). Each serves 3 requests (one prediction
+     per graph, or per real edge in the samples' edge order), is held to the
+     plain path (f32 and bf16 predictions, step-0 loss and every gradient
+     leaf in f32), trains 5 bf16 steps (finite, the last loss below the
+     first), with the launch counts of every forward and step, and is timed
+     (forward, request, `build_batch`, step; edge-messages per second,
+     device busy, peak memory). Then the flagship at `bench.py`'s blocks_g4
+     (4 graphs padded per graph, stage 2 a block product) and flagship_x8
+     (131,072 paths: gather + kernel A, the windowed backward): one request
+     and 2 bf16 steps each, finite, the loss falling, the launch counts.
+     Phase 2 also times the id-keyed kernel at the pooling shapes.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -549,11 +571,11 @@ def forward_ms(server, batch, runs: int = 20, warmup: int = 3) -> list:
     return out
 
 
-def build_batch_ms(what: str, build, card: str, runs: int = 5) -> dict:
+def build_batch_ms(what: str, build, card: str, runs: int = 5, numpy_runs: int = 3) -> dict:
     """Host milliseconds of `build()` (a `build_batch` call) through the
     port's native helpers, median of `runs`, and for the record through its
-    numpy routines (the data layer's module flag off), median of 3. Both give
-    the same arrays."""
+    numpy routines (the data layer's module flag off), median of
+    `numpy_runs`. Both give the same arrays."""
     from ignnition_tpu_torch.data import graph as t_graph
 
     def timed(n):
@@ -567,7 +589,7 @@ def build_batch_ms(what: str, build, card: str, runs: int = 5) -> dict:
     native_ms, native = timed(runs)
     t_graph._USE_NATIVE_AUX = False
     try:
-        numpy_ms, plain = timed(3)
+        numpy_ms, plain = timed(numpy_runs)
     finally:
         t_graph._USE_NATIVE_AUX = True
     if sorted(native) != sorted(plain) or not all(
@@ -576,7 +598,7 @@ def build_batch_ms(what: str, build, card: str, runs: int = 5) -> dict:
         raise AssertionError(f"{what}: build_batch through the native helpers and through "
                              "numpy gave different arrays")
     print(f"[latency] {what}: build_batch median {native_ms:.1f} ms through the native "
-          f"helpers ({runs} runs), {numpy_ms:.1f} ms through numpy (3 runs), the same "
+          f"helpers ({runs} runs), {numpy_ms:.1f} ms through numpy ({numpy_runs} runs), the same "
           f"arrays; host clock on {card}")
     return dict(build_batch_ms=native_ms, build_batch_numpy_ms=numpy_ms)
 
@@ -586,13 +608,16 @@ def device_time_by_kernel(fn, runs: int = 5) -> tuple:
     from torch.profiler's CUDA activity over `runs` calls. The profiler has
     missed the first kernels of a profile now and then, and once a whole
     profile: a short sleep kernel opens each profile (not counted), and a
-    profile without any device activity is taken again, up to 3 times."""
+    profile without any device activity is taken again, up to 6 times a
+    second apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
@@ -690,24 +715,49 @@ def segment_case(rng, kind: str, e: int, n: int) -> tuple:
     return row_ptr, ids, e_real
 
 
+def case_of_row_ptr(row_ptr: np.ndarray, e: int) -> tuple:
+    """`segment_case`'s triple for a batch's own row pointers over e edge
+    rows (those past row_ptr[-1] are padding, keyed n)."""
+    n, e_real = row_ptr.shape[0] - 1, int(row_ptr[-1])
+    ids = np.concatenate([np.repeat(np.arange(n), np.diff(row_ptr)), np.full(e - e_real, n)])
+    return row_ptr.astype(np.int32), ids.astype(np.int32), e_real
+
+
+def case_of_ids(ids: np.ndarray, n: int) -> tuple:
+    """`segment_case`'s triple for ids that never decrease, those past the
+    last segment (n) trailing."""
+    if not np.all(np.diff(ids) >= 0) or ids.min() < 0 or ids.max() > n:
+        raise AssertionError("the ids are not sorted within [0, n]")
+    e_real = int(np.sum(ids < n))
+    real = ids[:e_real]
+    return np.searchsorted(real, np.arange(n + 1)).astype(np.int32), ids.astype(np.int32), e_real
+
+
 def check_segment_sums(dev, rng, what: str, e: int, n: int, d: int, kind: str = "uniform",
-                       gathered: bool = False, timed: bool = False) -> dict:
+                       gathered: bool = False, timed: bool = False, case=None,
+                       perm=None) -> dict:
     """Kernel A (row pointers) and the id-keyed kernel (the same edges by
     their sorted ids, int32 and int64) on [e, d] rows into n segments, in bf16
     and f32, against the plain versions, each twice and compared bitwise.
-    `gathered`: the rows come through a row gather by a permutation first, as
-    `_gss_bwd` feeds kernel A. `timed`: the three times of each kernel beside
+    `case`: the (row_ptr, ids, real edges) of a batch, else `segment_case`'s
+    `kind`. `gathered`: the rows come through a row gather by a permutation
+    first (`perm`, else a random one), as `_gss_bwd` and `gather_rows`'s
+    backward feed kernel A. `timed`: the three times of each kernel beside
     its library call (`torch.segment_reduce`, `index_add_`) and bound.
     Returns {"csr": {dtype: {...}}, "ids": {dtype: {...}}}."""
     from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
 
-    row_ptr, ids_np, e_real = segment_case(rng, kind, e, n)
+    row_ptr, ids_np, e_real = segment_case(rng, kind, e, n) if case is None else case
+    if ids_np.shape[0] != e or row_ptr.shape[0] != n + 1:
+        raise AssertionError(f"{what}: the case is not [{e}] ids into {n} rows")
+    kind = kind if case is None else "the batch's own"
     longest = int(np.diff(row_ptr).max())
     rp = torch.from_numpy(row_ptr).to(dev)
     ids = torch.from_numpy(ids_np).to(dev)
     ids64 = ids.to(torch.int64)
     offsets = rp.to(torch.int64)
-    perm = torch.from_numpy(rng.permutation(e)).to(dev)
+    perm = torch.from_numpy(rng.permutation(e) if perm is None
+                            else perm.astype(np.int64)).to(dev)
     # rows of more than 4,096 edges: small integers, whose f32 sums are exact
     # in any order, so the limits below hold whatever the length
     exact = longest > 4096
@@ -742,6 +792,8 @@ def check_segment_sums(dev, rng, what: str, e: int, n: int, d: int, kind: str = 
             raise AssertionError(f"{tag}: int32 and int64 ids give different sums")
         real, real_ids = data[:e_real], ids64[:e_real]
         if not timed:
+            for which in out:
+                out[which][dtype] = dict(max_abs_err=errs[which])
             t_csr = graph_ms([lambda: sk.sorted_segment_sum_csr(data, rp)] * 20)
             t_ids = graph_ms([lambda: sk.sorted_segment_sum_ids(data, ids, n)] * 20)
             t_lib = graph_ms([lambda: torch.segment_reduce(
@@ -817,18 +869,20 @@ def time_segment_kernels(package_root: str) -> None:
 
 
 def check_segment_sum_windows(dev, rng, n_paths: int, path_len: int, n_src: int,
-                              d: int = HS) -> dict:
+                              d: int = HS, comp=None) -> dict:
     """Kernel A over several windows at the shape `_gss_bwd` gives it: the
     cotangent rows of [path_len, n_paths] slots gathered into source order by
-    the data layer's windowed slice sort, summed into n_src rows in one
-    launch; against the plain windowed version and the loop of one launch per
-    window that it replaces."""
+    the data layer's windowed slice sort (`comp`, a batch's own
+    `slice_sort_row_ptr` and `slice_sort_perm`, else that of random slices),
+    summed into n_src rows in one launch; against the plain windowed version
+    and the loop of one launch per window that it replaces."""
     from ignnition_tpu_torch.data.graph import slice_sort_companions
     from ignnition_tpu_torch.ops import segment as seg
     from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
 
-    slice_src = rng.integers(0, n_src, size=(path_len, n_paths)).astype(np.int32)
-    comp = slice_sort_companions(slice_src, n_src)
+    if comp is None:
+        slice_src = rng.integers(0, n_src, size=(path_len, n_paths)).astype(np.int32)
+        comp = slice_sort_companions(slice_src, n_src)
     rp = torch.from_numpy(comp["slice_sort_row_ptr"]).to(dev)
     local = torch.from_numpy(comp["slice_sort_perm"]).to(dev)
     n_slots = path_len * n_paths
@@ -999,6 +1053,92 @@ def _time_gru_forward(rk, dev, rng, L, n, d, u, dtype, library: bool = True) -> 
     return dict(kernel=t, library=t_lib, inputs=(xs, full, h0, p))
 
 
+# kernels B and C against their plain versions: (atol, rtol, why) of B's
+# output; (atol of d_xs and d_h0, of the weight and bias gradients relative to
+# the leaf's largest entry, why) of C's gradients
+B_TOLS = {
+    torch.float32: (1e-5, 1e-5, "f32 dot products of 32 terms in another order"),
+    torch.bfloat16: (3e-2, 0.0, "a 1-ulp flip of the bf16-rounded carry at one "
+                                "step propagates through later steps"),
+}
+# d_xs and d_h0 are per-row values of order 1: absolute limits. The weight and
+# bias gradients sum L * n row-steps: limits relative to the leaf's largest entry.
+C_TOLS = {
+    torch.float32: (1e-4, 1e-5, "f32 sums in another order"),
+    torch.bfloat16: (3e-2, 2e-2, "f32 sums in another order flip the bf16 "
+                                 "rounding of a gate gradient or the carry"),
+}
+
+
+def _hold_b(rk, xs, lens, h0, p, tag: str) -> float:
+    """Kernel B twice (compared bitwise) against its plain version, with
+    `B_TOLS`; returns the largest error."""
+    dtype = xs.dtype
+    got = rk.masked_gru_scan(xs, lens, h0, p)
+    again = rk.masked_gru_scan(xs, lens, h0, p)
+    want = rk.masked_gru_scan_plain(xs, lens, h0, p)
+    torch.cuda.synchronize()
+    if got.dtype != dtype or not torch.equal(got, again):
+        raise AssertionError(f"kernel B returned {got.dtype} for {dtype} input, or two calls "
+                             f"differ")
+    atol, rtol, why = B_TOLS[dtype]
+    return compare(f"kernel B {tag} {str(dtype)[6:]}, bitwise repeatable", got, want,
+                   atol=atol, rtol=rtol, why=why)
+
+
+def _hold_c(rk, xs, lens, h0, p, ct, tag: str) -> float:
+    """Kernel C through `masked_gru_scan`'s autograd, twice (compared
+    bitwise), against the plain gradients (bf16: the reference with the TPU
+    kernel's rounding places; f32: autograd's, the same function), with
+    `C_TOLS`; returns the largest error of d_xs and d_h0."""
+    dtype, names = xs.dtype, ("kernel", "recurrent_kernel", "bias")
+    row_tol, sum_tol, why = C_TOLS[dtype]
+    reference = (rk.masked_gru_scan_bwd_kernel_plain if dtype == torch.bfloat16
+                 else rk.masked_gru_scan_bwd_plain)
+    leaves = [xs.clone().requires_grad_(True), h0.clone().requires_grad_(True)]
+    leaves += [p[k].clone().requires_grad_(True) for k in names]
+    before = rk.bwd_launch_count
+    runs = []
+    for _ in range(2):
+        h = rk.masked_gru_scan(leaves[0], lens, leaves[1], dict(zip(names, leaves[2:])))
+        runs.append(torch.autograd.grad(h, leaves, ct))
+    torch.cuda.synchronize()
+    if rk.bwd_launch_count != before + 2:
+        raise AssertionError("the backward did not launch kernel C once a call")
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"kernel C {tag} {str(dtype)[6:]}: two identical calls differ")
+    err = 0.0
+    for name, g, w in zip(GRAD_NAMES, runs[0], reference(xs, lens, h0, p, ct)):
+        if g.dtype != dtype:
+            raise AssertionError(f"kernel C returned {name} in {g.dtype}")
+        per_row = name in ("d_xs", "d_h0")
+        atol = row_tol if per_row else sum_tol * float(w.float().abs().max())
+        e = compare(f"kernel C {name} {tag} {str(dtype)[6:]}, bitwise repeatable", g, w,
+                    atol=atol, rtol=0.0,
+                    why=why + ("" if per_row else f"; {sum_tol:g} of the leaf's largest entry"))
+        if per_row:
+            err = max(err, e)
+    return err
+
+
+def check_gru_at(dev, rng, what: str, L: int, n: int, d: int, u: int) -> dict:
+    """Kernels B and C at [L, n, d] u (random lengths 0..L) against their
+    plain versions in bf16 and f32, with phase 2's limits. Returns
+    {kernel name: {dtype: largest error}}."""
+    from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
+
+    xs32, lens, _, h032, p32, ct32 = _gru_inputs(dev, rng, L, n, d, u)
+    out = {"masked_gru_scan": {}, "masked_gru_scan_bwd": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        xs, h0, ct = xs32.to(dtype), h032.to(dtype), ct32.to(dtype)
+        p = {k: v.to(dtype) for k, v in p32.items()}
+        tag = f"[{L},{n},{d}] u={u} ({what})"
+        out["masked_gru_scan"][dtype] = _hold_b(rk, xs, lens, h0, p, tag)
+        out["masked_gru_scan_bwd"][dtype] = _hold_c(rk, xs, lens, h0, p, ct,
+                                                    tag + ", random lengths")
+    return out
+
+
 def check_gru_scan(dev, rng) -> dict:
     """Kernel B's instance for each dtype against the plain version at the
     flagship shape (and in bf16 at N=1,000, D=20, u=48), then its times at
@@ -1006,16 +1146,10 @@ def check_gru_scan(dev, rng) -> dict:
     from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
 
     L, n, d, u = FLAGSHIP["path_len"], FLAGSHIP["n_paths"], HS, HS
-    tols = {
-        torch.float32: (1e-5, 1e-5, "f32 dot products of 32 terms in another order"),
-        torch.bfloat16: (3e-2, 0.0, "a 1-ulp flip of the bf16-rounded carry at one "
-                                    "step propagates through later steps"),
-    }
     shapes = {torch.bfloat16: [(L, n, d, u), (L, 1000, 20, 48)], torch.float32: [(L, n, d, u)]}
     print(f"  kernel B instances, ptxas: {_b_ptxas()}")
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        atol, rtol, why = tols[dtype]
         errs = []
         for Ls, ns, ds, us in shapes[dtype]:
             xs32, lens, _, h032, p32, _ = _gru_inputs(dev, rng, Ls, ns, ds, us)
@@ -1027,16 +1161,7 @@ def check_gru_scan(dev, rng) -> dict:
             if ran != instance:
                 raise AssertionError(f"kernel B ran {ran} for {dtype} u={us}, the rule says "
                                      f"{instance}")
-            got = rk.masked_gru_scan(xs, lens, h0, p)
-            again = rk.masked_gru_scan(xs, lens, h0, p)
-            want = rk.masked_gru_scan_plain(xs, lens, h0, p)
-            torch.cuda.synchronize()
-            if got.dtype != dtype or not torch.equal(got, again):
-                raise AssertionError(f"kernel B returned {got.dtype} for {dtype} input, or "
-                                     f"two calls differ")
-            errs.append(compare(
-                f"kernel B {instance} [{Ls},{ns},{ds}] u={us} {str(dtype)[6:]}, bitwise "
-                f"repeatable", got, want, atol=atol, rtol=rtol, why=why))
+            errs.append(_hold_b(rk, xs, lens, h0, p, f"{instance} [{Ls},{ns},{ds}] u={us}"))
         # timed at full lengths: every flagship path has path_len links
         timed = _time_gru_forward(rk, dev, rng, L, n, d, u, dtype)
         t, t_lib = timed["kernel"], timed["library"]
@@ -1246,55 +1371,16 @@ def check_gru_scan_bwd(dev, rng) -> dict:
 
     L, n, d, u = FLAGSHIP["path_len"], FLAGSHIP["n_paths"], HS, HS
     xs32, lens, full, h032, p32, ct32 = _gru_inputs(dev, rng, L, n, d, u)
-    # d_xs and d_h0 are per-row values of order 1: absolute limits. The weight
-    # and bias gradients sum L * n = 131,072 row-steps: limits relative to the
-    # leaf's largest entry.
-    tols = {
-        torch.float32: (1e-4, 1e-5, "f32 sums in another order"),
-        torch.bfloat16: (3e-2, 2e-2, "f32 sums in another order flip the bf16 "
-                                     "rounding of a gate gradient or the carry"),
-    }
     names = ("kernel", "recurrent_kernel", "bias")
     print(f"  kernel C kernels, ptxas: {_c_ptxas()}")
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         xs, h0, ct = xs32.to(dtype), h032.to(dtype), ct32.to(dtype)
         p = {k: v.to(dtype) for k, v in p32.items()}
-        row_tol, sum_tol, why = tols[dtype]
-        # bf16: the reference with the TPU kernel's rounding places (gate
-        # gradients rounded before each product); f32: autograd's, the same
-        # function
         reference = (rk.masked_gru_scan_bwd_kernel_plain if dtype == torch.bfloat16
                      else rk.masked_gru_scan_bwd_plain)
-        err = 0.0
-        for which, ln in (("random lengths", lens), ("full lengths", full)):
-            leaves = [xs.clone().requires_grad_(True), h0.clone().requires_grad_(True)]
-            leaves += [p[k].clone().requires_grad_(True) for k in names]
-            before = rk.bwd_launch_count
-            runs = []
-            for _ in range(2):
-                h = rk.masked_gru_scan(leaves[0], ln, leaves[1], dict(zip(names, leaves[2:])))
-                runs.append(torch.autograd.grad(h, leaves, ct))
-            torch.cuda.synchronize()
-            if rk.bwd_launch_count != before + 2:
-                raise AssertionError("the backward did not launch kernel C once a call")
-            got = runs[0]
-            if not all(torch.equal(a, b) for a, b in zip(*runs)):
-                raise AssertionError(f"kernel C {str(dtype)[6:]}, {which}: two identical "
-                                     f"calls differ")
-            want = reference(xs, ln, h0, p, ct)
-            for name, g, w in zip(GRAD_NAMES, got, want):
-                if g.dtype != dtype:
-                    raise AssertionError(f"kernel C returned {name} in {g.dtype}")
-                per_row = name in ("d_xs", "d_h0")
-                atol = row_tol if per_row else sum_tol * float(w.float().abs().max())
-                e = compare(
-                    f"kernel C {name} [{L},{n},{d}] u={u} {str(dtype)[6:]}, {which}, bitwise "
-                    f"repeatable", g, w, atol=atol, rtol=0.0,
-                    why=why + ("" if per_row else f"; {sum_tol:g} of the leaf's largest entry"),
-                )
-                if per_row:
-                    err = max(err, e)
+        err = max(_hold_c(rk, xs, ln, h0, p, ct, f"[{L},{n},{d}] u={u}, {which}")
+                  for which, ln in (("random lengths", lens), ("full lengths", full)))
         wx, wh, b = (p[k].contiguous() for k in names)
         args = (xs, full, h0, wx, wh, b, ct)
         instance = rk.backward_instance(dtype, u)
@@ -1405,13 +1491,16 @@ def _ran(what: str, call, args, design: list, pattern: str, calls: int = 5) -> d
     `calls` times and nothing else ran. The profiler has missed the first
     kernel of a profile now and then, so a short sleep kernel opens each
     profile; a profile still short of a record is taken again whole, up to
-    3 times, and one with a launch too many fails at once."""
+    6 times a second apart (three profiles in a row have come back without
+    any device activity), and one with a launch too many fails at once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call(*args)
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)  # the profile's first kernel, not counted
             torch.cuda.synchronize()
@@ -1471,9 +1560,10 @@ def _print_e_lists(ak, blocks: np.ndarray, d: int, x_dtype, m_dtype) -> None:
 
 
 def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m_dtype,
-                    timed: bool) -> dict:
+                    timed: bool, profiled: bool = True) -> dict:
     """Kernels D and E on `blocks` [G, bd, bs] at width d against their plain
-    versions, through the wrappers; E twice, compared bitwise."""
+    versions, through the wrappers; E twice, compared bitwise. `profiled`:
+    torch.profiler also holds each call to its design's device launches."""
     from ignnition_tpu_torch.ops import segment as seg
     from ignnition_tpu_torch.ops.cuda import attention_kernels as ak
 
@@ -1500,12 +1590,14 @@ def check_flash_gat(dev, rng, what: str, blocks: np.ndarray, d: int, x_dtypes, m
         for a, b, which in zip(got, again, ("dtab_plus", "d_sdst")):
             if not torch.equal(a, b):
                 raise AssertionError(f"kernel E {which} differs between two runs")
-        d_ms = _d_ran(ak, (ssrc, sdst, x, m, stab))["flash_gat_fwd_kernel"]
-        print(f"  kernel D {name}: one device launch a call, {d_ms:.4f} device ms "
-              f"(torch.profiler, 5 calls)")
-        e_kernels = _e_ran(ak, (ssrc, sdst, x, m, stab, den, ct, srow))
-        print(f"  kernel E {name}: device ms a call by kernel (torch.profiler, 5 calls): "
-              + ", ".join(f"{k} {ms:.4f}" for k, ms in e_kernels.items()))
+        e_kernels = None
+        if profiled:
+            d_ms = _d_ran(ak, (ssrc, sdst, x, m, stab))["flash_gat_fwd_kernel"]
+            print(f"  kernel D {name}: one device launch a call, {d_ms:.4f} device ms "
+                  f"(torch.profiler, 5 calls)")
+            e_kernels = _e_ran(ak, (ssrc, sdst, x, m, stab, den, ct, srow))
+            print(f"  kernel E {name}: device ms a call by kernel (torch.profiler, 5 calls): "
+                  + ", ".join(f"{k} {ms:.4f}" for k, ms in e_kernels.items()))
         _print_e_lists(ak, blocks, d, dtype, m_dtype)
         w_out, w_den = ak.flash_gat_forward_plain(ssrc, sdst, x, m, stab)
         want = ak.flash_gat_backward_plain(ssrc, sdst, x, m, stab, den, ct, srow)
@@ -1744,9 +1836,11 @@ def step0_gradients_vs_plain(name, ir, padding, arrays, meta, state, batch, nois
     return init_tree, cpu_state, want
 
 
-def time_training_step(name, step, state, batch, arrays, card) -> dict:
+def time_training_step(name, step, state, batch, arrays, card, edge_messages=None) -> dict:
     """Median of 20 steps after 3 (CUDA events), edge-messages per second,
-    peak device memory and the profile of one step by kernel."""
+    peak device memory and the profile of one step by kernel.
+    `edge_messages`: a step's messages, by default `ITERATIONS` times the
+    real edges of every adjacency (each read by one pass)."""
     times = []
     for i in range(3 + 20):
         start = torch.cuda.Event(enable_timing=True)
@@ -1759,14 +1853,15 @@ def time_training_step(name, step, state, batch, arrays, card) -> dict:
             times.append(start.elapsed_time(end))
     step_ms = float(np.median(times))
     edges = sum(int(np.sum(v > 0)) for k, v in arrays.items() if k.startswith("edge_mask_"))
-    rate = ITERATIONS * edges / (step_ms / 1e3)
+    messages = ITERATIONS * edges if edge_messages is None else edge_messages
+    rate = messages / (step_ms / 1e3)
     torch.cuda.reset_peak_memory_stats()
     step(state, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"[train] {name}: step median {step_ms:.3f} ms (min {min(times):.3f}, max "
           f"{max(times):.3f}, 20 steps after 3, CUDA events), {rate / 1e6:.1f} M "
-          f"edge-messages/s ({ITERATIONS} iterations x {edges} edges), peak device "
+          f"edge-messages/s ({messages} a step), peak device "
           f"memory {peak:.0f} MiB, bf16 compute, on {card}")
     out = dict(step_ms=step_ms, edge_messages_per_s=rate, peak_mib=peak)
     out.update(print_profile(f"{name} training step", lambda: step(state, batch), step_ms))
@@ -2386,6 +2481,20 @@ def _grads(ir, params, arrays, meta, padding, device, compute_dtype):
     return {k: v.double().cpu() for k, v in flatten_params(grads).items()}
 
 
+def gradient_spread(dev, ir, params, arrays, meta, padding) -> dict:
+    """How far the kernel path's f32 step-0 gradients lie from the plain
+    path's (the CPU) and from the plain path's f64, and the plain path's own
+    f32 from its f64: of each leaf's largest entry, the worst leaf."""
+    g = {name: _grads(ir, params, arrays, meta, padding, d, cd)
+         for name, d, cd in (("card", dev, None), ("cpu", "cpu", None),
+                             ("cpu f64", "cpu", torch.float64))}
+    ggap = lambda a, b: max(float((g[a][k] - v).abs().max() / v.abs().max())
+                            for k, v in g[b].items())
+    return dict(gradients_kernel_vs_plain=ggap("card", "cpu"),
+                gradients_kernel_vs_plain_f64=ggap("card", "cpu f64"),
+                gradients_plain_f32_vs_f64=ggap("cpu", "cpu f64"))
+
+
 def mlp_message_vs_plain(dev, ir, params, serve_sample, train_arrays, train_meta,
                          padding) -> dict:
     """The kernel path against the plain path (the CPU) on the main path's
@@ -2405,16 +2514,10 @@ def mlp_message_vs_plain(dev, ir, params, serve_sample, train_arrays, train_meta
     p = {name: _predictions(m, arrays, meta, d, cd) for name, m, d, cd in (
         ("card", card, dev, None), ("cpu", cpu, "cpu", None),
         ("cpu f64", cpu, "cpu", torch.float64))}
-    g = {name: _grads(ir, params, train_arrays, train_meta, padding, d, cd)
-         for name, d, cd in (("card", dev, None), ("cpu", "cpu", None),
-                             ("cpu f64", "cpu", torch.float64))}
     gap = lambda a, b: float((p[a] - p[b]).abs().max())
-    ggap = lambda a, b: max(float((g[a][k] - v).abs().max() / v.abs().max())
-                            for k, v in g[b].items())
     spread = dict(predictions_kernel_vs_plain=gap("card", "cpu"),
                   predictions_plain_f32_vs_f64=gap("cpu", "cpu f64"),
-                  gradients_kernel_vs_plain=ggap("card", "cpu"),
-                  gradients_plain_f32_vs_f64=ggap("cpu", "cpu f64"))
+                  **gradient_spread(dev, ir, params, train_arrays, train_meta, padding))
     print(f"[mlp_message] at {ir.num_iterations} iterations, f32, measured and not held: "
           f"predictions kernels vs plain {spread['predictions_kernel_vs_plain']:.3e}, plain "
           f"f32 vs plain f64 {spread['predictions_plain_f32_vs_f64']:.3e}; step-0 gradients "
@@ -2568,6 +2671,507 @@ def mlp_message(dev, card: str) -> dict:
     return dict(launches=total, **result)
 
 
+# --------------------------------------------------------------------------
+# phase 8: the homogeneous-graph models, and the blocks_g4 and x8 sizes
+# --------------------------------------------------------------------------
+
+# graphs a batch, and each graph's node count: drawn from GRAPH_NODES on the
+# CSR batches (unequal sizes, so no block-diagonal incidence), exactly
+# BLOCK_GRAPH_NODES on the block batch; out-degree 3 (data/synthetic.py)
+HOMOGENEOUS_GRAPHS = 1024
+GRAPH_NODES = (96, 160)
+BLOCK_GRAPH_NODES = 128
+OUT_DEGREE = 3
+HOMOGENEOUS_REQUESTS = 3
+HOMOGENEOUS_TRAIN_STEPS = 5
+HOMOGENEOUS_DIMS = {"graphprop": {"x": 1, "cap": 1}, "linkpred": {"x": 1}}
+NODE_ADJ = "adj_nodes_nodes"
+# bench.py's blocks_g4 (4 graphs of 512 links and 4,096 paths, padded per
+# graph: stage 2 a block product) and flagship_x8 (16,384 links, 131,072
+# paths: gather + kernel A, the windowed backward): (size, graphs, per-graph
+# padding)
+ITEM1_SIZES = {
+    "blocks_g4": (dict(n_links=512, n_paths=4096, path_len=8), 4, True),
+    "flagship_x8": (dict(n_links=16384, n_paths=131072, path_len=8), 1, False),
+}
+ITEM1_TRAIN_STEPS = 2
+# the depth at which the item-1 sizes hold the model's step-0 gradients to
+# the plain path (as phase 7 does for the same reason)
+ITEM1_CHECK_ITERATIONS = 2
+
+
+def example_ir(name: str):
+    """`examples/<name>/model_description.yaml` as it is, parsed by the port."""
+    from ignnition_tpu_torch.frontend import parse_model_file
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return parse_model_file(os.path.join(here, "examples", name, "model_description.yaml"),
+                            HOMOGENEOUS_DIMS[name])
+
+
+def homogeneous_samples(rng, ir, kind: str, sizes) -> list:
+    """One graph of `data/synthetic.py`'s `make_<kind>_sample` per node count,
+    converted for the model."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.data import synthetic
+
+    make = getattr(synthetic, f"make_{kind}_sample")
+    spec = igt.SampleSpec.from_ir(ir)
+    return [igt.convert_sample(make(rng, n_nodes=int(n), out_degree=OUT_DEGREE), spec)
+            for n in sizes]
+
+
+def check_graph_ids(what: str, arrays) -> None:
+    """The id-keyed kernel pools by graph ids that never decrease over the
+    real rows: checked once a batch, on the host."""
+    ids = arrays["graph_id_node"][arrays["node_mask_node"] > 0]
+    if not np.all(np.diff(ids) >= 0):
+        raise AssertionError(f"{what}: the real node rows are not sorted by graph")
+
+
+def homogeneous_launches(kind: str, ir, arrays, training: bool) -> dict:
+    """Kernel launches of one forward or one training step, from the lowering
+    that `GnnModel` takes for this batch.
+
+    graphprop, per iteration: over an incidence matrix (blocks or dense)
+    the attention is kernel D, and E in the step (its scores read `kernel1`
+    from the first iteration on); the convolution is a library product. On
+    the CSR batch the attention's numerator and denominator and the
+    convolution's sum are kernel A, and the step adds the transposes of the
+    attention's destination-score gather and of the per-edge message
+    gathers (A each): the convolution's at every iteration, the attention's
+    but for the first, whose messages are the features; the sums' own
+    backwards are gathers. The mean pooling is the id-keyed kernel once a
+    forward (its backward a gather).
+    linkpred: the sum is kernel A once an iteration past the cap (a gather
+    of source rows, then A); in the step its backward is A again where the
+    batch has no out-degree slice map (`direct_segment_sum`), but for the
+    first iteration, whose states come from the features; the readout's two
+    gathers per edge are transposed by kernel A each."""
+    a, it = NODE_ADJ, ir.num_iterations
+    incidence = f"inc_blocks_{a}" in arrays or f"dense_inc_{a}" in arrays
+    if kind == "graphprop":
+        if incidence:
+            out = dict(flash_gat_fwd=it, flash_gat_bwd=it if training else 0)
+        else:
+            out = dict(csr_segment_sum=3 * it + (3 * it - 1 if training else 0))
+        out["segment_sum_ids"] = 1
+        return out
+    if incidence:
+        raise AssertionError("linkpred: the phase's batches lie past the dense cap")
+    want_a = it
+    if training:
+        direct = f"bwd_slice_dst_{a}" not in arrays and f"dst_in_src_order_{a}" in arrays
+        want_a += (it - 1 if direct else 0) + 2
+    return dict(csr_segment_sum=want_a)
+
+
+def forward_with_states(model, batch, meta, compute_dtype):
+    """One forward's predictions and the node states that reach the readout
+    (per node, before any pooling)."""
+    seen = {}
+    readout = model._readout
+
+    def spy(params, b, m, states):
+        seen.update(states)
+        return readout(params, b, m, states)
+
+    model._readout = spy
+    try:
+        with torch.inference_mode():
+            preds = model(batch, meta, compute_dtype=compute_dtype)
+    finally:
+        del model._readout
+    return preds, seen["node"]
+
+
+def homogeneous_vs_plain_forward(name, server, ir, params, samples, dev) -> dict:
+    """One request on the card against the same model on the CPU (every
+    kernel's plain version), on the real rows of the predictions (each
+    graph's, or each real edge's in the samples' edge order) and of the node
+    states that reach the readout. f32: within 1e-4. bf16: the kernel path
+    may lie no further from the plain path in bf16 than bf16 rounding alone
+    puts the plain path from itself in f32 (the control, on the same rows,
+    this run's reading). Returns the readings."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+
+    bf16 = torch.bfloat16
+    arrays = server.build_batch(samples)
+    inputs = {k: v for k, v in arrays.items() if k not in ("label", "label_mask", "label_perm")}
+    cpu_model = igt.build(ir)
+    cpu_model.load_params(params)
+    b_dev, b_cpu = to_device(inputs, dev), to_device(inputs, "cpu")
+    nodes = torch.from_numpy(arrays["node_mask_node"] > 0)
+    runs, cpu_s = {}, 0.0
+    for where, model, batch in (("card", server.model, b_dev), ("cpu", cpu_model, b_cpu)):
+        for cd in (None, bf16):
+            t1 = time.perf_counter()
+            preds, states = forward_with_states(model, batch, server.meta, cd)
+            cpu_s += (time.perf_counter() - t1) if where == "cpu" else 0.0
+            runs[where, cd] = (torch.from_numpy(server.trim(preds.cpu().numpy(), arrays)),
+                               states.float().cpu()[nodes])
+    out = {}
+    for i, what in enumerate(("predictions", "final node states")):
+        compare(f"{name} {what}, kernels vs plain (CPU, {cpu_s:.1f} s for four forwards) f32",
+                runs["card", None][i], runs["cpu", None][i], atol=1e-4, rtol=1e-4,
+                why="f32: sums and products in another order on each device")
+        gap = float((runs["card", bf16][i] - runs["cpu", bf16][i]).abs().max())
+        control = float((runs["cpu", bf16][i] - runs["cpu", None][i]).abs().max())
+        top = float(runs["cpu", None][i].abs().max())
+        print(f"  {name} {what} bf16 ({runs['card', bf16][i].shape[0]} rows, largest "
+              f"{top:.3e}): kernels vs plain max_abs={gap:.3e}; the control, plain bf16 vs "
+              f"plain f32, {control:.3e} (ratio {gap / max(control, 1e-30):.3f}; limit 1)")
+        out[what] = dict(bf16_gap=gap, bf16_control=control)
+        if not gap <= control:
+            raise AssertionError(f"{name} {what}: the bf16 kernel path lies further from the "
+                                 f"plain path than bf16 rounding puts it from f32")
+    return out
+
+
+def serve_and_time(name, server, samples, inputs, card, counts, add, per_request) -> dict:
+    """Answer each request (a list of samples) through `predict_samples`,
+    holding its shape and launch counts, then time the forward, the whole
+    request and `build_batch`, and profile the forward."""
+    for i, request in enumerate(samples):
+        counts.reset()
+        preds = server.predict_samples(request)
+        got = counts.read()
+        add(got)
+        want_rows, want_counts = per_request(request)
+        if preds.shape != (want_rows,) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"{name} request {i}: predictions {preds.shape} (want "
+                                 f"({want_rows},)) or non-finite")
+        expect_counts(f"{name} request {i} ({want_rows} predictions, mean {preds.mean():.5f})",
+                      got, **want_counts)
+    fwd = forward_ms(server, inputs)
+    e2e = []
+    for i in range(4):
+        t1 = time.perf_counter()
+        server.predict_samples(samples[0])
+        if i >= 1:
+            e2e.append((time.perf_counter() - t1) * 1e3)
+    out = dict(forward_ms=float(np.median(fwd)), request_ms=float(np.median(e2e)))
+    print(f"[latency] {name}: device forward median {np.median(fwd):.3f} ms (min "
+          f"{min(fwd):.3f}, max {max(fwd):.3f}, 20 runs, CUDA events); whole request "
+          f"(build_batch + copy + forward + trim) median {np.median(e2e):.1f} ms (3 runs, "
+          f"host clock) on {card}")
+    out.update(build_batch_ms(name, lambda: server.build_batch(samples[0]), card, runs=3,
+                              numpy_runs=1))
+    out.update(print_profile(f"{name} forward", lambda: server.forward_device(inputs),
+                             out["forward_ms"]))
+    return out
+
+
+def step0_bf16_gradients_vs_plain(name, ir, padding, arrays, meta, state, batch, init_tree,
+                                  cpu_f32) -> dict:
+    """Hold every bf16 step-0 gradient leaf of the kernel path to the plain
+    path's in bf16 (the same model and batch on the CPU): the kernel path
+    may lie no further from it than bf16 rounding alone puts the plain path
+    from its f32 gradients (`cpu_f32`; the control, this run's reading, leaf
+    by leaf). Returns the readings by leaf."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params
+
+    bf16 = torch.bfloat16
+    card = igt.Trainer(igt.build(ir), padding, compute_dtype=bf16)
+    g_card, m_card = card.grads_fn(meta)(state.params, batch)
+    cpu = igt.Trainer(igt.build(ir), padding, compute_dtype=bf16, device="cpu")
+    t1 = time.perf_counter()
+    g_cpu, m_cpu = cpu.grads_fn(meta)(cpu.init_state(params=init_tree).params,
+                                      to_device(arrays, "cpu"))
+    print(f"  {name} step-0 loss bf16: kernels {float(m_card['total']):.7f}, plain (CPU, "
+          f"{time.perf_counter() - t1:.1f} s) {float(m_cpu['total']):.7f}")
+    want = flatten_params(g_cpu)
+    out, worst = {}, 0.0
+    for k, g in flatten_params(g_card).items():
+        gap = float((g.cpu() - want[k]).abs().max())
+        control = float((want[k] - cpu_f32[k]).abs().max())
+        ratio = gap / max(control, 1e-30)
+        worst = max(worst, ratio)
+        out[k] = dict(bf16_gap=gap, bf16_control=control)
+        print(f"  {name} step-0 gradient {k} bf16 (largest {float(want[k].abs().max()):.3e}): "
+              f"kernels vs plain max_abs={gap:.3e}; the control, plain bf16 vs plain f32, "
+              f"{control:.3e} (ratio {ratio:.3f}; limit 1)")
+        if not gap <= control:
+            raise AssertionError(f"{name} step-0 gradient {k}: the bf16 kernel path lies "
+                                 f"further from the plain path than bf16 rounding puts it "
+                                 f"from f32")
+    print(f"  {name} step-0 bf16 gradients: the largest ratio to the control {worst:.3f}")
+    return out
+
+
+def train_and_time(name, ir, padding, arrays, meta, card, counts, add, steps, want_counts,
+                   noise=0.0, hold=True, hold_bf16=False, edge_messages=None) -> dict:
+    """`steps` bf16 steps through `Trainer` on the card, each with its launch
+    counts; finite losses, the last below the first; with `hold` the step-0
+    loss and gradients against the plain path in f32 first, with `hold_bf16`
+    the step-0 gradients in bf16 too; then the step time, edge-messages per
+    second, device busy and peak memory."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"{name}: the trainer chose {trainer.device}, not the card")
+    batch = to_device(arrays, trainer.device)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    held = {}
+    if hold:
+        init_tree, _, cpu_f32 = step0_gradients_vs_plain(name, ir, padding, arrays, meta, state,
+                                                         batch, noise=noise)
+        if hold_bf16:
+            held = dict(step0_bf16_gradients=step0_bf16_gradients_vs_plain(
+                name, ir, padding, arrays, meta, state, batch, init_tree, cpu_f32))
+    step = trainer.train_step_fn(meta)
+    totals = []
+    for i in range(steps):
+        counts.reset()
+        state, m = step(state, batch)
+        got = counts.read()
+        add(got)
+        expect_counts(f"{name} training step {i}", got, **want_counts)
+        totals.append(float(m["total"]))
+    print(f"  {name} training: loss+reg " + " ".join(f"{t:.5f}" for t in totals))
+    if not all(np.isfinite(totals)):
+        raise AssertionError(f"{name} training: a loss is not finite")
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"{name} training: the loss did not fall: {totals}")
+    if state.step != steps:
+        raise AssertionError(f"{name} training: the state counts {state.step} steps")
+    return dict(losses=totals, **held, **time_training_step(
+        name, step, state, batch, arrays, card, edge_messages=edge_messages))
+
+
+def check_kernels_on_batch(dev, rng, name, kind, ir, params, arrays, meta) -> dict:
+    """Kernels A, the id-keyed kernel, D and E held to their plain versions
+    (phase 2's checks) on this training batch's own index arrays, at the
+    shapes the model gives them. Over the block incidence: D and E at the
+    state width. Over the row pointers: A at the state width (the sums), for
+    graphprop also at 8 (the attention's denominators and the transpose of
+    its destination-score gather), and after the batch's source sort (the
+    transposes of the source gathers). graphprop's mean pooling: the
+    id-keyed kernel over the ids `graph_pool` derives (`_pool_ids`, the
+    trailing padding keyed past the last graph), at the embedding's width
+    and the mask column."""
+    from ignnition_tpu_torch.ops import segment as seg
+
+    a, n, hs = NODE_ADJ, meta.nodes("node"), ir.state_dims()["node"]
+    both = (torch.bfloat16, torch.float32)
+    out = {}
+    if f"inc_blocks_{a}" in arrays:
+        # phase 2 holds the launches a call by the profiler
+        out["blocks"] = check_flash_gat(dev, rng, name, np.asarray(arrays[f"inc_blocks_{a}"]),
+                                        hs, both, torch.int8, True, profiled=False)
+    else:
+        e = arrays[f"dst_{a}"].shape[0]
+        case = case_of_row_ptr(arrays[f"row_ptr_{a}"], e)
+        out["csr"] = check_segment_sums(dev, rng, f"{name} sums", e, n, hs, case=case,
+                                        timed=True)
+        check_segment_sums(dev, rng, f"{name} source gathers' transpose", e, n, hs,
+                           gathered=True, case=case_of_row_ptr(arrays[f"src_row_ptr_{a}"], e),
+                           perm=arrays[f"src_perm_{a}"])
+        if kind == "graphprop":
+            check_segment_sums(dev, rng, f"{name} attention denominators", e, n, 8, case=case)
+    if kind == "graphprop":
+        ids = seg._pool_ids(torch.from_numpy(arrays["graph_id_node"]).to(dev), meta.num_graphs,
+                            torch.from_numpy(arrays["node_mask_node"]).to(dev))
+        width = params["readout"]["op0"]["layers"][-1]["kernel"].shape[1] + 1
+        out["pooling"] = check_segment_sums(
+            dev, rng, f"{name} mean pooling", n, meta.num_graphs, width, timed=True,
+            case=case_of_ids(ids.cpu().numpy(), meta.num_graphs))
+    return out
+
+
+def homogeneous(dev, card: str) -> dict:
+    """graphprop on a CSR batch and on a block batch, linkpred on a CSR batch,
+    each served (3 requests) and trained (5 bf16 steps) at 1,024 graphs a
+    batch."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.data.graph import merge_metas
+
+    counts = Counts()
+    total = {k: 0 for k in counts.read()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    rng, check_rng = np.random.default_rng(SEED + 4), np.random.default_rng(SEED + 6)
+    padding = igt.PaddingConfig()
+    result, checked = {}, {}
+    cases = (("graphprop CSR", "graphprop", False), ("graphprop blocks", "graphprop", True),
+             ("linkpred", "linkpred", False))
+    for name, kind, equal in cases:
+        ir = example_ir(kind)
+        params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+        t0 = time.perf_counter()
+        requests = [homogeneous_samples(
+            rng, ir, kind, [BLOCK_GRAPH_NODES] * HOMOGENEOUS_GRAPHS if equal else
+            rng.integers(GRAPH_NODES[0], GRAPH_NODES[1] + 1, size=HOMOGENEOUS_GRAPHS))
+            for _ in range(HOMOGENEOUS_REQUESTS)]
+        batches = [igt.build_batch(r, ir, padding, training=False) for r in requests]
+        meta = merge_metas([m for _, m in batches])
+        server = igt.ServingModel(igt.build(ir), params, meta, ir,
+                                  compute_dtype=torch.bfloat16, device=dev)
+        arrays = server.build_batch(requests[0])
+        for a_ in (arrays, *(b for b, _ in batches)):
+            check_graph_ids(name, a_)
+        nodes = int(np.sum(arrays["node_mask_node"] > 0))
+        edges = int(np.sum(arrays[f"edge_mask_{NODE_ADJ}"] > 0))
+        lowering = ("block-diagonal incidence " + str(arrays[f"inc_blocks_{NODE_ADJ}"].shape)
+                    if f"inc_blocks_{NODE_ADJ}" in arrays else
+                    "dense incidence" if f"dense_inc_{NODE_ADJ}" in arrays else
+                    f"CSR (row pointers; past the dense cap at {meta.nodes('node')}^2)")
+        print(f"[homogeneous] {name}: {HOMOGENEOUS_GRAPHS} graphs, {nodes} nodes, {edges} "
+              f"directed edges in request 0 (padded to {meta.nodes('node')} nodes, "
+              f"{meta.edges(NODE_ADJ)} edges); {lowering}; {ir.num_iterations} iterations, "
+              f"hs={ir.state_dims()['node']}; samples made and batched in "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        if equal != (f"inc_blocks_{NODE_ADJ}" in arrays) or f"dense_inc_{NODE_ADJ}" in arrays:
+            raise AssertionError(f"{name}: the batch took the wrong lowering ({lowering})")
+        fwd_counts = homogeneous_launches(kind, ir, arrays, training=False)
+
+        def per_request(request, _kind=kind, _fwd=fwd_counts):
+            if _kind == "graphprop":
+                return len(request), _fwd
+            return sum(len(s.adjacencies[NODE_ADJ].src_idx) for s in request), _fwd
+
+        inputs = {k: v for k, v in arrays.items()
+                  if k not in ("label", "label_mask", "label_perm")}
+        result[name] = dict(serving=serve_and_time(
+            name, server, requests, to_device(inputs, dev), card, counts, add, per_request))
+        result[name]["bf16_forward"] = homogeneous_vs_plain_forward(
+            name, server, ir, params, requests[0], dev)
+
+        t0 = time.perf_counter()
+        t_arrays, t_meta = igt.build_batch(requests[0], ir, padding, training=True)
+        print(f"[homogeneous] {name}: build_batch(training=True) "
+              f"{time.perf_counter() - t0:.2f} s (host, native helpers)")
+        check_graph_ids(name, t_arrays)
+        checked[name] = check_kernels_on_batch(dev, check_rng, name, kind, ir, params,
+                                               t_arrays, t_meta)
+        passes = sum(len(mp.sources) for stage in ir.stages for mp in stage.passes)
+        result[name]["training"] = train_and_time(
+            name, ir, padding, t_arrays, t_meta, card, counts, add, HOMOGENEOUS_TRAIN_STEPS,
+            homogeneous_launches(kind, ir, t_arrays, training=True),
+            noise=1e-7 if kind == "graphprop" else 0.0, hold_bf16=True,
+            edge_messages=ir.num_iterations * passes * edges)
+    print("[homogeneous] main path launch counts: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, kernels_at_batch_shapes=checked, **result)
+
+
+def check_kernels_at_x8(dev, rng, arrays, meta) -> dict:
+    """B, C and A held to their plain versions at flagship_x8's shapes: B
+    and C at [8, paths, 32]; A at stage 2's sum on the batch's own row
+    pointers, at its transpose's (the source sort) where the batch has no
+    out-degree slice map, and over the batch's own slice-sort windows.
+    Returns {kernel name: {dtype: {"max_abs_err": ...}}}."""
+    a1, a2 = "adj_links_paths", "adj_paths_links"
+    n_links, n_paths, e = meta.nodes("link"), meta.nodes("path"), arrays[f"dst_{a2}"].shape[0]
+    path_len = arrays[f"slice_src_{a1}"].shape[0]
+    held = check_gru_at(dev, rng, "flagship_x8", path_len, n_paths, HS, HS)
+    out = {k: {dt: dict(max_abs_err=v) for dt, v in errs.items()} for k, errs in held.items()}
+    out["csr_segment_sum"] = check_segment_sums(
+        dev, rng, "flagship_x8 stage 2", e, n_links, HS,
+        case=case_of_row_ptr(arrays[f"row_ptr_{a2}"], e))["csr"]
+    if f"bwd_slice_dst_{a2}" not in arrays:
+        check_segment_sums(dev, rng, "flagship_x8 stage 2's transpose", e, n_paths, HS,
+                           case=case_of_row_ptr(arrays[f"src_row_ptr_{a2}"], e))
+    comp = {k: arrays[f"{k}_{a1}"] for k in ("slice_sort_row_ptr", "slice_sort_perm")}
+    out["csr_segment_sum_windows"] = check_segment_sum_windows(
+        dev, rng, n_paths, path_len, n_links, comp=comp)
+    return out
+
+
+def item1_sizes(dev, card: str) -> dict:
+    """The flagship model at bench.py's blocks_g4 and flagship_x8 shapes:
+    one request and 2 bf16 steps each, with finite values, a falling loss
+    and the launch counts. First, at x8, B, C and A held to their plain
+    versions at its shapes (blocks_g4's are phase 2's: [8,16384,32] and
+    [131072,32] -> [2048,32]); at both, the step-0 loss and every gradient
+    leaf held to the plain path in f32 at `ITEM1_CHECK_ITERATIONS` (full
+    width, depth cut). At 8 iterations the random-weight flagship amplifies
+    f32 rounding: on an NVIDIA H100 80GB HBM3 at 700 W, blocks_g4's step-0
+    gradient of `path_update/kernel` (largest entry ~1e3) came 2.3e-4 of
+    that entry from the plain path's, so at that depth its gradients are
+    measured (beside the plain path's own distance from f64) and not held."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+
+    counts = Counts()
+    total = {k: 0 for k in counts.read()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 5)
+    result = {}
+    for name, (size, graphs, per_graph) in ITEM1_SIZES.items():
+        padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256,
+                                    per_graph=per_graph)
+        samples = [make_sample(rng, **size) for _ in range(graphs)]
+        arrays, meta = igt.build_batch(samples, ir, padding, training=True)
+        a1, a2 = "adj_links_paths", "adj_paths_links"
+        incidence = f"inc_blocks_{a2}" in arrays or f"dense_inc_{a2}" in arrays
+        sliced = f"bwd_slice_dst_{a2}" in arrays
+        windows = (arrays[f"slice_sort_row_ptr_{a1}"].shape[0] - 1) // meta.nodes("link")
+        print(f"[item 1] {name}: {graphs} graph(s) of {size}, stage 2 "
+              + ("a block-diagonal product " + str(arrays[f"inc_blocks_{a2}"].shape)
+                 if f"inc_blocks_{a2}" in arrays else "a dense product" if incidence
+                 else "gather + kernel A") + f", {windows} slice-sort window(s)")
+        if name == "blocks_g4" and f"inc_blocks_{a2}" not in arrays:
+            raise AssertionError("blocks_g4: stage 2 is not a block product")
+        if name == "flagship_x8" and (incidence or windows < 2):
+            raise AssertionError("flagship_x8: expected the CSR sum and the windowed sort")
+        cut = igt.parse_model_description(
+            flagship_description(num_iterations=ITEM1_CHECK_ITERATIONS), FEATURE_DIMS)
+        cut_arrays, cut_meta = igt.build_batch(samples, cut, padding, training=True)
+        cut_trainer = igt.Trainer(igt.build(cut), padding, compute_dtype=None)
+        step0_gradients_vs_plain(
+            f"{name} ({ITEM1_CHECK_ITERATIONS} iterations)", cut, padding, cut_arrays, cut_meta,
+            cut_trainer.init_state(torch.Generator().manual_seed(SEED)),
+            to_device(cut_arrays, cut_trainer.device))
+        if name == "flagship_x8":
+            result[name] = dict(kernels_at_its_shapes=check_kernels_at_x8(dev, rng, arrays, meta))
+        else:
+            spread = gradient_spread(dev, ir, params, arrays, meta, padding)
+            print(f"[item 1] {name} step-0 gradients, f32, measured and not held (of each "
+                  f"leaf's largest entry, the worst leaf): kernels vs plain "
+                  f"{spread['gradients_kernel_vs_plain']:.3e}, kernels vs plain f64 "
+                  f"{spread['gradients_kernel_vs_plain_f64']:.3e}, plain f32 vs plain f64 "
+                  f"{spread['gradients_plain_f32_vs_f64']:.3e}")
+            result[name] = dict(f32_spread=spread)
+        fwd_a = 0 if incidence else ITERATIONS
+        server = igt.ServingModel(igt.build(ir), params, meta, ir,
+                                  compute_dtype=torch.bfloat16, device=dev)
+        inputs = {k: v for k, v in server.build_batch(samples).items()
+                  if k not in ("label", "label_mask")}
+        n_paths = graphs * size["n_paths"]
+        result[name]["serving"] = serve_and_time(
+            name, server, [samples], to_device(inputs, dev), card, counts, add,
+            lambda request: (n_paths, dict(csr_segment_sum=fwd_a,
+                                           masked_gru_scan=ITERATIONS)))
+        # kernel A as in phase 4: the slice gather's backward but for the
+        # first iteration (windows in one launch), and past the cap stage 2's
+        # forward and, without the out-degree slice map, its backward
+        want_a = (ITERATIONS - 1) + (0 if incidence else ITERATIONS * (1 if sliced else 2))
+        result[name]["training"] = train_and_time(
+            name, ir, padding, arrays, meta, card, counts, add, ITEM1_TRAIN_STEPS,
+            dict(csr_segment_sum=want_a,
+                 csr_segment_sum_windows=ITERATIONS - 1 if windows > 1 else 0,
+                 masked_gru_scan=ITERATIONS, masked_gru_scan_bwd=ITERATIONS), hold=False)
+    print("[item 1] main path launch counts: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, **result)
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -2644,6 +3248,10 @@ def main() -> None:
     seg_w8 = check_segment_sums(dev, rng, "attention x4 denominator", 524_288, x4_links, 8,
                                 timed=True)
     seg_w48 = check_segment_sums(dev, rng, "a width off 128", e_slices, links, 48, timed=True)
+    # graph pooling: 1,024 graphs of 128 rows (phase 8 holds the kernels at
+    # its batches' own shapes)
+    seg_pool = check_segment_sums(dev, rng, "graph pooling", 131_072, HOMOGENEOUS_GRAPHS, HS,
+                                  kind="even", timed=True)
     for d in (8, 20, 128, 256):
         check_segment_sums(dev, rng, f"width {d}", e_slices, links, d)
     check_segment_sums(dev, rng, "a quarter of the edges in one row", e_slices, links, HS,
@@ -2681,6 +3289,14 @@ def main() -> None:
     # ---- phase 7: the mlp_message family ----
     mlped = mlp_message(dev, card)
     seconds["mlp_message"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 8: graphprop and linkpred; the blocks_g4 and x8 sizes ----
+    homog = homogeneous(dev, card)
+    seconds["homogeneous"] = time.perf_counter() - t_start - sum(seconds.values())
+    at_batch = homog.pop("kernels_at_batch_shapes")
+    item1 = item1_sizes(dev, card)
+    at_x8 = item1["flagship_x8"].pop("kernels_at_its_shapes")
+    seconds["blocks_g4 and x8"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -2710,14 +3326,18 @@ def main() -> None:
         on_attention = attended["launches"][name]
         on_qsize = qsized["launches"][name]
         on_mlp = mlped["launches"][name]
-        if on_serving + on_training + on_attention + on_qsize + on_mlp == 0:
+        on_homogeneous = homog["launches"][name]
+        on_item1 = item1["launches"][name]
+        launches = (on_serving + on_training + on_attention + on_qsize + on_mlp
+                    + on_homogeneous + on_item1)
+        if launches == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=on_serving + on_training + on_attention + on_qsize + on_mlp,
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
             launches_serving=on_serving, launches_training=on_training,
             launches_attention=on_attention, launches_qsize=on_qsize,
-            launches_mlp_message=on_mlp,
+            launches_mlp_message=on_mlp, launches_homogeneous=on_homogeneous,
+            launches_blocks_g4_and_x8=on_item1,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -2729,16 +3349,26 @@ def main() -> None:
         at_mlp_message_slot_map=both(mlped["slot_map_backward"]))
     by_name["segment_sum_ids"].update(
         at_width_32=both(seg_bwd["ids"]), at_x4_shape=both(seg["ids"]),
-        at_width_8=both(seg_w8["ids"]))
+        at_width_8=both(seg_w8["ids"]), at_pooling_shape=both(seg_pool["ids"]),
+        at_graphprop_csr_mean_pooling=both(at_batch["graphprop CSR"]["pooling"]["ids"]),
+        at_graphprop_blocks_mean_pooling=both(at_batch["graphprop blocks"]["pooling"]["ids"]))
+    by_name["csr_segment_sum"].update(
+        at_graphprop_csr=both(at_batch["graphprop CSR"]["csr"]["csr"]),
+        at_linkpred=both(at_batch["linkpred"]["csr"]["csr"]))
     for k, which in ((by_name["flash_gat_fwd"], "fwd"), (by_name["flash_gat_bwd"], "bwd")):
         k["over_4_graph_blocks"] = gat["blocks"][which][bf16]
         k["at_small_graph"] = gat["small"][which][bf16]
+        k["at_graphprop_blocks"] = both(at_batch["graphprop blocks"]["blocks"][which])
+    for name, checked in at_x8.items():
+        by_name[name]["at_x8_shape"] = both(checked)
     print(json.dumps({"kernels": kernels, "latency": served["latency"],
                       "training": trained["steps"],
                       "attention": {k: v for k, v in attended.items() if k != "launches"},
                       "qsize": {k: v for k, v in qsized.items() if k != "launches"},
                       "mlp_message": {k: v for k, v in mlped.items()
                                       if k not in ("launches", "slot_map_backward")},
+                      "homogeneous": {k: v for k, v in homog.items() if k != "launches"},
+                      "blocks_g4_and_x8": {k: v for k, v in item1.items() if k != "launches"},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

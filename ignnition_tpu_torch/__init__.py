@@ -5,9 +5,12 @@ torch and never JAX, and nothing of the JAX package: its host code (the
 model-description front end, dataset reading and batch building, the
 normalization registry, the evaluation metrics) is its own.
 
-Ported so far: the flagship RouteNet path, its attention family and the
-Q-size model (multi-source message passing; ordered, interleave, concat,
-sum and attention aggregations of direct messages). Serving: `build` a
+Ported so far: every model under `examples/` (the flagship RouteNet path,
+its attention family, the Q-size model, and the homogeneous-graph models:
+multi-source message passing; direct messages and message networks;
+ordered, interleave, concat, sum, attention and convolution aggregations;
+recurrent and feed-forward updates; the neural_network, pooling, product,
+extend_adjacencies and predict readouts). Serving: `build` a
 `GnnModel` from a parsed description, move a `build_batch` result to the
 device with `batch.to_device`, and serve it with `ServingModel`. Training:
 `Trainer` (`init_state`, `train_step_fn`, `eval_step_fn`) with the losses,

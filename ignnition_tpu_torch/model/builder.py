@@ -2,10 +2,11 @@
 (counterpart of `ignnition_tpu/model/builder.py`), serving and training.
 
 Ported: the flagship RouteNet path, its attention family, the Q-size
-model and message neural networks (the mlp_message family). Each message
-passing has messages from one or more sources and a recurrent update; the
+model, message neural networks (the mlp_message family) and the
+homogeneous-graph models (`examples/graphprop`, `examples/linkpred`). Each
+message passing has messages from one or more sources and an update; the
 sequence aggregations run the masked scan (`RNN.masked_update_stacked`:
-kernels B and C for a GRU), the vector ones one cell step.
+kernels B and C for a GRU).
 
 Messages (`_sources`, one `_Source` record per source): a direct
 assignation is the source state table; a chain that reads `hs_source`
@@ -44,9 +45,26 @@ Aggregations, by branch, in the JAX package's order:
   * `attention` (per-destination GAT softmax, one source): block-diagonal
     or dense attention over the int8 incidence matrix (message tables;
     kernels D and E), else the per-edge form over the sorted edge
-    messages (`_attention`, kernel A).
-The readout is `predict` through a Dense feed-forward network. Any other
-DSL feature raises NotImplementedError naming it, when the model is built.
+    messages (`_attention`, kernel A);
+  * `convolution` (GCN-style, `_convolution`): the messages times the
+    pass's kernel summed by the block-diagonal or dense incidence product
+    (message tables), else by the sorted sum (kernel A with row pointers),
+    plus the destination's own state, over max(in-degree, 1), then the
+    aggregation's activation.
+After a vector aggregation (sum, attention, convolution) the update is one
+recurrent cell step or a feed-forward network over [aggregated, state]
+(`{dst}_ff_update`, shared per destination).
+
+The readout (`_readout`) runs the JAX package's pipeline: `neural_network`
+and `predict` (Dense networks), `pooling` of entity rows per graph
+(`seg.graph_pool`: the id-keyed kernel for sum and mean), `product`
+(element-wise, or the row-wise dot product) and `extend_adjacencies` (the
+final states gathered per edge, both backwards kernel A); graph-level
+tensors broadcast onto entity rows, and a readout input may be a batch
+feature. What is not ported (layers other than Dense, multi-source
+attention, the `reference` softmax, per-edge attention without row
+pointers) raises NotImplementedError naming it, when the model is built or,
+for the last, run.
 
 `apply(params, batch, meta)` is a function of a parameter tree, which the
 trainer differentiates (its leaves require grad; the batch's training
@@ -55,12 +73,13 @@ companions route each backward through the hand-written transposes of
 parameters, which never require grad: serving records no graph.
 
 Parameters keep the JAX package's tree and keys letter for letter
-(`update` -> `{dst}_update` -> `kernel`, `aggregation` -> `s{si}/m{mi}` ->
-`kernel1`, `message` -> `s{si}/m{mi}/src{ki}/op{oi}` -> `layers` -> j ->
-`kernel`, `readout` -> `op{i}` -> `layers` -> j -> `kernel`; a key may hold
-a `/`), so `params_from_jax` moves a JAX tree across unchanged, and every
-rebuild of a tree keeps its structure (`map_params`, `with_leaves`). The
-module registers the leaves flat under `flatten_params`' names.
+(`update` -> `{dst}_update` -> `kernel` or `{dst}_ff_update` -> `layers`,
+`aggregation` -> `s{si}/m{mi}` -> `kernel1` or `kernel`, `message` ->
+`s{si}/m{mi}/src{ki}/op{oi}` -> `layers` -> j -> `kernel`, `readout` ->
+`op{i}` -> `layers` -> j -> `kernel`; a key may hold a `/`), so
+`params_from_jax` moves a JAX tree across unchanged, and every rebuild of
+a tree keeps its structure (`map_params`, `with_leaves`). The module
+registers the leaves flat under `flatten_params`' names.
 """
 
 from __future__ import annotations
@@ -73,12 +92,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..data.graph import BatchMeta
+from ..data.graph import BatchMeta, infer_readout_domains
 from ..data.graph import interleave_tag as IVT
 from ..frontend import ir as IR
 from ..nn import mlp as MLP
 from ..nn import rnn as RNN
-from ..nn.layers import glorot_uniform, unsupported_layer
+from ..nn.layers import activation, glorot_uniform, unsupported_layer
 from ..ops import segment as seg
 
 
@@ -87,7 +106,7 @@ class BuildError(ValueError):
 
 
 _SEQUENCE_AGGS = ("ordered", "concat", "interleave")
-_PORTED_AGGS = _SEQUENCE_AGGS + ("sum", "attention")
+_PORTED_AGGS = _SEQUENCE_AGGS + ("sum", "attention", "convolution")
 
 
 def _unported(feature: str) -> NotImplementedError:
@@ -126,12 +145,15 @@ class _MessageDims:
     final_message_dim: Mapping[Tuple[int, int, int], int]  # (stage, mp, source)
     aggregated_dim: Mapping[Tuple[int, int], int]  # (stage, mp) -> update input width
     op_in_dims: Mapping[Tuple[int, int, int, int], int]  # (stage, mp, source, op)
+    named_output_dims: Mapping[str, int]  # message-op output_name -> width
 
 
 def _resolve_dims(model_ir) -> _MessageDims:
     """Each message network's input width, each source's message width and
-    each update's input width: a concat on the feature axis adds its
-    sources' message widths, every other aggregation takes the first's."""
+    each update's input width: a convolution keeps the destination's width
+    (its messages must have it), a concat on the feature axis adds its
+    sources' message widths, every other aggregation takes the first's. A
+    feed-forward update needs a vector aggregation."""
     state_dims = model_ir.state_dims()
     final: Dict[Tuple[int, int, int], int] = {}
     named: Dict[str, int] = {}
@@ -139,6 +161,7 @@ def _resolve_dims(model_ir) -> _MessageDims:
     op_in: Dict[Tuple[int, int, int, int], int] = {}
     for si, stage in enumerate(model_ir.stages):
         for mi, mp in enumerate(stage.passes):
+            dst_dim = state_dims[mp.destination]
             widths = []
             for ki, src in enumerate(mp.sources):
                 out_dim = state_dims[src.entity]  # direct assignation
@@ -150,7 +173,7 @@ def _resolve_dims(model_ir) -> _MessageDims:
                         if name == "hs_source":
                             in_dim += state_dims[src.entity]
                         elif name == "hs_dest":
-                            in_dim += state_dims[mp.destination]
+                            in_dim += dst_dim
                         elif name == "edge_params":
                             in_dim += src.edge_param_dim
                         elif name in named:
@@ -164,9 +187,91 @@ def _resolve_dims(model_ir) -> _MessageDims:
                 final[(si, mi, ki)] = out_dim
                 widths.append(out_dim)
             agg = mp.aggregation
-            concat2 = agg.kind == "concat" and agg.concat_axis == 2
-            aggregated[(si, mi)] = sum(widths) if concat2 else widths[0]
-    return _MessageDims(final, aggregated, op_in)
+            if agg.kind == "convolution":
+                if widths[0] != dst_dim:
+                    raise BuildError(
+                        f"convolution aggregation requires message dim "
+                        f"({widths[0]}) == destination state dim ({dst_dim})"
+                    )
+                aggregated[(si, mi)] = dst_dim
+            elif agg.kind == "concat" and agg.concat_axis == 2:
+                aggregated[(si, mi)] = sum(widths)
+            else:
+                aggregated[(si, mi)] = widths[0]
+            if mp.update.kind == "mlp" and agg.kind in _SEQUENCE_AGGS:
+                raise BuildError(
+                    f"a feed-forward update requires a single-vector aggregation "
+                    f"(sum/attention/convolution), got '{agg.kind}' for "
+                    f"destination '{mp.destination}'"
+                )
+    return _MessageDims(final, aggregated, op_in, named)
+
+
+def _readout_in_dims(model_ir, dims: _MessageDims, extra_dims=None) -> Dict[int, int]:
+    """The input width of each readout network (predict and neural_network
+    ops, by op index), from the widths the pipeline gives its tensors (the
+    JAX `init`'s `ro_dims`): entity states, message outputs, batch features
+    (an entity feature's size, or `extra_dims`), then each op's outputs: a
+    network's its last width, a pooling its input's, a dot product 1, an
+    element-wise product its first input's, `extend_adjacencies` each
+    input's."""
+    ro_dims: Dict[str, int] = {f.name: f.size for f in model_ir.all_features()}
+    ro_dims.update(model_ir.state_dims())
+    ro_dims.update(dims.named_output_dims)
+    ro_dims.update(extra_dims or {})
+
+    def width(name):
+        if name not in ro_dims:
+            raise BuildError(
+                f"readout input '{name}' has unknown width (pass its width in extra_dims)"
+            )
+        return ro_dims[name]
+
+    in_dims: Dict[int, int] = {}
+    for i, op in enumerate(model_ir.readout):
+        if op.kind in ("predict", "neural_network"):
+            in_dims[i] = sum(width(name) for name in op.inputs)
+            if op.kind == "neural_network":
+                ro_dims[op.output_name] = MLP.output_dim(op.mlp, in_dims[i])
+        elif op.kind == "pooling":
+            ro_dims[op.output_name] = width(op.inputs[0])
+        elif op.kind == "product":
+            ro_dims[op.output_name] = (
+                1 if op.product == "dot_product" else width(op.inputs[0])
+            )
+        elif op.kind == "extend_adjacencies":
+            ro_dims[op.output_names[0]] = width(op.inputs[0])
+            ro_dims[op.output_names[1]] = width(op.inputs[1])
+    return in_dims
+
+
+def _lens(sources, batch, n_dst):
+    """Real messages per destination and source: the data layer's `lens_*`,
+    or counted from the edge masks."""
+    return [
+        batch[f"lens_{s.adj}"] if f"lens_{s.adj}" in batch
+        else seg.segment_count(s.dst_idx, n_dst, s.mask)
+        for s in sources
+    ]
+
+
+def _gather_src(batch, a, table):
+    """Each edge's source row of `table`; with the batch's source sort
+    (`src_perm_*`, `src_row_ptr_*`) the backward is kernel A, where
+    autograd's scatter-add into a table of many rows takes hundreds of
+    milliseconds on the card (PERF.md §5)."""
+    return seg.gather_rows(
+        table, batch[f"src_{a}"], batch.get(f"src_perm_{a}"), batch.get(f"src_row_ptr_{a}")
+    )
+
+
+def _gather_dst(batch, a, table):
+    """Each edge's destination row of `table`; with the batch's row pointers
+    the backward is kernel A, else autograd's scatter-add."""
+    dst_idx, row_ptr = batch[f"dst_{a}"], batch.get(f"row_ptr_{a}")
+    if row_ptr is None:
+        return table[dst_idx]
+    return seg.gather_by_dst(table, dst_idx, row_ptr)
 
 
 class _Source:
@@ -184,7 +289,7 @@ class _Source:
         self.dst_idx, self.seq = batch[f"dst_{a}"], batch[f"seq_{a}"]
         self.mask = batch[f"edge_mask_{a}"]
         self.table, self.post = table, post
-        self._make = make if make is not None else (lambda: table[batch[f"src_{a}"]])
+        self._make = make if make is not None else (lambda: _gather_src(batch, a, table))
         self._messages = None
 
     @property
@@ -267,17 +372,18 @@ class GnnModel(nn.Module):
         self.state_dims = model_ir.state_dims()
         self._check_supported()
         self.dims = _resolve_dims(model_ir)
+        self.domains = infer_readout_domains(model_ir)
         self._structure: Dict[str, Any] = {}
         self.params = nn.ParameterDict()
 
     def _check_supported(self) -> None:
         ir = self.ir
+        networks = [op.mlp for op in ir.readout if op.mlp is not None]
         for stage in ir.stages:
             for mp in stage.passes:
-                for op in (op for src in mp.sources for op in src.ops if op.kind == "mlp"):
-                    for layer in op.mlp.layers:
-                        if layer.kind != "Dense":
-                            raise unsupported_layer(layer.kind, op.mlp.name)
+                networks += [op.mlp for src in mp.sources for op in src.ops if op.kind == "mlp"]
+                if mp.update.kind == "mlp":
+                    networks.append(mp.update.mlp)
                 if mp.aggregation.kind not in _PORTED_AGGS:
                     raise _unported(f"the '{mp.aggregation.kind}' aggregation")
                 if len(mp.sources) != 1 and mp.aggregation.kind == "attention":
@@ -293,25 +399,23 @@ class GnnModel(nn.Module):
                         f"the '{mp.aggregation.attention_softmax}' attention softmax "
                         f"mode (attention_softmax; only per_destination is ported)"
                     )
-                if mp.update.kind != "recurrent":
-                    raise _unported("feed-forward (neural network) updates")
-        entity_names = set(ir.entity_names)
-        for op in ir.readout:
-            if op.kind != "predict":
-                raise _unported(f"the '{op.kind}' readout")
-            for name in op.inputs:
-                if name not in entity_names:
-                    raise _unported(
-                        f"readout input '{name}' (only entity states are ported)"
-                    )
+        for mlp in networks:
+            for layer in mlp.layers:
+                if layer.kind != "Dense":
+                    raise unsupported_layer(layer.kind, mlp.name)
 
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
 
-    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init(
+        self, generator: torch.Generator, extra_dims: Optional[Mapping[str, int]] = None
+    ) -> Dict[str, Any]:
         """Draw parameters from `generator` in the JAX package's tree, load
-        them into the module (on the CPU) and return the tree."""
+        them into the module (on the CPU) and return the tree.
+
+        extra_dims: widths of readout inputs that come straight from the
+        dataset and are not entity features (whose sizes the IR knows)."""
         ir = self.ir
         params: Dict[str, Any] = {"message": {}, "aggregation": {}, "update": {}, "readout": {}}
         upd_in_dims: Dict[str, int] = {}
@@ -333,11 +437,20 @@ class GnnModel(nn.Module):
                         "kernel2": glorot_uniform(generator, (dst_dim, msg_dim)),
                         "attn_kernel": glorot_uniform(generator, (2 * msg_dim, 1)),
                     }
-                key = f"{mp.destination}_update"
+                elif mp.aggregation.kind == "convolution":
+                    params["aggregation"][f"s{si}/m{mi}"] = {
+                        "kernel": glorot_uniform(generator, (dst_dim, dst_dim)),
+                    }
+                key = self._update_key(mp)
                 if key not in params["update"]:
-                    params["update"][key] = RNN.init(
-                        generator, mp.update.rnn, in_dim=agg_dim, units=dst_dim
-                    )
+                    if mp.update.kind == "recurrent":
+                        params["update"][key] = RNN.init(
+                            generator, mp.update.rnn, in_dim=agg_dim, units=dst_dim
+                        )
+                    else:
+                        params["update"][key], _ = MLP.init(
+                            generator, mp.update.mlp, agg_dim + dst_dim, last_units=dst_dim
+                        )
                     upd_in_dims[key] = agg_dim
                 if upd_in_dims[key] != agg_dim:
                     raise BuildError(
@@ -346,11 +459,17 @@ class GnnModel(nn.Module):
                         f"({upd_in_dims[key]} vs {agg_dim}); the destination's "
                         f"update model is shared"
                     )
-        for i, op in enumerate(ir.readout):
-            in_dim = sum(self.state_dims[name] for name in op.inputs)
-            params["readout"][f"op{i}"], _ = MLP.init(generator, op.mlp, in_dim)
+        for i, in_dim in _readout_in_dims(ir, self.dims, extra_dims).items():
+            params["readout"][f"op{i}"], _ = MLP.init(generator, ir.readout[i].mlp, in_dim)
         self.load_params(params)
         return params
+
+    @staticmethod
+    def _update_key(mp) -> str:
+        """The destination's update parameters: shared by every pass that
+        updates it, recurrent or feed-forward."""
+        suffix = "update" if mp.update.kind == "recurrent" else "ff_update"
+        return f"{mp.destination}_{suffix}"
 
     def load_params(self, params, device=None) -> None:
         """Register a parameter tree (JAX layout) on the module."""
@@ -376,20 +495,28 @@ class GnnModel(nn.Module):
     # ------------------------------------------------------------------
 
     def regularization_loss(self, params) -> torch.Tensor:
-        """Sum of all layers' l2 kernel penalties over a parameter tree: the
-        message networks', then the readout's, in the JAX package's order
-        (feed-forward updates are not ported)."""
-        parts = [
-            MLP.l2_loss(op.mlp, params["message"][f"s{si}/m{mi}/src{ki}/op{oi}"])
-            for si, stage in enumerate(self.ir.stages)
-            for mi, mp in enumerate(stage.passes)
-            for ki, src in enumerate(mp.sources)
-            for oi, op in enumerate(src.ops)
-            if op.kind == "mlp"
-        ]
+        """Sum of all layers' l2 kernel penalties over a parameter tree, in
+        the JAX package's order: each pass's message networks, then its
+        feed-forward update (once per destination: the passes share it),
+        then the readout's networks."""
+        parts = []
+        counted = set()
+        for si, stage in enumerate(self.ir.stages):
+            for mi, mp in enumerate(stage.passes):
+                parts += [
+                    MLP.l2_loss(op.mlp, params["message"][f"s{si}/m{mi}/src{ki}/op{oi}"])
+                    for ki, src in enumerate(mp.sources)
+                    for oi, op in enumerate(src.ops)
+                    if op.kind == "mlp"
+                ]
+                key = self._update_key(mp)
+                if mp.update.kind == "mlp" and key not in counted:
+                    counted.add(key)
+                    parts.append(MLP.l2_loss(mp.update.mlp, params["update"][key]))
         parts += [
             MLP.l2_loss(op.mlp, params["readout"][f"op{i}"])
             for i, op in enumerate(self.ir.readout)
+            if op.kind in ("predict", "neural_network")
         ]
         return sum(parts[1:], parts[0])
 
@@ -446,7 +573,7 @@ class GnnModel(nn.Module):
         for _ in range(ir.num_iterations):
             states = self._message_passing_iteration(params, batch, meta, states, cache)
 
-        preds = self._readout(params, states)
+        preds = self._readout(params, batch, meta, states)
         if compute_dtype is not None:
             preds = preds.to(torch.float32)
         return preds
@@ -462,7 +589,7 @@ class GnnModel(nn.Module):
                 sources = self._sources(
                     params["message"], si, mi, mp, batch, new_states, dst_states, edge_vars
                 )
-                up = params["update"][f"{dst}_update"]
+                up = params["update"][self._update_key(mp)]
                 kind = mp.aggregation.kind
                 if kind in _SEQUENCE_AGGS:
                     new_state = self._sequence_update(
@@ -481,14 +608,23 @@ class GnnModel(nn.Module):
                             for s in sources
                         ]
                         part = sum(parts[1:], parts[0])
-                    else:
+                    elif kind == "attention":
                         (s,) = sources
                         part = self._attention_aggregate(
                             params["aggregation"][f"s{si}/m{mi}"], s, dst_states, batch, n_dst
                         )
+                    else:
+                        part = self._convolution(
+                            params["aggregation"][f"s{si}/m{mi}"], mp.aggregation, sources,
+                            dst_states, batch, n_dst, cache,
+                        )
                     # the sorted sums return f32 (the kernel's accumulator)
                     aggregated = part.to(dst_states.dtype)
-                    new_state = RNN.cell_step(mp.update.rnn, up, aggregated, dst_states)
+                    if mp.update.kind == "recurrent":
+                        new_state = RNN.cell_step(mp.update.rnn, up, aggregated, dst_states)
+                    else:
+                        x = torch.cat([aggregated, dst_states], dim=1)
+                        new_state = MLP.apply(mp.update.mlp, up, x)
                 node_mask = batch[f"node_mask_{dst}"]
                 new_states[dst] = new_state * node_mask[:, None].to(new_state.dtype)
         return new_states
@@ -529,8 +665,6 @@ class GnnModel(nn.Module):
         last network ending in a linear Dense layer stops before it: that
         layer is `post`, applied after the sum (factor last)."""
         a = src.adj_name
-        src_idx, dst_idx = batch[f"src_{a}"], batch[f"dst_{a}"]
-        row_ptr = batch.get(f"row_ptr_{a}")
         ops = src.ops
         last = len(ops) - 1
         factor_last = (
@@ -544,15 +678,10 @@ class GnnModel(nn.Module):
         edge_params = batch.get(f"params_{a}")
 
         def by_src(table):
-            # backward: the sorted segment sum over the source sort (kernel A)
-            return seg.gather_rows(
-                table, src_idx, batch.get(f"src_perm_{a}"), batch.get(f"src_row_ptr_{a}")
-            )
+            return _gather_src(batch, a, table)
 
         def by_dst(table):
-            if row_ptr is None:
-                return table[dst_idx]
-            return seg.gather_by_dst(table, dst_idx, row_ptr)
+            return _gather_dst(batch, a, table)
 
         def make():
             gathered = {}
@@ -677,15 +806,6 @@ class GnnModel(nn.Module):
         s0 = sources[0]
         a0 = s0.adj
 
-        def lens():
-            """Real messages per destination and source: the data layer's
-            `lens_*`, or counted from the edge masks."""
-            return [
-                batch[f"lens_{s.adj}"] if f"lens_{s.adj}" in batch
-                else seg.segment_count(s.dst_idx, n_dst, s.mask)
-                for s in sources
-            ]
-
         def zero_padding_rows(s):
             # empty slots read a padding row: it must hold exact zeros
             return s.table * batch[f"node_mask_{s.entity}"][:, None].to(s.table.dtype)
@@ -703,7 +823,9 @@ class GnnModel(nn.Module):
         if agg.kind == "interleave" and f"ilv_slice_{tag}" in batch and one_width:
             combined = torch.cat([zero_padding_rows(s) for s in sources], 0)
             xs = _slices(batch, combined, "ilv_slice", "ilv_sort", tag)
-            return RNN.masked_update_stacked(spec, up, xs, sum(lens()), dst_states)
+            return RNN.masked_update_stacked(
+                spec, up, xs, sum(_lens(sources, batch, n_dst)), dst_states
+            )
         axis = agg.concat_axis if agg.kind == "concat" else 1
         if (
             agg.kind in ("concat", "ordered")
@@ -720,19 +842,19 @@ class GnnModel(nn.Module):
             ]
             if axis == 2:
                 return RNN.masked_update_stacked(
-                    spec, up, torch.cat(blocks, 2), lens()[0], dst_states
+                    spec, up, torch.cat(blocks, 2), _lens(sources, batch, n_dst)[0], dst_states
                 )
             return RNN.masked_update_stacked(
-                spec, up, torch.cat(blocks, 0), sum(lens()), dst_states
+                spec, up, torch.cat(blocks, 0), sum(_lens(sources, batch, n_dst)), dst_states
             )
         blocks = [
             seg.scatter_to_sequences(s.messages, s.dst_idx, s.seq, n_dst, meta.maxlen(s.adj))
             for s in sources
         ]
         if axis == 2:
-            aggregated, final_len = torch.cat(blocks, 2), lens()[0]
+            aggregated, final_len = torch.cat(blocks, 2), _lens(sources, batch, n_dst)[0]
         else:
-            aggregated, final_len = torch.cat(blocks, 1), sum(lens())
+            aggregated, final_len = torch.cat(blocks, 1), sum(_lens(sources, batch, n_dst))
             if agg.kind == "interleave":
                 rows = batch[f"interleave_perm_{tag}"][batch[f"graph_id_{mp.destination}"]]
                 index = rows[:, :, None].expand(-1, -1, aggregated.shape[2])
@@ -858,14 +980,109 @@ class GnnModel(nn.Module):
             messages, scores, s.dst_idx, n_dst, s.mask, row_ptr
         )
 
-    def _readout(self, params, states):
-        """The predict op over the final entity states."""
+    def _convolution(self, cp, agg, sources, dst_states, batch, n_dst, cache):
+        """GCN-style aggregation (the JAX package's, lowerings in its order):
+        the sum of each destination's messages times the pass's kernel, by
+        the block-diagonal > dense incidence product of the message table @
+        kernel (one source); else the sorted sum of the per-edge messages
+        @ kernel (one source: kernel A with row pointers; several sources:
+        their edges concatenated, an unsorted sum). Then the destination's
+        own state is added, the total divided by max(in-degree, 1), and the
+        aggregation's activation applied. The products return the compute
+        dtype and kernel A f32; the sum with the states promotes, as in the
+        JAX package, and the caller casts the result back."""
+        kernel = cp["kernel"]
+        s = sources[0]
+        if len(sources) == 1 and s.table is not None and f"inc_blocks_{s.adj}" in batch:
+            table = s.table @ kernel
+            blocks = self._upcast(batch, f"inc_blocks_{s.adj}", table.dtype, cache)
+            nsum = seg.direct_segment_sum_blocks(table, blocks, n_dst)
+        elif len(sources) == 1 and s.table is not None and f"dense_inc_{s.adj}" in batch:
+            table = s.table @ kernel
+            inc = self._upcast(batch, f"dense_inc_{s.adj}", table.dtype, cache)
+            nsum = seg.direct_segment_sum_dense(table, inc)
+        elif len(sources) == 1:
+            nsum = seg.segment_sum(
+                s.messages @ kernel, s.dst_idx, n_dst,
+                row_ptr=batch.get(f"row_ptr_{s.adj}"), indices_are_sorted=True,
+            )
+        else:
+            messages = torch.cat([t.messages for t in sources], 0)
+            dst_idx = torch.cat([t.dst_idx for t in sources], 0)
+            nsum = seg.segment_sum(messages @ kernel, dst_idx, n_dst)
+        deg = sum(_lens(sources, batch, n_dst))
+        total = nsum + dst_states
+        normalized = total / torch.clamp_min(deg.to(torch.float32), 1.0)[:, None]
+        return activation(agg.activation)(normalized)
+
+    def _readout(self, params, batch, meta, states):
+        """The readout pipeline (the JAX `_readout`). Intermediates live in
+        `ro`, each tagged with its domain (`infer_readout_domains`), so that
+        a graph-level tensor broadcasts onto entity rows where it meets one.
+        Returns the predict op's output."""
+        ro: Dict[str, torch.Tensor] = {}
+
+        def domain_of(name):
+            return self.domains.get(name, ("entity", name))
+
+        def fetch(name):
+            if name in ro:
+                return ro[name]
+            if name in states:
+                return states[name]
+            if name in batch:
+                v = batch[name].to(torch.float32)
+                return v if v.dim() > 1 else v[:, None]
+            raise BuildError(f"readout input '{name}' is not available")
+
+        def broadcast_to(x, from_dom, to_dom):
+            if from_dom == to_dom or from_dom[0] != "graph" or to_dom[0] != "entity":
+                return x
+            return x[batch[f"graph_id_{to_dom[1]}"]]
+
         result = None
         for i, op in enumerate(self.ir.readout):
-            xs = [states[name] for name in op.inputs]
-            x = torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
-            out = MLP.apply(op.mlp, params["readout"][f"op{i}"], x)
-            result = out[:, 0] if out.shape[-1] == 1 else out
+            if op.kind in ("predict", "neural_network"):
+                doms = [domain_of(name) for name in op.inputs]
+                target = next((d for d in doms if d[0] != "graph"), doms[0])
+                xs = [broadcast_to(fetch(n), d, target) for n, d in zip(op.inputs, doms)]
+                # concatenating bf16 states with f32 features promotes to f32
+                x = torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
+                out = MLP.apply(op.mlp, params["readout"][f"op{i}"], x)
+                if op.kind == "predict":
+                    result = out[:, 0] if out.shape[-1] == 1 else out
+                else:
+                    ro[op.output_name] = out
+            elif op.kind == "pooling":
+                name = op.inputs[0]
+                dom = domain_of(name)
+                if dom[0] != "entity":
+                    raise BuildError(
+                        f"pooling over domain {dom} is not supported (input '{name}')"
+                    )
+                ro[op.output_name] = seg.graph_pool(
+                    fetch(name), batch[f"graph_id_{dom[1]}"], meta.num_graphs,
+                    batch[f"node_mask_{dom[1]}"], op.pooling,
+                )
+            elif op.kind == "product":
+                d1, d2 = domain_of(op.inputs[0]), domain_of(op.inputs[1])
+                target = d1 if d1[0] != "graph" else d2
+                x1 = broadcast_to(fetch(op.inputs[0]), d1, target)
+                x2 = broadcast_to(fetch(op.inputs[1]), d2, target)
+                if op.product == "dot_product":
+                    # the row-wise dot product: the reference's recorded
+                    # width 1, as in the JAX package
+                    ro[op.output_name] = torch.sum(x1 * x2, dim=-1, keepdim=True)
+                else:
+                    ro[op.output_name] = x1 * x2
+            elif op.kind == "extend_adjacencies":
+                # each edge's source and destination rows; both backwards are
+                # kernel A over real edges only (a padding edge's cotangent is
+                # zero under the masked loss), where the JAX package's plain
+                # indexing also sums the padding edges' zeros
+                a = op.adj_name
+                ro[op.output_names[0]] = _gather_src(batch, a, fetch(op.inputs[0]))
+                ro[op.output_names[1]] = _gather_dst(batch, a, fetch(op.inputs[1]))
         return result
 
 

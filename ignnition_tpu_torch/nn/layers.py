@@ -81,8 +81,14 @@ def zeros(shape: Sequence[int]) -> torch.Tensor:
 
 
 def dense(layer, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Keras Dense: x @ kernel (+ bias), then the layer's activation."""
-    x = x @ p["kernel"]
+    """Keras Dense: x @ kernel (+ bias), then the layer's activation. Mixed
+    dtypes promote as `jnp.matmul` does (an f32 readout input times a bf16
+    kernel computes in f32); `torch.matmul` would raise on them."""
+    kernel = p["kernel"]
+    if x.dtype != kernel.dtype:
+        dtype = torch.promote_types(x.dtype, kernel.dtype)
+        x, kernel = x.to(dtype), kernel.to(dtype)
+    x = x @ kernel
     if layer.use_bias:
         x = x + p["bias"]
     return activation(layer.activation)(x)

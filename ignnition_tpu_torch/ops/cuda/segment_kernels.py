@@ -202,6 +202,15 @@ def _ids_row_ptr(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.searchsorted(segment_ids.contiguous(), bounds).to(torch.int32)
 
 
+def sorted_segment_sum_ids_transpose(ct: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
+    """The id-keyed sum's backward: each edge's cotangent is its segment's
+    row of `ct`, and zero for an id outside [0, len(ct)), which the sum
+    does not count (the plain version's autograd gives the same)."""
+    ids = segment_ids.to(torch.int64)
+    keep = (ids >= 0) & (ids < ct.shape[0])
+    return ct[ids.clamp(0, max(ct.shape[0] - 1, 0))] * keep[:, None].to(ct.dtype)
+
+
 class _IdsSegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, segment_ids, num_segments):
@@ -212,7 +221,7 @@ class _IdsSegmentSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (segment_ids,) = ctx.saved_tensors
-        return ct[segment_ids.to(torch.int64)].to(ctx.data_dtype), None, None
+        return sorted_segment_sum_ids_transpose(ct, segment_ids).to(ctx.data_dtype), None, None
 
 
 def sorted_segment_sum_ids(
@@ -222,7 +231,7 @@ def sorted_segment_sum_ids(
     or int64) into `num_segments` rows -> f32, at any width D. Every edge
     whose id lies in [0, num_segments) counts, padding included.
     Differentiable in `data`: the backward is `ct[segment_ids]` in the data's
-    dtype (the TPU function's `_sss_bwd`).
+    dtype (the TPU function's `_sss_bwd`), zero for an id out of range.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     id-keyed kernel once (and raises if it cannot)."""

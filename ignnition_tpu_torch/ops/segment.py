@@ -203,6 +203,63 @@ def segment_sum(
     return out.index_add_(0, segment_ids, data)
 
 
+def _pool_ids(graph_ids: torch.Tensor, num_graphs: int, node_mask: torch.Tensor) -> torch.Tensor:
+    """Each row's graph for the id-keyed sum: a real row's own, a padding
+    row's that of the next real row (`num_graphs` after the last one), from
+    the real rows' count per graph and a running count of real rows: a few
+    elementwise kernels and no sync with the host. The padding rows' own ids
+    (`num_graphs - 1` in the data layer) would put the trailing padding in
+    the last graph's segment, which one CTA then walks."""
+    real = (node_mask > 0).to(torch.int64)
+    ends = torch.cumsum(segment_count(graph_ids, num_graphs, real), 0)
+    before = torch.cumsum(real, 0) - real
+    return torch.where(real > 0, graph_ids.to(torch.int64),
+                       torch.searchsorted(ends, before, right=True))
+
+
+def graph_pool(
+    x: torch.Tensor,  # [N, D]
+    graph_ids: torch.Tensor,  # [N]
+    num_graphs: int,
+    node_mask: torch.Tensor,  # [N]
+    kind: str,
+) -> torch.Tensor:
+    """Per-graph pooling (sum | mean | max) over node rows, the JAX
+    `graph_pool` without its sharded form. Rows are masked first, and the
+    masked product takes JAX's dtype (bf16 rows times the f32 mask: f32).
+
+    `sum` and `mean` are one launch of the id-keyed kernel (mean carries the
+    mask as one more column, whose sums are the real-row counts); the JAX
+    package sums with XLA's segment sum, the same function in another
+    order. The kernel needs ids that never decrease and reads each graph's
+    rows in one CTA: real rows are sorted by graph (the caller checks it on
+    the host), and each padding row is keyed by the graph of the next real
+    row (`_pool_ids`), so that padding between graphs (per-graph padding)
+    keeps the order and trailing padding, keyed past the last graph, is
+    never read. `max` is the library's `scatter_reduce` over rows filled
+    with the dtype's lowest value where masked, its backward splitting the
+    cotangent among tied rows as JAX's `segment_max` does; graphs that are
+    empty or all masked give 0."""
+    xm = x * node_mask[:, None]
+    if kind in ("sum", "mean"):
+        ids = _pool_ids(graph_ids, num_graphs, node_mask)
+        if kind == "sum":
+            return sorted_segment_sum_ids(xm, ids, num_graphs).to(xm.dtype)
+        cols = torch.cat([xm, node_mask[:, None].to(xm.dtype)], dim=1)
+        sums = sorted_segment_sum_ids(cols, ids, num_graphs).to(xm.dtype)
+        return sums[:, :-1] / torch.clamp_min(sums[:, -1:], 1.0)
+    if kind == "max":
+        low = torch.finfo(x.dtype).min
+        on = node_mask[:, None] > 0
+        xmasked = torch.where(on, x, torch.full_like(x, low))
+        index = graph_ids.to(torch.int64)[:, None].expand_as(x)
+        out = torch.full((num_graphs, x.shape[1]), low, dtype=x.dtype, device=x.device)
+        m = out.scatter_reduce(0, index, xmasked, "amax", include_self=False)
+        count = segment_count(graph_ids, num_graphs, node_mask)
+        return torch.where(torch.isfinite(m) & (count[:, None] > 0), m, torch.zeros_like(m))
+    raise ValueError(f"unknown pooling kind '{kind}'")
+
+
 def _dss_impl(src_states, src_idx, row_ptr, num_dst):
     """Gather each edge's source row, then kernel A over the real edges.
     Padding edges lie past row_ptr[-1] and are never summed, so no edge

@@ -245,17 +245,20 @@ def _qsize_ir(desc):
 
 def test_unported_feature_raises_naming_it():
     """Q-size with its links updated by a feed-forward network after their
-    sum: feed-forward updates are not ported, and the build says so."""
+    sum: the update is ported with Dense layers only, so a Dropout in it
+    makes the build raise, naming the layer and the network."""
     desc = qsize_description()
     desc["neural_networks"].append(
         {"nn_name": "ff_update", "nn_type": "feed_forward",
-         "nn_architecture": [dense(16, "relu")]}
+         "nn_architecture": [dense(16, "relu"), {"type_layer": "Dropout", "rate": 0.1}]}
     )
     links = desc["message_passing"]["stages"][1]["stage_mp"][0]
     assert links["aggregation"]["type"] == "sum"
     links["update"] = {"type": "neural_network", "nn_name": "ff_update"}
-    with pytest.raises(NotImplementedError, match="feed-forward"):
+    with pytest.raises(NotImplementedError, match="layer type 'Dropout' in network 'ff_update'"):
         igt.build(_qsize_ir(desc))
+    desc["neural_networks"][-1]["nn_architecture"].pop()
+    igt.build(_qsize_ir(desc))  # the same network of Dense layers alone builds
 
 
 def test_message_network_with_a_non_dense_layer_raises_naming_it():

@@ -335,7 +335,9 @@ ROUTES = {
                              "_gru_step": 2},
     "mlp_message_past_cap": {"gather_state_slices": 2, "gather_rows": 2, "gather_by_dst": 2,
                              "segment_sum": 2, "masked_gru_scan": 2, "_gru_step": 2},
-    "interleave_per_edge": {"gather_rows": 2, "gather_by_dst": 2, "scatter_to_sequences": 4,
+    # the links' per-edge network and the nodes' state table each gather
+    # their source rows by `gather_rows` (its backward kernel A)
+    "interleave_per_edge": {"gather_rows": 4, "gather_by_dst": 2, "scatter_to_sequences": 4,
                             "masked_gru_scan": 2, "_gru_step": 4},
 }
 

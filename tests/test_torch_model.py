@@ -318,22 +318,30 @@ def test_attention_at_a_width_off_128_takes_the_id_keyed_sum(monkeypatch):
     assert len(calls) == 2 and all(shape[1] == 48 for shape in calls)  # one per iteration
 
 
+def _wide_path_convolution(d):
+    """Stage 2 aggregating 12-wide path states into 8-wide links by the
+    convolution, which needs messages of the destination's width."""
+    d["message_passing"]["stages"][1]["stage_mp"][0].update(
+        aggregation={"type": "convolution", "activation_function": "relu"})
+    next(e for e in d["entities"] if e["name"] == "path")["hidden_state_dimension"] = 12
+
+
 @pytest.mark.parametrize(
-    "mutate,feature",
+    "mutate,error,feature",
     [
         (lambda d: d["message_passing"]["stages"][1]["stage_mp"][0].update(
             aggregation={"type": "attention", "attention_softmax": "reference"}),
-         "'reference' attention softmax mode"),
-        (lambda d: d["message_passing"]["stages"][1]["stage_mp"][0].update(
-            aggregation={"type": "convolution", "activation_function": "relu"}),
-         "'convolution' aggregation"),
+         NotImplementedError, "'reference' attention softmax mode"),
+        # the convolution is ported: what it refuses names it
+        (_wide_path_convolution, ValueError,
+         r"convolution aggregation requires message dim \(12\) == destination state dim"),
     ],
     ids=["reference_softmax", "convolution"],
 )
-def test_unported_aggregations_raise_by_name(mutate, feature):
+def test_unported_aggregations_raise_by_name(mutate, error, feature):
     desc = flagship_dict(mutate=mutate)
     ir = igt.parse_model_description(copy.deepcopy(desc), DIMS)
-    with pytest.raises(NotImplementedError, match=feature):
+    with pytest.raises(error, match=feature):
         igt.build(ir)
 
 

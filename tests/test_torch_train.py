@@ -492,7 +492,7 @@ def test_attention_loss_and_gradients_match_jax(branch, monkeypatch):
             assert np.abs(got[k].numpy() - want[k]).max() <= 5e-3 * top, k
 
 
-def _check_adam_trajectory(trainers, noise_floor=0.0):
+def _check_adam_trajectory(trainers, noise_floor=0.0, lr=0.001):
     """Ten Adam steps from the same weights: loss, reg and total at every step,
     and the parameters after every step.
 
@@ -502,7 +502,8 @@ def _check_adam_trajectory(trainers, noise_floor=0.0):
     elements are held to the most they can have moved (2 * lr per step), and
     every element whose first gradient is above 1e-3 of its leaf's largest
     (and above `noise_floor`, for leaves whose whole gradient is small) to
-    atol = rtol = 1e-4."""
+    atol = rtol = 1e-4. `lr`: the model's largest learning rate (the
+    flagship's initial 0.001 by default)."""
     j_tr, t_tr, j_state, t_state, j_batch, t_batch, meta = trainers
     j_step, t_step = j_tr.train_step_fn(meta), t_tr.train_step_fn(meta)
     params, opt_state = j_state.params, j_state.opt_state
@@ -514,7 +515,6 @@ def _check_adam_trajectory(trainers, noise_floor=0.0):
     }
     # (an attention pass's `kernel2` gradient is noise as a whole)
     assert all(m.any() for k, m in firm.items() if not k.endswith("kernel2"))
-    lr = 0.001  # the flagship's initial learning rate
     first = None
     for i in range(10):
         params, opt_state, want = j_step(params, opt_state, j_batch, rng)
