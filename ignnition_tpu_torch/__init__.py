@@ -13,8 +13,12 @@ recurrent and feed-forward updates; the neural_network, pooling, product,
 extend_adjacencies and predict readouts). Serving: `build` a
 `GnnModel` from a parsed description, move a `build_batch` result to the
 device with `batch.to_device`, and serve it with `ServingModel`. Training:
-`Trainer` (`init_state`, `train_step_fn`, `eval_step_fn`) with the losses,
-Adam/SGD and the learning-rate schedules. The entry points run on the
+`Trainer` (`init_state`, `train_step_fn`, `accum_train_step_fn`,
+`eval_step_fn`, `train`, `evaluate`, `predict`, checkpoints) with the
+losses, Adam/SGD and the learning-rate schedules. The user's verbs, as in
+the JAX package: `create_model(config)`, `train_and_evaluate(model)`,
+`Runner(model).evaluate(state)`, `predict(model, state)`, with the run
+configuration of `config.RunConfig` (`train_options.ini`). The entry points run on the
 current CUDA device unless `device="cpu"` is passed. The hand-written Hopper
 kernels (CSR and id-keyed segment sums, masked GRU scan forward and
 backward, flash-GAT forward and backward) are in `csrc/`, their wrappers in
@@ -22,12 +26,25 @@ backward, flash-GAT forward and backward) are in `csrc/`, their wrappers in
 (`native/`, built with g++ at first use).
 """
 
-from .data import BatchMeta, PaddingConfig, SampleSpec, build_batch, convert_sample
-from .frontend import ModelDescriptionError, parse_model_description
+from .data import (
+    BatchMeta,
+    PaddingConfig,
+    SampleSpec,
+    build_batch,
+    convert_sample,
+    find_dataset_dimensions,
+    iter_samples,
+)
+from .frontend import (
+    ModelDescriptionError,
+    load_description,
+    parse_model_description,
+    parse_model_file,
+)
 from .model import GnnModel, build, params_from_jax
 from .serving import ServingModel
 from .training import Trainer, TrainState, build_optimizer, build_schedule, get_loss
-from .utils import register_normalization
+from .utils import get_normalization, register_normalization
 
 __version__ = "0.1.0"
 
@@ -45,9 +62,24 @@ __all__ = [
     "build_optimizer",
     "build_schedule",
     "convert_sample",
+    "find_dataset_dimensions",
     "get_loss",
+    "get_normalization",
+    "iter_samples",
+    "load_description",
     "params_from_jax",
     "parse_model_description",
+    "parse_model_file",
     "register_normalization",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    # the verbs live in .api, which sets up the package's logger; import it
+    # lazily so that light-weight uses stay light
+    if name in ("create_model", "train_and_evaluate", "predict", "debug", "Runner", "Model"):
+        from . import api
+
+        return getattr(api, name)
+    raise AttributeError(name)

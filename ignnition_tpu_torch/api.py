@@ -1,0 +1,266 @@
+"""The four user-facing verbs (counterpart of `ignnition_tpu/api.py`).
+
+Mirrors the reference API surface (framework_operations.py):
+`create_model` (f_o.py:42), `train_and_evaluate` (f_o.py:108), `predict`
+(f_o.py:169), `debug` (f_o.py:239). A `Model` bundle (IR + config) replaces
+the reference's module-global `model_info` handle (generate_model.py:34-43).
+
+Every entry point runs on the current CUDA device unless `device="cpu"` is
+passed (`Runner(..., device="cpu")`, or `device=` through the module verbs'
+keywords). Serving export and debug are not ported yet (ROADMAP items 5 and
+7), nor the mesh paths (item 6).
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import os
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .config import RunConfig
+from .data import find_dataset_dimensions
+from .data.graph import PaddingConfig, infer_label_domain
+from .frontend import parse_model_file
+from .frontend.ir import ModelIR
+from .model import build
+from .training.trainer import Trainer, TrainState, warm_start
+from .utils.registry import normalizations
+
+log = logging.getLogger("ignnition_tpu_torch")
+if not log.handlers:  # configure only our logger, never the root logger
+    _h = logging.StreamHandler()
+    _h.setFormatter(logging.Formatter("%(levelname)s ignnition_tpu_torch: %(message)s"))
+    log.addHandler(_h)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+
+
+@dataclass
+class Model:
+    """What `create_model` returns: the parsed IR plus the run config."""
+
+    ir: ModelIR
+    config: RunConfig
+
+
+_cache_noted = False
+
+
+def _note_compilation_cache(cfg: RunConfig) -> None:
+    """`compilation_cache_dir` is accepted so that the JAX package's ini
+    files load; the port compiles nothing per batch shape, so it has no
+    effect. Said once per process when it is set."""
+    global _cache_noted
+    if getattr(cfg, "compilation_cache_dir", None) and not _cache_noted:
+        _cache_noted = True
+        log.info(
+            "compilation_cache_dir (%s) has no effect in ignnition_tpu_torch: "
+            "it compiles nothing per batch shape (its CUDA kernels are built "
+            "once, at first use, into ignnition_tpu_torch/_build/)",
+            cfg.compilation_cache_dir,
+        )
+
+
+def create_model(config: str | RunConfig = "./train_options.ini") -> Model:
+    """Parse and validate the model description named by the config
+    (reference create_model, f_o.py:42-47): infers dataset dimensions from
+    the first training archive, then builds the IR."""
+    cfg = config if isinstance(config, RunConfig) else RunConfig.from_ini(config)
+    _note_compilation_cache(cfg)
+    dims = find_dataset_dimensions(cfg.train_dataset)
+    model_ir = parse_model_file(cfg.json_path, dims)
+    return Model(ir=model_ir, config=cfg)
+
+
+class Runner:
+    """Programmatic driver around Trainer for one Model."""
+
+    def __init__(
+        self,
+        model: Model,
+        padding: Optional[PaddingConfig] = None,
+        seed: int = 0,
+        mesh=None,
+        model_strategy: str = "replicated",
+        tensorboard_dir: Optional[str] = None,
+        device=None,
+    ):
+        """device: where the model trains and predicts; by default the
+        current CUDA device, and without one this raises (pass device="cpu"
+        for the CPU). mesh and model_strategy other than "replicated" raise:
+        the parallel steps are ROADMAP item 6."""
+        if mesh is not None or model_strategy != "replicated":
+            raise NotImplementedError(
+                "training over a mesh (mesh, model_strategy) is not ported to "
+                "ignnition_tpu_torch yet: the data- and edge-parallel steps are "
+                "ROADMAP item 6"
+            )
+        self.model = model
+        _note_compilation_cache(model.config)  # the programmatic-config path
+        self.gnn = build(model.ir)
+        if padding is None and getattr(model.config, "per_graph_padding", False):
+            padding = PaddingConfig(per_graph=True)
+        self.trainer = Trainer(self.gnn, padding=padding, device=device)
+        self.seed = seed
+        self.tensorboard_dir = tensorboard_dir
+
+    def _init_state(self) -> TrainState:
+        return self.trainer.init_state(torch.Generator().manual_seed(self.seed))
+
+    def _denorm_fn(self) -> Optional[Callable]:
+        _, _, denorm = self.model.ir.output_info()
+        if denorm is None:
+            log.warning(
+                "a denormalization function for the output was not defined; "
+                "outputs and eval statistics use normalized values"
+            )
+            return None
+        fn = normalizations().get(denorm)
+        if fn is None:
+            log.warning(
+                "label_denormalization '%s' is declared in the model "
+                "description but no function with that name is registered "
+                "(igt.register_normalization): outputs and eval statistics "
+                "use normalized values",
+                denorm,
+            )
+        return fn
+
+    def train_and_evaluate(self, run_dir: Optional[str] = None) -> TrainState:
+        """Train with periodic eval and checkpoints (reference
+        train_and_evaluate, framework_operations.py:108-166).
+
+        run_dir: checkpoint directory override. Default mints a fresh
+        timestamped `experiment_<now>` under model_dir (reference
+        f_o.py:123-124); pass a previous run's directory to resume it from
+        its latest checkpoint."""
+        cfg = self.model.config
+        state = self._init_state()
+        if cfg.warm_start_path:
+            state = warm_start(state, cfg.warm_start_path)
+            log.info("warm-started parameters from %s", cfg.warm_start_path)
+        run_dir = run_dir or os.path.join(
+            cfg.model_dir,
+            "experiment_" + datetime.datetime.now().strftime("%Y%m%d_%H%M%S"),
+        )
+        label_name = self.model.ir.output_info()[0]
+        denorm = self._denorm_fn()
+
+        def eval_fn(st):
+            return self.trainer.evaluate(
+                st,
+                cfg.eval_dataset,
+                num_batches=cfg.eval_samples,
+                batch_size=cfg.eval_batch_size,
+                denormalization=denorm,
+                label_name=label_name,
+                cache=True,  # periodic evals reuse the built batches
+                shuffle=cfg.shuffle_eval_samples,
+            )
+
+        return self.trainer.train(
+            state,
+            cfg.train_dataset,
+            max_steps=cfg.train_steps,
+            batch_size=cfg.batch_size,
+            shuffle=cfg.shuffle_train_samples,
+            log_every=cfg.log_every,
+            checkpoint_dir=run_dir,
+            save_secs=cfg.save_checkpoints_secs,
+            keep_max=cfg.keep_checkpoint_max,
+            eval_fn=eval_fn,
+            eval_secs=cfg.throttle_secs,
+            accumulate_steps=cfg.accumulate_steps,
+            input_workers=cfg.input_workers,
+            cache_batches=cfg.cache_batches,
+            device_prefetch=cfg.device_prefetch,
+            tensorboard_dir=self.tensorboard_dir,
+        )
+
+    def evaluate(self, state: TrainState) -> Dict[str, float]:
+        cfg = self.model.config
+        return self.trainer.evaluate(
+            state,
+            cfg.eval_dataset,
+            num_batches=cfg.eval_samples,
+            batch_size=cfg.eval_batch_size,
+            denormalization=self._denorm_fn(),
+            label_name=self.model.ir.output_info()[0],
+            shuffle=cfg.shuffle_eval_samples,
+        )
+
+    def predict(self, state: Optional[TrainState] = None) -> List[np.ndarray]:
+        """One array of predictions a sample of predict_dataset, padding
+        removed: an entity's real rows, an edge label's real edges in the
+        sample's own edge order, or the graph's value."""
+        cfg = self.model.config
+        if cfg.predict_dataset is None:
+            raise ValueError(
+                "the path of the dataset to use for prediction is unspecified; "
+                "add predict_dataset to the config"
+            )
+        if state is None:
+            if not cfg.warm_start_path:
+                raise ValueError(
+                    "the path of the model to use for predictions is unspecified; "
+                    "add warm_start_path to the config"
+                )
+            state = warm_start(self._init_state(), cfg.warm_start_path)
+        label_name = self.model.ir.output_info()[0]
+        denorm = self._denorm_fn()
+        outputs: List[np.ndarray] = []
+        domain = infer_label_domain(self.model.ir)
+        for preds, arrays in self.trainer.predict(
+            state,
+            cfg.predict_dataset,
+            denormalization=denorm,
+            label_name=label_name,
+        ):
+            if domain[0] == "entity":
+                mask = arrays[f"node_mask_{domain[1]}"] > 0
+                outputs.append(preds[mask])
+            elif domain[0] == "edge":
+                # back to the sample's original (insertion-order) edge order:
+                # the merged batch destination-sorts edge lists
+                perm = arrays.get("label_perm")
+                p = preds[np.asarray(perm)] if perm is not None else preds
+                n = int(np.sum(np.asarray(arrays[f"edge_mask_{domain[1]}"]) > 0))
+                outputs.append(p[:n])
+            else:
+                outputs.append(preds)
+        return outputs
+
+    def export_serving(self, *args, **kwargs) -> str:
+        raise NotImplementedError(
+            "export_serving is not ported to ignnition_tpu_torch yet "
+            "(ROADMAP item 5); serve in process with ignnition_tpu_torch.ServingModel"
+        )
+
+
+# --------------------------------------------------------------------------
+# module-level verbs (reference-style)
+# --------------------------------------------------------------------------
+
+
+def train_and_evaluate(
+    model: Model, run_dir: Optional[str] = None, **runner_kw
+) -> TrainState:
+    """run_dir: pass a previous run's experiment directory to resume it."""
+    log.info("starting the training and evaluation process\n" + "-" * 75)
+    return Runner(model, **runner_kw).train_and_evaluate(run_dir)
+
+
+def predict(model: Model, state: Optional[TrainState] = None, **runner_kw):
+    log.info("starting to make the predictions\n" + "-" * 55)
+    return Runner(model, **runner_kw).predict(state)
+
+
+def debug(model: Model, **runner_kw) -> str:
+    raise NotImplementedError(
+        "debug is not ported to ignnition_tpu_torch yet (ROADMAP item 7)"
+    )

@@ -48,7 +48,16 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def to_device(arrays: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """Tensors on `device` for every array of a `build_batch` result."""
+def to_device(
+    arrays: Mapping[str, object], device, non_blocking: bool = False
+) -> Dict[str, torch.Tensor]:
+    """Tensors on `device` for every array of a `build_batch` result. Values
+    that are tensors already (a batch cached on the device, packed host
+    buffers) are moved as they are, with `non_blocking` (which overlaps only
+    copies from pinned memory)."""
     device = torch.device(device)
-    return {k: _to_tensor(k, v, device) for k, v in arrays.items()}
+    return {
+        k: v.to(device, non_blocking=non_blocking) if isinstance(v, torch.Tensor)
+        else _to_tensor(k, v, device)
+        for k, v in arrays.items()
+    }

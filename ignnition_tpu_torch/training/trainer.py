@@ -1,31 +1,53 @@
-"""The training and evaluation steps (counterpart of
-`ignnition_tpu/training/trainer.py`: `TrainState`, `Trainer.__init__`,
-`init_state`, `_loss`, `train_step_fn`, `eval_step_fn`).
+"""Training loop: steps, streaming input, checkpoints, evaluation
+(counterpart of `ignnition_tpu/training/trainer.py`).
 
   * loss = model loss + l2 regularization;
   * the forward runs in `compute_dtype` (e.g. bf16) over float32 master
     weights; gradients arrive in float32 on the masters;
-  * the optimizer and schedule come from the IR's learning options.
+  * the optimizer and schedule come from the IR's learning options;
+  * gradient accumulation over microbatches stacked on a leading axis, and
+    "auto" accumulation from the dataset's edges per graph;
+  * batches built on background threads (`batches`), cached on the host or
+    on the device, optionally packed into one buffer per dtype
+    (`training.packing`) and staged onto the device from a side CUDA stream
+    (`_device_prefetch`);
+  * checkpoints with `torch.save`, one directory per step, keep-max,
+    resume-within-run and warm start of the parameters;
+  * evaluation with the reference metric set and optional label
+    denormalization, and prediction.
 
 A step runs eagerly; `train_step_fn(meta)` exists so callers are written as
 against the JAX package, where it returns the function jitted for that
 batch shape. Unlike there, a step updates `state` in place and returns it.
-The input pipeline, gradient accumulation, checkpoints and `train()` are
-not ported yet.
+The mesh paths of the JAX package (`mesh`, `model_strategy="dest_shard"`,
+`locality_reorder`) are not ported yet (ROADMAP item 6). Checkpoints do not
+cross between the packages (orbax there, `torch.save` here).
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import queue
+import shutil
+import threading
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..batch import resolve_device
+from ..batch import resolve_device, to_device
+from ..data import SampleSpec, build_batch, iter_samples
 from ..data.graph import BatchMeta, PaddingConfig
 from ..model.builder import GnnModel, flatten_params, map_params, with_leaves
-from .losses import get_loss
+from .losses import get_loss, loss_reduction
+from .metrics import MetricAccumulator
 from .optimizers import build_optimizer
+from .packing import pack_arrays, pack_layout, unpack_arrays
+
+log = logging.getLogger("ignnition_tpu_torch")
 
 
 @dataclass
@@ -33,6 +55,17 @@ class TrainState:
     params: Any  # the JAX package's parameter tree; float32 leaves that require grad
     opt_state: Any
     step: int
+
+
+def _unported_parallel(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to ignnition_tpu_torch yet: the data- and "
+        f"edge-parallel steps are ROADMAP item 6"
+    )
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class Trainer:
@@ -56,6 +89,7 @@ class Trainer:
         self.compute_dtype = compute_dtype
         self.loss_fn = get_loss(self.ir.learning.loss)
         self.optimizer = build_optimizer(self.ir.learning.optimizer)
+        self._eval_batches: Dict[Any, list] = {}
 
     # ------------------------------------------------------------------
 
@@ -83,18 +117,68 @@ class Trainer:
         reg = self.model.regularization_loss(params)
         return loss + reg, (loss, reg)
 
-    def train_step_fn(self, meta: BatchMeta) -> Callable:
+    def train_step_fn(self, meta: BatchMeta, layout=None) -> Callable:
         """`step(state, batch) -> (state, {"loss", "reg", "total"})` for
         device batches of shape `meta`: forward, backward and one optimizer
-        update of `state` in place. The metrics stay on the device."""
+        update of `state` in place. The metrics stay on the device.
+
+        layout: the packed-transfer layout (`training.packing`); the step
+        then takes the per-dtype device buffers and unpacks them to views."""
 
         grads = self.grads_fn(meta)
 
         def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+            if layout is not None:
+                batch = unpack_arrays(batch, layout)
             grad_tree, metrics = grads(state.params, batch)
             self.optimizer.step(state.params, grad_tree, state.opt_state)
             state.step += 1
             return state, metrics
+
+        return step
+
+    def accum_train_step_fn(self, meta: BatchMeta, n_accum: int, layout=None) -> Callable:
+        """One optimizer step over `n_accum` microbatches stacked on a
+        leading axis (gradient accumulation): numerically a batch
+        `n_accum`x larger, each microbatch run at its own shape. The
+        microbatches run in order and their gradients are summed in that
+        order, then reduced as the JAX package does:
+          * mean-reduction losses: the microbatch mean ~= the big-batch mean
+            (exact for equal real counts), so the gradients are averaged;
+          * sum-reduction losses (Keras KLDivergence): the big-batch loss is
+            the sum of the microbatch sums, so the gradient sum stays, less
+            the (n_accum - 1) extra copies of the L2 term's gradient that
+            entered every microbatch."""
+        grads = self.grads_fn(meta)
+        is_sum = loss_reduction(self.loss_fn) == "sum"
+
+        def step(state: TrainState, stacked) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+            if layout is not None:
+                stacked = unpack_arrays(stacked, layout)
+            gsum = lsum = rsum = None
+            for i in range(n_accum):
+                g, m = grads(state.params, {k: v[i] for k, v in stacked.items()})
+                g = list(flatten_params(g).values())
+                if gsum is None:
+                    gsum, lsum, rsum = g, m["loss"], m["reg"]
+                else:
+                    torch._foreach_add_(gsum, g)
+                    lsum, rsum = lsum + m["loss"], rsum + m["reg"]
+            if is_sum:
+                reg_total = self.model.regularization_loss(state.params)
+                if reg_total.requires_grad:
+                    reg_grads = torch.autograd.grad(
+                        reg_total, list(flatten_params(state.params).values()),
+                        allow_unused=True, materialize_grads=True)
+                    torch._foreach_add_(gsum, reg_grads, alpha=-(n_accum - 1))
+                loss = lsum
+            else:
+                torch._foreach_div_(gsum, n_accum)
+                loss = lsum / n_accum
+            reg = rsum / n_accum
+            self.optimizer.step(state.params, with_leaves(state.params, gsum), state.opt_state)
+            state.step += 1
+            return state, {"loss": loss, "reg": reg, "total": loss + reg}
 
         return step
 
@@ -122,3 +206,688 @@ class Trainer:
             return preds, loss
 
         return step
+
+    # ------------------------------------------------------------------
+    # input pipeline
+    # ------------------------------------------------------------------
+
+    def batches(
+        self,
+        data_dir: str,
+        batch_size: int,
+        shuffle: bool = False,
+        repeat: bool = True,
+        training: bool = True,
+        seed: Optional[int] = None,
+        prefetch: int = 4,
+        workers: int = 1,
+        cache=False,
+    ) -> Iterator[Tuple[Dict[str, Any], BatchMeta]]:
+        """Stream (arrays, meta) merged batches of numpy arrays, built on
+        background threads (the reference prefetches 10 batches through
+        tf.data, generate_model.py:188-198).
+
+        workers > 1 parallelizes archive reading (iter_samples readers: the
+        gunzip and the native JSON parse release the GIL) and batch
+        construction; batch order and composition then become
+        nondeterministic (use with shuffle). Every sample still appears
+        exactly once per epoch.
+
+        cache=True materializes every built batch during the first epoch
+        and cycles the cached list afterwards (reshuffled per epoch): host
+        batch construction then costs one epoch in all. Batch composition is
+        frozen after epoch one.
+
+        cache="device" also moves every cached batch to the trainer's device
+        once (`batch.to_device`), so steady-state steps copy nothing. The
+        dataset must fit in device memory beside the model."""
+        if cache:
+            if not repeat:
+                raise ValueError("cache=True requires repeat=True")
+            built = list(
+                self.batches(
+                    data_dir, batch_size, shuffle=shuffle, repeat=False,
+                    training=training, seed=seed, prefetch=prefetch, workers=workers,
+                )
+            )
+            if cache == "device":
+                built = [(to_device(a, self.device), m) for a, m in built]
+            rng = np.random.default_rng(seed)
+            while True:
+                order = rng.permutation(len(built)) if shuffle else range(len(built))
+                for i in order:
+                    yield built[i]
+
+        spec = SampleSpec.from_ir(self.ir, training=training)
+
+        def make(group):
+            return build_batch(
+                group, self.ir, self.padding, training=training,
+                normalizations=self.normalizations,
+            )
+
+        def groups():
+            group = []
+            for s in iter_samples(
+                data_dir, spec, shuffle=shuffle, seed=seed, repeat=repeat,
+                readers=max(1, workers),  # archive parsing is the host's bottleneck
+            ):
+                group.append(s)
+                if len(group) == batch_size:
+                    yield group
+                    group = []
+            if group:
+                yield group
+
+        q: queue.Queue = queue.Queue(maxsize=prefetch)
+        # a consumer may abandon this generator early (evaluate() stops after
+        # num_batches); the stop event releases the producer threads, which
+        # would otherwise block on q.put forever
+        stop = threading.Event()
+
+        def put_guarded(target_q, item) -> bool:
+            while not stop.is_set():
+                try:
+                    target_q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        if workers <= 1:
+
+            def producer():
+                try:
+                    for g in groups():
+                        if not put_guarded(q, make(g)):
+                            return
+                except BaseException as e:  # surface errors to the consumer
+                    put_guarded(q, e)
+                put_guarded(q, None)
+
+            threading.Thread(target=producer, daemon=True).start()
+            sentinels_expected = 1
+        else:
+            gq: queue.Queue = queue.Queue(maxsize=workers * 2)
+
+            def reader():
+                try:
+                    for g in groups():
+                        if not put_guarded(gq, g):
+                            return
+                except BaseException as e:
+                    put_guarded(q, e)
+                for _ in range(workers):
+                    put_guarded(gq, None)
+
+            def builder():
+                try:
+                    while True:
+                        try:
+                            g = gq.get(timeout=0.2)
+                        except queue.Empty:
+                            if stop.is_set():
+                                return
+                            continue
+                        if g is None:
+                            break
+                        if not put_guarded(q, make(g)):
+                            return
+                except BaseException as e:
+                    put_guarded(q, e)
+                put_guarded(q, None)
+
+            threading.Thread(target=reader, daemon=True).start()
+            for _ in range(workers):
+                threading.Thread(target=builder, daemon=True).start()
+            sentinels_expected = workers
+
+        try:
+            done = 0
+            while done < sentinels_expected:
+                item = q.get()
+                if item is None:
+                    done += 1
+                    continue
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    def _device_prefetch(self, batch_iter, size: int = 2):
+        """Stage upcoming batches onto the device from a background thread.
+
+        On a GPU each batch's arrays go through pinned host memory and are
+        copied with `non_blocking` on a side CUDA stream; an event recorded
+        after the copies is what the consuming stream waits on, and each
+        tensor is marked as used by that stream so that the allocator does
+        not hand its memory out again while a step still reads it. The
+        device-side half of the reference's tf.data prefetch
+        (generate_model.py:188-198)."""
+        device = self.device
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        q: queue.Queue = queue.Queue(maxsize=size)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def stage(arrays):
+            if stream is None:
+                return to_device(arrays, device), None
+            host = {k: v if isinstance(v, torch.Tensor) else to_device({k: v}, "cpu")[k]
+                    for k, v in arrays.items()}
+            with torch.cuda.stream(stream):
+                staged = {
+                    k: v.to(device, non_blocking=True)
+                    if v.device.type != "cpu" or v.is_pinned()
+                    else v.pin_memory().to(device, non_blocking=True)
+                    for k, v in host.items()
+                }
+                event = torch.cuda.Event()
+                event.record(stream)
+            return staged, event
+
+        def worker():
+            try:
+                for arrays, meta in batch_iter:
+                    if not put((*stage(arrays), meta)):
+                        return  # consumer gone: drop the staged batches
+            except BaseException as e:  # surface errors to the consumer
+                put(e)
+            put(None)
+
+        threading.Thread(target=worker, daemon=True).start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                staged, event, meta = item
+                if event is not None:
+                    current = torch.cuda.current_stream(device)
+                    current.wait_event(event)
+                    for v in staged.values():
+                        v.record_stream(current)
+                yield staged, meta
+        finally:
+            # consumer closed early (the loop hit max_steps): release the
+            # worker and the device memory its staged batches hold
+            stop.set()
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+
+    # ------------------------------------------------------------------
+    # loops
+    # ------------------------------------------------------------------
+
+    # the JAX package's optimum microbatch scale, measured on a TPU; the
+    # port keeps it so that both packages choose the same split
+    _TARGET_MICROBATCH_EDGES = 262144
+
+    def _auto_accumulate(self, data_dir: str, batch_size: int) -> Tuple[int, int]:
+        """Pick (accumulate_steps, microbatch_graphs) for an effective batch
+        of `batch_size` graphs per optimizer step, from the dataset's
+        average edges per graph against `_TARGET_MICROBATCH_EDGES`.
+
+        Small-graph workloads resolve to (1, batch_size), plain merged
+        batches; large-graph workloads split into an even number of graphs
+        per microbatch. Per-graph padding keeps the merged batch whole (its
+        uniform blocks take the block-diagonal incidence products)."""
+        if self.padding.per_graph:
+            return 1, batch_size
+        spec = SampleSpec.from_ir(self.ir)
+        tot, n = 0, 0
+        for s in iter_samples(data_dir, spec):
+            tot += sum(len(a.src_idx) for a in s.adjacencies.values())
+            n += 1
+            if n >= max(batch_size, 8):
+                break
+        if n == 0 or batch_size <= 1:
+            return 1, batch_size
+        per_graph = max(tot / n, 1.0)
+        micro = max(1, int(self._TARGET_MICROBATCH_EDGES // per_graph))
+        if micro >= batch_size:
+            return 1, batch_size
+        k = -(-batch_size // micro)  # ceil
+        micro = -(-batch_size // k)  # even split
+        log.info(
+            "auto batch strategy: ~%d edges/graph -> %d-way gradient "
+            "accumulation over %d-graph microbatches (effective batch "
+            "%d%s)",
+            int(per_graph), k, micro, k * micro,
+            "" if k * micro == batch_size
+            else f", rounded up from the requested {batch_size}",
+        )
+        return k, micro
+
+    def train(
+        self,
+        state: TrainState,
+        data_dir: str,
+        max_steps: int,
+        batch_size: int = 3,
+        shuffle: bool = True,
+        log_every: int = 10,
+        checkpoint_dir: Optional[str] = None,
+        save_secs: int = 300,
+        keep_max: int = 20,
+        eval_fn: Optional[Callable[[TrainState], Dict[str, float]]] = None,
+        eval_secs: int = 300,
+        mesh=None,
+        model_strategy: str = "replicated",
+        accumulate_steps=1,
+        input_workers: int = 1,
+        cache_batches=False,
+        device_prefetch: int = 0,
+        pack_transfer: bool = False,
+        tensorboard_dir: Optional[str] = None,
+        histogram_every: int = 0,
+        profile_dir: Optional[str] = None,
+        profile_steps: Tuple[int, int] = (10, 15),
+        locality_reorder="auto",
+    ) -> TrainState:
+        """Run the training loop to `max_steps` optimizer steps; `state` is
+        updated in place and returned.
+
+        checkpoint_dir: save every `save_secs` (host clock) and at the end,
+        keeping the `keep_max` newest; a directory that already holds a
+        later step than `state` resumes from its latest checkpoint
+        (parameters, optimizer state and step). The batch stream restarts at
+        the dataset's start, as in the JAX package.
+        eval_fn: called with the state every `eval_secs` (host clock).
+        accumulate_steps: each optimizer step consumes this many merged
+        batches (stacked, then run one after another: accum_train_step_fn).
+        "auto" picks the split from the dataset (_auto_accumulate);
+        batch_size then means graphs per optimizer step, the reference's
+        semantics.
+        cache_batches: True caches the built batches on the host after epoch
+        one; "device" keeps them on the device (downgraded to the host cache
+        under accumulation, whose stacking is host-side).
+        device_prefetch: stage this many batches ahead onto the device from
+        a side CUDA stream (_device_prefetch); 0 copies each batch in the
+        step's own stream.
+        pack_transfer: copy each batch as one buffer per device dtype
+        (training.packing) instead of one copy per array.
+        tensorboard_dir: write the loss scalars every `log_every` steps, and
+        parameter histograms every `histogram_every` steps if > 0, through
+        `torch.utils.tensorboard` (the reference logs the same set through
+        tf.summary, generate_model.py:754-756, 792-793).
+        profile_dir: a torch.profiler trace of the steps in
+        [profile_steps[0], profile_steps[1]), written as a chrome trace, also
+        when the loop ends before the second bound.
+        mesh, model_strategy other than "replicated" and
+        locality_reorder=True raise: the parallel steps are ROADMAP item 6."""
+        if mesh is not None:
+            raise _unported_parallel("training over a mesh")
+        if model_strategy != "replicated":
+            raise _unported_parallel(f"model_strategy={model_strategy!r}")
+        if locality_reorder is True:
+            raise _unported_parallel("locality_reorder=True")
+        if accumulate_steps == "auto":
+            accumulate_steps, batch_size = self._auto_accumulate(data_dir, batch_size)
+        manager = None
+        if checkpoint_dir:
+            manager = _make_checkpoint_manager(checkpoint_dir, keep_max)
+            # resume-within-run (tf.estimator's model_dir behaviour in the
+            # reference, SURVEY.md §5.4)
+            latest = manager.latest_step()
+            if latest is not None and latest > state.step:
+                log.info("resuming from checkpoint step %d in %s", latest, checkpoint_dir)
+                state = restore_checkpoint(manager, state)
+        writer = _summary_writer(tensorboard_dir) if tensorboard_dir else None
+        last_save = time.time()
+        last_eval = time.time()
+
+        if cache_batches == "device" and accumulate_steps > 1:
+            # stacked steps assemble their batches host-side (np.stack):
+            # device-cached batches would come back to the host every step
+            log.info(
+                "cache_batches='device' downgraded to host caching "
+                "(stacked steps assemble batches host-side)"
+            )
+            cache_batches = True
+        if accumulate_steps > 1:
+            batch_iter = self._stacked_batch_iter(
+                data_dir, batch_size, accumulate_steps, shuffle,
+                workers=input_workers, cache=cache_batches,
+            )
+        else:
+            batch_iter = self.batches(
+                data_dir, batch_size, shuffle=shuffle, repeat=True,
+                workers=input_workers, cache=cache_batches,
+            )
+        layouts: Dict[BatchMeta, Any] = {}
+        on_device = cache_batches == "device"  # nothing left to copy
+        if pack_transfer and not on_device:
+            pin = self.device.type == "cuda"
+
+            def _packed(it):
+                for arrays, meta in it:
+                    lay = layouts.get(meta)
+                    if lay is None:
+                        lay = layouts[meta] = pack_layout(arrays)
+                    yield pack_arrays(arrays, lay, pin=pin), meta
+
+            batch_iter = _packed(batch_iter)
+        if device_prefetch > 0 and not on_device:
+            batch_iter = self._device_prefetch(batch_iter, device_prefetch)
+
+        profiler = None
+        try:
+            for arrays, meta in batch_iter:
+                if state.step >= max_steps:
+                    break
+                if profile_dir and state.step == profile_steps[0]:
+                    profiler = _start_profiler(self.device)
+                if profiler is not None and state.step >= profile_steps[1]:
+                    _stop_profiler(profiler, profile_dir, profile_steps)
+                    profiler = None
+                lay = layouts.get(meta)
+                step_fn = (
+                    self.accum_train_step_fn(meta, accumulate_steps, layout=lay)
+                    if accumulate_steps > 1
+                    else self.train_step_fn(meta, layout=lay)
+                )
+                state, logs = step_fn(state, to_device(arrays, self.device, non_blocking=True))
+                if log_every and state.step % log_every == 0:
+                    loss, reg, total = (float(logs[k]) for k in ("loss", "reg", "total"))
+                    log.info("step %d  loss=%.6f  reg=%.6f  total=%.6f",
+                             state.step, loss, reg, total)
+                    if writer is not None:
+                        writer.add_scalar("loss", loss, state.step)
+                        writer.add_scalar("regularization_loss", reg, state.step)
+                        writer.add_scalar("total_loss", total, state.step)
+                if writer is not None and histogram_every and state.step % histogram_every == 0:
+                    for name, leaf in flatten_params(state.params).items():
+                        writer.add_histogram(name, _numpy(leaf), state.step)
+                now = time.time()
+                if manager is not None and now - last_save >= save_secs:
+                    save_checkpoint(manager, state)
+                    last_save = now
+                if eval_fn is not None and now - last_eval >= eval_secs:
+                    results = eval_fn(state)
+                    log.info("eval @ step %d: %s", state.step, results)
+                    last_eval = now
+        finally:
+            batch_iter.close()
+            if profiler is not None:
+                # the loop ended before profile_steps[1]: close the trace
+                _stop_profiler(profiler, profile_dir, profile_steps)
+        if manager is not None:
+            save_checkpoint(manager, state)
+        if writer is not None:
+            writer.close()
+        return state
+
+    def _stacked_batch_iter(self, data_dir, batch_size, n_accum, shuffle, workers=1, cache=False):
+        """Group `n_accum` merged batches per optimizer step, stacked on a
+        leading axis (re-padded to a common bucket)."""
+        from ..parallel import stack_batches
+
+        group = []
+        for item in self.batches(
+            data_dir, batch_size, shuffle=shuffle, repeat=True, workers=workers, cache=cache,
+        ):
+            group.append(item)
+            if len(group) == n_accum:
+                yield stack_batches(group, self.ir)
+                group = []
+
+    def evaluate(
+        self,
+        state: TrainState,
+        data_dir: str,
+        num_batches: int = 100,
+        batch_size: int = 1,
+        denormalization: Optional[Callable] = None,
+        label_name: str = "label",
+        cache: bool = False,
+        shuffle: bool = False,
+        seed: Optional[int] = None,
+    ) -> Dict[str, float]:
+        """The reference metric set and the mean loss over `num_batches`
+        batches, in float32 compute.
+
+        cache=True keeps the built eval batches on the Trainer (host
+        memory), so the periodic in-training evals pay the host build once.
+        shuffle=True evaluates a shuffled stream (the reference's
+        shuffle_eval_samples, framework_operations.py:162); with cache=True
+        a pool of up to 8x num_batches is built once and a fresh permutation
+        of it is drawn per call."""
+        acc = MetricAccumulator()
+        total_loss, n = None, 0
+        if seed is None:
+            seed = int(np.random.default_rng().integers(2**31)) if shuffle else 0
+        if cache:
+            pool = 8 * num_batches if shuffle else num_batches
+            key = (data_dir, batch_size, pool)
+            if key not in self._eval_batches:
+                built = []
+                for item in self.batches(data_dir, batch_size, shuffle=False, repeat=False):
+                    built.append(item)
+                    if len(built) >= pool:
+                        break
+                self._eval_batches[key] = built
+            cached = self._eval_batches[key]
+            if shuffle:
+                order = np.random.default_rng(seed).permutation(len(cached))
+                batch_iter = iter([cached[i] for i in order])
+            else:
+                batch_iter = iter(cached)
+        else:
+            batch_iter = self.batches(
+                data_dir, batch_size, shuffle=shuffle, repeat=False,
+                seed=seed if shuffle else None,
+            )
+        for arrays, meta in batch_iter:
+            if n >= num_batches:
+                break
+            preds, loss = self.eval_step_fn(meta)(state.params, to_device(arrays, self.device))
+            labels = _numpy(arrays["label"])
+            preds = _numpy(preds)
+            mask = _numpy(arrays["label_mask"]) > 0
+            if denormalization is not None:
+                labels = np.where(mask, denormalization(labels, label_name), labels)
+                preds = np.where(mask, denormalization(preds, label_name), preds)
+            acc.update(labels, preds, mask)
+            # summed in float64 on the device, as Python floats would be
+            loss = loss.detach().to(torch.float64)
+            total_loss = loss if total_loss is None else total_loss + loss
+            n += 1
+        if hasattr(batch_iter, "close"):
+            batch_iter.close()
+        out = acc.result()
+        out["loss"] = float(total_loss) / n if n else 0.0
+        return out
+
+    def predict(
+        self,
+        state_or_params,
+        data_dir: str,
+        batch_size: int = 1,
+        denormalization: Optional[Callable] = None,
+        label_name: str = "label",
+    ):
+        """Yield (per-batch prediction array, the batch's numpy arrays),
+        denormalized when a function is given (the reference's predict path,
+        framework_operations.py:209-213)."""
+        params = getattr(state_or_params, "params", state_or_params)
+        for arrays, meta in self.batches(
+            data_dir, batch_size, shuffle=False, repeat=False, training=False
+        ):
+            preds = _numpy(self._predict_fn(meta)(params, to_device(arrays, self.device)))
+            if denormalization is not None:
+                preds = denormalization(preds, label_name)
+            yield preds, arrays
+
+    def _predict_fn(self, meta: BatchMeta) -> Callable:
+        def predict(params, batch):
+            with torch.no_grad():
+                return self.model.apply(params, batch, meta)
+
+        return predict
+
+
+def _summary_writer(directory: str):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise ImportError(
+            "tensorboard_dir needs torch.utils.tensorboard, which needs the "
+            "tensorboard package; it is not installed"
+        ) from e
+    return SummaryWriter(directory)
+
+
+def _start_profiler(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, directory: str, steps: Tuple[int, int]) -> None:
+    profiler.stop()
+    os.makedirs(directory, exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(directory, f"trace_steps_{steps[0]}_{steps[1]}.json"))
+
+
+# --------------------------------------------------------------------------
+# checkpoints (torch.save)
+# --------------------------------------------------------------------------
+
+_STATE_FILE = "state.pt"
+
+
+class CheckpointManager:
+    """Checkpoints under `directory`, one directory per step
+    (`<directory>/<step>/state.pt`), each written under a temporary name and
+    then renamed into place, so a reader never sees half a checkpoint. Keeps
+    the `keep_max` newest (all if None)."""
+
+    def __init__(self, directory: str, keep_max: Optional[int] = None, create: bool = True):
+        self.directory = os.path.abspath(directory)
+        self.keep_max = keep_max
+        if create:
+            os.makedirs(self.directory, exist_ok=True)
+
+    def all_steps(self) -> list:
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(
+            int(name) for name in os.listdir(self.directory)
+            if name.isdigit() and os.path.isfile(os.path.join(self.directory, name, _STATE_FILE))
+        )
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, payload: Dict[str, Any]) -> bool:
+        """Write `payload` as step `step`; False if that step is already saved."""
+        final = os.path.join(self.directory, str(step))
+        if os.path.exists(final):
+            return False
+        tmp = os.path.join(self.directory, f".{step}.tmp-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(payload, os.path.join(tmp, _STATE_FILE))
+        os.replace(tmp, final)
+        if self.keep_max:
+            for old in self.all_steps()[: -self.keep_max]:
+                shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        return True
+
+    def restore(self, step: int) -> Dict[str, Any]:
+        path = os.path.join(self.directory, str(step), _STATE_FILE)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _make_checkpoint_manager(directory: str, keep_max: int) -> CheckpointManager:
+    return CheckpointManager(directory, keep_max)
+
+
+def _flat_cpu(tree) -> Dict[str, Any]:
+    """The tree as a flat dict under `flatten_params`' names, tensors on the CPU."""
+    return {
+        k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+        for k, v in flatten_params(tree).items()
+    }
+
+
+def _copied_into(tree, saved: Mapping[str, Any], what: str, where: str):
+    """`tree` with the saved values: tensor leaves copied into in place
+    (keeping their device, dtype and requires_grad), other leaves (the
+    optimizer's count) taken as saved."""
+    live = flatten_params(tree)
+    if set(live) != set(saved):
+        raise ValueError(
+            f"the checkpoint {where} does not match this model's {what}: "
+            f"missing {sorted(set(live) - set(saved))}, unexpected "
+            f"{sorted(set(saved) - set(live))}"
+        )
+    leaves = []
+    with torch.no_grad():
+        for k, v in live.items():
+            if isinstance(v, torch.Tensor):
+                if tuple(v.shape) != tuple(saved[k].shape):
+                    raise ValueError(
+                        f"the checkpoint {where} holds {what} '{k}' of shape "
+                        f"{tuple(saved[k].shape)}, this model {tuple(v.shape)}"
+                    )
+                v.copy_(saved[k])
+                leaves.append(v)
+            else:
+                leaves.append(saved[k])
+    return with_leaves(tree, leaves)
+
+
+def save_checkpoint(manager: CheckpointManager, state: TrainState) -> None:
+    manager.save(
+        state.step,
+        {"params": _flat_cpu(state.params), "opt_state": _flat_cpu(state.opt_state),
+         "step": state.step},
+    )
+
+
+def restore_checkpoint(manager: CheckpointManager, state: TrainState) -> TrainState:
+    """The latest checkpoint copied into `state`'s tensors (parameters and
+    optimizer state) with its step; `state` as it is when there is none."""
+    step = manager.latest_step()
+    if step is None:
+        return state
+    saved = manager.restore(step)
+    where = os.path.join(manager.directory, str(step))
+    _copied_into(state.params, saved["params"], "parameters", where)
+    opt_state = _copied_into(state.opt_state, saved["opt_state"], "optimizer state", where)
+    return TrainState(state.params, opt_state, int(saved["step"]))
+
+
+def warm_start(state: TrainState, checkpoint_dir: str) -> TrainState:
+    """Restore the parameters (not the optimizer state or the step) from the
+    latest checkpoint under `checkpoint_dir`, into `state`'s tensors: the
+    reference's warm start restores only kernel/recurrent_kernel/bias
+    variables (f_o.py:126-132), which is what the parameter tree holds."""
+    manager = CheckpointManager(checkpoint_dir, create=False)
+    step = manager.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint found under '{checkpoint_dir}'")
+    saved = manager.restore(step)
+    _copied_into(state.params, saved["params"], "parameters",
+                 os.path.join(manager.directory, str(step)))
+    return state

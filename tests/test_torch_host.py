@@ -69,6 +69,12 @@ def test_port_imports_with_jax_blocked():
         "import ignnition_tpu_torch.training.losses, ignnition_tpu_torch.training.metrics\n"
         "import ignnition_tpu_torch.training.optimizers\n"
         "import ignnition_tpu_torch.data.kdn, ignnition_tpu_torch.data.native_loader\n"
+        "import ignnition_tpu_torch.api, ignnition_tpu_torch.config\n"
+        "import ignnition_tpu_torch.training.packing, ignnition_tpu_torch.parallel\n"
+        "import ignnition_tpu_torch.examples.routenet, ignnition_tpu_torch.examples.qsize\n"
+        "import ignnition_tpu_torch.examples.graphprop, ignnition_tpu_torch.examples.linkpred\n"
+        "import ignnition_tpu_torch.examples.gat\n"
+        "ignnition_tpu_torch.create_model, ignnition_tpu_torch.Runner\n"
         "bad = [m for m in sys.modules if m == 'ignnition_tpu' or m.startswith('ignnition_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -127,6 +133,33 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one():
     assert igt.Trainer(model, device="cpu").device.type == "cpu"
 
 
+def test_runner_and_verbs_default_to_the_gpu_and_raise_without_one(tmp_path):
+    """`Runner`, `train_and_evaluate` and `predict` without `device` raise
+    here and name the argument for the CPU; with device="cpu" they run."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without a CUDA device")
+    import json
+
+    from ignnition_tpu_torch.config import RunConfig
+    from ignnition_tpu_torch.data.synthetic import write_dataset
+
+    write_dataset(str(tmp_path / "data"), 1, 2, seed=0)
+    (tmp_path / "model.json").write_text(json.dumps(routenet_description(2, 8)))
+    cfg = RunConfig(train_dataset=str(tmp_path / "data"), eval_dataset=str(tmp_path / "data"),
+                    predict_dataset=str(tmp_path / "data"),
+                    json_path=str(tmp_path / "model.json"), model_dir=str(tmp_path / "ck"),
+                    batch_size=2, train_steps=1, eval_samples=1)
+    model = igt.create_model(cfg)
+    for call in (lambda: igt.Runner(model), lambda: igt.train_and_evaluate(model),
+                 lambda: igt.predict(model)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert not (tmp_path / "ck").exists()
+    state = igt.train_and_evaluate(model, run_dir=str(tmp_path / "run"), device="cpu")
+    assert state.step == 1
+    assert len(igt.predict(model, state, device="cpu")) == 2
+
+
 @pytest.mark.parametrize("name", sorted(DESCRIPTIONS))
 def test_ir_matches_jax(name):
     desc = DESCRIPTIONS[name]()
@@ -142,6 +175,16 @@ def test_chip_smoke_description_matches_flagship():
 
     got = igt.parse_model_description(chip_smoke.flagship_description(), DIMS)
     assert repr(got) == repr(_flagship())
+
+
+def test_chip_smoke_convergence_description_is_the_ab_model():
+    """Phase 9's convergence run trains the model of
+    docs/ab_convergence_flagship.json: `routenet_description(8, 32)`."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    got = igt.parse_model_description(chip_smoke.convergence_description(), DIMS)
+    assert repr(got) == repr(j_parse(routenet_description(8, 32), DIMS))
 
 
 def test_chip_smoke_qsize_description_is_the_example():
