@@ -146,7 +146,26 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      dense cap, in edge-messages per second; (d) bf16 and f32 trained 600
      steps on docs/ab_convergence_flagship.json's configuration and
      evaluated, R² within 0.03 of that record's and bf16's last-50 loss
-     within 10% of f32's.
+     within 10% of f32's;
+ 10. the rest of the description language: (a) the flagship with its
+     readout rewritten to use every built-in layer kind and the registered
+     `ChipScale` (Dense selu, LayerNormalization, Dropout, Dense, PReLU,
+     BatchNormalization, ChipScale, Activation, AlphaDropout, GaussianNoise,
+     ReLU(6), ELU, LeakyReLU, Dense), served (3 requests, B x8 each, against
+     the plain path on the CPU in f32 and bf16) and trained (the step-0 f32
+     gradients against the plain path on the card from one generator state,
+     `plain_on_card`, so that both draw the same masks; training=False
+     output independent of the generator; 5 bf16 steps of B x8, C x8, A x7;
+     step time, device busy, edge-messages/s); (b) every optimizer kind under
+     ExponentialDecay, 3 f32 steps of (a)'s model: the optimizer's f32
+     arithmetic held against an f64 copy on the same gradients, the moving
+     statistics exact (AdamW's decay alone moves them), phase 9 (e)'s rule
+     against a plain f64 run printed; (c) the attention flagship with the
+     `reference` softmax (a forward B x8, A x8, no D or E; a step A x29),
+     served and trained against the plain path; (d) Q-size with stage 1's
+     interleave replaced by attention over its two sources (the library's
+     softmax and sum; A x14 a step); (e) `Trainer.train` with a TensorBoard
+     directory, the event file read back.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -155,6 +174,7 @@ nvcc; it never continues on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -2808,9 +2828,9 @@ def forward_with_states(model, batch, meta, compute_dtype):
     seen = {}
     readout = model._readout
 
-    def spy(params, b, m, states):
+    def spy(params, b, m, states, *rest):
         seen.update(states)
-        return readout(params, b, m, states)
+        return readout(params, b, m, states, *rest)
 
     model._readout = spy
     try:
@@ -3834,6 +3854,510 @@ def entry_points(dev, card: str, flagship_step_ms: float) -> dict:
     return dict(launches=total, **result)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the description language
+# --------------------------------------------------------------------------
+
+LANGUAGE_TRAIN_STEPS = 5
+LANGUAGE_REFERENCE_STEPS = 3
+OPTIMIZER_STEPS = 3
+# (b): one case per optimizer kind and option, each under ExponentialDecay
+OPTIMIZER_CASES = {
+    "Adam": {"type": "Adam"},
+    "Adam amsgrad": {"type": "Adam", "amsgrad": True},
+    "AdamW": {"type": "AdamW", "weight_decay": 0.004},
+    "SGD momentum nesterov": {"type": "SGD", "momentum": 0.9, "nesterov": True},
+    "RMSprop": {"type": "RMSprop"},
+    "RMSprop centered momentum": {"type": "RMSprop", "centered": True, "momentum": 0.9},
+    "Adagrad": {"type": "Adagrad"},
+    "Adadelta": {"type": "Adadelta"},
+    "Adamax": {"type": "Adamax"},
+    "Nadam": {"type": "Nadam"},
+}
+LANGUAGE_SCHEDULE = {"type": "ExponentialDecay", "initial_learning_rate": 0.001,
+                     "decay_steps": 2, "decay_rate": 0.5}
+
+TENSORBOARD = dict(samples=8, batch=2, steps=5)
+BN_STATS = ("moving_mean", "moving_variance")
+
+
+def chip_scale_init(generator, layer, in_dim):
+    """`ChipScale`, the custom layer of (a): a trainable per-feature scale,
+    initialized to the description's `gain`."""
+    return {"scale": torch.full((in_dim,), float(layer.extra.get("gain", 1.0)))}, in_dim
+
+
+def chip_scale_apply(layer, params, x, *, deterministic, generator):
+    return x * params["scale"]
+
+
+def layers_description(optimizer=None, num_iterations: int = ITERATIONS, hs: int = HS) -> dict:
+    """The flagship with its 256-256-1 readout rewritten to use every
+    built-in layer kind and the registered `ChipScale`; `optimizer` (a
+    description's optimizer entry) replaces Adam, under `LANGUAGE_SCHEDULE`."""
+    desc = flagship_description(num_iterations, hs)
+    layer = lambda kind, **kw: {"type_layer": kind, **kw}
+    next(n for n in desc["neural_networks"] if n["nn_name"] == "readout")["nn_architecture"] = [
+        layer("Dense", units=256, activation="selu", kernel_regularizer=0.1),
+        layer("LayerNormalization"),
+        layer("Dropout", rate=0.1),
+        layer("Dense", units=256, kernel_regularizer=0.1),
+        layer("PReLU"),
+        layer("BatchNormalization"),
+        layer("ChipScale", gain=1.5),
+        layer("Activation", activation="relu"),
+        layer("AlphaDropout", rate=0.05),
+        layer("GaussianNoise", stddev=0.01),
+        layer("ReLU", max_value=6),
+        layer("ELU"),
+        layer("LeakyReLU"),
+        layer("Dense", units=1, activation="None", kernel_regularizer=0.01),
+    ]
+    if optimizer is not None:
+        desc["learning_options"]["optimizer"] = dict(optimizer, schedule=LANGUAGE_SCHEDULE)
+    return desc
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """The plain path on the card: every kernel wrapper that the model code
+    calls swapped for its plain version (the functions the CPU runs), so
+    that a run on the card draws its dropout masks from the same device
+    generator as the kernel path."""
+    import ignnition_tpu_torch.nn.rnn as t_rnn
+    import ignnition_tpu_torch.ops.segment as t_seg
+    from ignnition_tpu_torch.ops.cuda import attention_kernels as ak
+    from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+    swaps = [(t_rnn, "masked_gru_scan", rk.masked_gru_scan_plain),
+             (t_seg, "sorted_segment_sum_csr", sk.sorted_segment_sum_csr_plain),
+             (t_seg, "sorted_segment_sum_csr_windows", sk.sorted_segment_sum_csr_windows_plain),
+             (t_seg, "sorted_segment_sum_ids", sk.sorted_segment_sum_ids_plain),
+             (t_seg, "flash_gat_forward", ak.flash_gat_forward_plain),
+             (t_seg, "flash_gat_backward", ak.flash_gat_backward_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def step_launches(what, trainer, state, batch, meta, steps, counts, add, **want):
+    """`steps` training steps, each one's launches held to `want`; returns
+    the state and each step's (total, loss, reg)."""
+    step, rows = trainer.train_step_fn(meta), []
+    for i in range(steps):
+        counts.reset()
+        state, m = step(state, batch)
+        got = counts.read()
+        add(got)
+        expect_counts(f"{what} step {i}", got, **want)
+        rows.append(tuple(float(m[k]) for k in ("total", "loss", "reg")))
+    if not np.all(np.isfinite(rows)):
+        raise AssertionError(f"{what}: a loss is not finite: {rows}")
+    print(f"  {what}: loss+reg " + " ".join(f"{r[0]:.5f}" for r in rows))
+    return state, rows
+
+
+def serve_requests(what, server, samples, n_rows, counts, add, **want) -> None:
+    """Answer each request, holding its launches to `want`."""
+    for i, sample in enumerate(samples):
+        counts.reset()
+        preds = server.predict_samples([sample])
+        got = counts.read()
+        add(got)
+        if preds.shape != (n_rows,) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"{what} request {i}: {preds.shape} or non-finite")
+        expect_counts(f"{what} request {i} ({n_rows} predictions, mean {preds.mean():.5f})",
+                      got, **want)
+
+
+def serving_times(what, server, sample, card, dev) -> dict:
+    """Forward (CUDA events) and whole-request (host clock) medians and the
+    forward's profile."""
+    from ignnition_tpu_torch.batch import to_device
+
+    arrays = server.build_batch([sample])
+    inputs = to_device({k: v for k, v in arrays.items()
+                        if k not in ("label", "label_mask")}, dev)
+    fwd = forward_ms(server, inputs)
+    e2e = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        server.predict_samples([sample])
+        e2e.append((time.perf_counter() - t1) * 1e3)
+    out = dict(forward_ms=float(np.median(fwd)), request_ms=float(np.median(e2e[1:])))
+    print(f"[latency] {what}: device forward median {out['forward_ms']:.3f} ms (20 runs, "
+          f"CUDA events); whole request median {out['request_ms']:.1f} ms (3 runs, host "
+          f"clock) on {card}")
+    out.update(print_profile(f"{what} forward", lambda: server.forward_device(inputs),
+                             out["forward_ms"]))
+    return out
+
+
+def flagship_layers(dev, card: str, counts, add) -> tuple:
+    """(a): the flagship with every built-in layer kind and `ChipScale` in its
+    readout. Serving (3 requests, kernels vs the plain path on the CPU in f32
+    and bf16); the step-0 f32 gradients of the kernel path against the plain
+    path, both on the card from one generator state (the same masks);
+    `training=False` output independent of the generator; 5 bf16 steps with
+    their launches (B x8, C x8, A x7 as the flagship's), step time and
+    profile. Returns (result, (padding, the training arrays and meta, the
+    initial tree))."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params
+
+    ir = igt.parse_model_description(layers_description(), FEATURE_DIMS)
+    params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+    kinds = [layer.kind for layer in ir.readout[0].mlp.layers]
+    print(f"[language] (a) flagship readout: {' -> '.join(kinds)}")
+    rng = np.random.default_rng(SEED + 6)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    out = {}
+
+    samples = [make_sample(rng, **FLAGSHIP) for _ in range(N_FLAGSHIP_REQUESTS)]
+    server = serve_one_size(dev, ir, params, samples, padding)
+    serve_requests("(a) layers", server, samples, FLAGSHIP["n_paths"], counts, add,
+                   masked_gru_scan=ITERATIONS)
+    kernels_vs_plain_forward("(a) layers", server, ir, params, samples[0], dev,
+                             (None, torch.bfloat16))
+    out["serving"] = serving_times("(a) layers", server, samples[0], card, dev)
+
+    arrays, meta = igt.build_batch([make_sample(rng, **FLAGSHIP)], ir, padding, training=True)
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+    batch = to_device(arrays, trainer.device)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+
+    # step 0 in f32: kernels vs plain, both on the card, one generator state
+    f32 = igt.Trainer(igt.build(ir), padding, compute_dtype=None)
+    runs = {}
+    for name, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_on_card()),
+                      ("another seed", contextlib.nullcontext())):
+        f32.generator.manual_seed(SEED + (name == "another seed"))
+        counts.reset()
+        with ctx:
+            runs[name] = f32.grads_fn(meta)(state.params, batch)
+        if name == "plain" and any(counts.read().values()):
+            raise AssertionError(f"the plain path launched kernels: {counts.read()}")
+    (g_k, m_k), (g_p, m_p), (g_o, m_o) = runs.values()
+    compare("(a) step-0 loss+reg, kernels vs plain (card, one generator state) f32",
+            m_k["total"], m_p["total"], atol=1e-4, rtol=1e-4,
+            why="f32 sums in another order; the same dropout masks and noise")
+    want = flatten_params(g_p)
+    for k, g in flatten_params(g_k).items():
+        top = float(want[k].abs().max())
+        compare(f"(a) step-0 gradient {k} (largest entry {top:.3e})", g, want[k],
+                atol=1e-4 * top + 1e-7, rtol=1e-3,
+                why="f32 sums in another order; 1e-4 of the leaf's largest entry")
+        if k.split("/")[-1] in BN_STATS and g.any():
+            raise AssertionError(f"{k}: a moving statistic has a non-zero gradient")
+    print(f"  (a) another generator seed: loss+reg {float(m_o['total']):.6f} against "
+          f"{float(m_k['total']):.6f} (other masks)")
+    if float(m_o["total"]) == float(m_k["total"]):
+        raise AssertionError("(a): the training loss does not depend on the masks")
+    with torch.no_grad():
+        outs = [trainer.model.apply(state.params, batch, meta, compute_dtype=torch.bfloat16,
+                                    generator=g)
+                for g in (None, torch.Generator(dev).manual_seed(1),
+                          torch.Generator(dev).manual_seed(2))]
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError("(a): training=False output depends on the generator")
+    print("  (a) training=False: the same predictions with no generator and with two seeds")
+
+    init = {k: v.detach().clone() for k, v in flatten_params(state.params).items()}
+    a = "adj_links_paths"
+    windows = (arrays[f"slice_sort_row_ptr_{a}"].shape[0] - 1) // meta.nodes("link")
+    trainer.generator.manual_seed(SEED)
+    state, rows = step_launches(
+        "(a) layers training", trainer, state, batch, meta, LANGUAGE_TRAIN_STEPS, counts, add,
+        csr_segment_sum=ITERATIONS - 1,
+        csr_segment_sum_windows=ITERATIONS - 1 if windows > 1 else 0,
+        masked_gru_scan=ITERATIONS, masked_gru_scan_bwd=ITERATIONS)
+    now = flatten_params(state.params)
+    for k, v in init.items():
+        moved = not torch.equal(now[k].detach(), v)
+        if moved == (k.split("/")[-1] in BN_STATS):
+            raise AssertionError(f"(a) {k}: moved {moved} under Adam")
+    print("  (a) every leaf moved but the moving statistics, which Adam leaves where they are")
+    out["training"] = dict(losses=[r[0] for r in rows], **time_training_step(
+        "(a) layers", trainer.train_step_fn(meta), state, batch, arrays, card))
+    return out, (padding, arrays, meta, params)
+
+
+def optimizers(dev, counts, add, padding, arrays, meta, tree) -> dict:
+    """(b): each case of `OPTIMIZER_CASES` trains (a)'s model 3 f32 steps on
+    (a)'s batch on the card from one tree and one generator state: the
+    kernel path, and the plain path on the card in f32 and in f64 (f32
+    masters). Held: the optimizer on the card, a copy of it over f64
+    masters and f64 state taking the kernel path's gradients step by step,
+    every leaf of the f32 run within 1e-5 of its largest entry of the f64
+    copy's (the CPU tests' limit against optax), and the moving statistics
+    exact: still under every kind but AdamW, whose decay scales them by
+    (1 - lr_t wd) a step. Printed, not held: phase 9 (e)'s rule (each leaf
+    of the kernel path within 1e-4 of its largest entry of the f64 run's,
+    or `F32_SPREAD_MULTIPLE` times the plain f32's distance), and each
+    step's gradient distance of both f32 paths from the f64 run at the
+    worst leaf. The rule's control computes the f64 run's own algorithm in
+    f32, while kernels B and C compute in another order, so that the kernel
+    path's gradients can lie several times further from f64 at a leaf; the
+    normalizing optimizers carry that into the parameters, and the rule's
+    verdict then turns on the leaf (PERF.md §6)."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.frontend.ir import ScheduleSpec
+    from ignnition_tpu_torch.model.builder import flatten_params, map_params
+    from ignnition_tpu_torch.training.optimizers import build_schedule
+
+    batch = to_device(arrays, dev)
+    init = {k: v.detach().cpu() for k, v in flatten_params(tree).items()}
+    schedule = build_schedule(ScheduleSpec(kind="ExponentialDecay", params={
+        k: v for k, v in LANGUAGE_SCHEDULE.items() if k != "type"}))
+    out = {}
+    for case, optimizer in OPTIMIZER_CASES.items():
+        ir = igt.parse_model_description(layers_description(optimizer), FEATURE_DIMS)
+        ends, grads = {}, {}
+        for name, ctx, dtype in (("kernels", contextlib.nullcontext(), None),
+                                 ("plain", plain_on_card(), None),
+                                 ("plain f64", plain_on_card(), torch.float64)):
+            trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=dtype)
+            state = trainer.init_state(params=tree)
+            tx = trainer.optimizer
+            if name == "kernels":
+                shadow = map_params(lambda v: v.detach().to(torch.float64), state.params)
+                shadow_state = tx.init(shadow)
+            trainer.generator.manual_seed(SEED)
+            grads_fn, grads[name] = trainer.grads_fn(meta), []
+            counts.reset()
+            with ctx:
+                for _ in range(OPTIMIZER_STEPS):
+                    g, m = grads_fn(state.params, batch)
+                    tx.step(state.params, g, state.opt_state)
+                    if name == "kernels":
+                        tx.step(shadow, map_params(lambda v: v.to(torch.float64), g),
+                                shadow_state)
+                    grads[name].append({k: v.detach().cpu() for k, v in flatten_params(g).items()})
+            got = counts.read()
+            if name == "kernels":
+                add(got)
+                expect_counts(f"(b) {case}, {OPTIMIZER_STEPS} steps", got,
+                              csr_segment_sum=(ITERATIONS - 1) * OPTIMIZER_STEPS,
+                              csr_segment_sum_windows=got["csr_segment_sum_windows"],
+                              masked_gru_scan=ITERATIONS * OPTIMIZER_STEPS,
+                              masked_gru_scan_bwd=ITERATIONS * OPTIMIZER_STEPS)
+            elif any(got.values()):
+                raise AssertionError(f"(b) the plain path launched kernels: {got}")
+            if not np.isfinite(float(m["total"])):
+                raise AssertionError(f"(b) {case} {name}: the loss is not finite")
+            ends[name] = {k: v.detach().cpu() for k, v in flatten_params(state.params).items()}
+        # held: the f32 optimizer against its f64 copy on the same gradients
+        vs_copy = leaf_gaps(ends["kernels"], flatten_params(shadow))
+        arith = max(vs_copy, key=vs_copy.get)
+        print(f"  (b) {case}: the optimizer's f32 arithmetic on the card, worst leaf {arith} "
+              f"{vs_copy[arith]:.3e} of its largest entry from an f64 copy on the same "
+              f"gradients (limit 1e-5)")
+        if vs_copy[arith] > 1e-5:
+            raise AssertionError(f"(b) {case}: {arith} lies past 1e-5 of the f64 copy")
+        decay = 1.0
+        if optimizer["type"] == "AdamW":
+            for t in range(OPTIMIZER_STEPS):
+                decay *= 1.0 - schedule(t) * optimizer["weight_decay"]
+        for k in init:
+            if k.split("/")[-1] in BN_STATS:
+                end, want = ends["kernels"][k], init[k] * decay
+                if not torch.allclose(end.double(), want.double(), rtol=1e-6, atol=0.0):
+                    raise AssertionError(f"(b) {case}: {k} is {end[:4]}, not {want[:4]}")
+        # printed: phase 9 (e)'s rule, and where the gradients part
+        card_f64 = leaf_gaps(ends["kernels"], ends["plain f64"])
+        plain_f64 = leaf_gaps(ends["plain"], ends["plain f64"])
+        limit = {k: max(1e-4, F32_SPREAD_MULTIPLE * v) for k, v in plain_f64.items()}
+        worst = max(card_f64, key=lambda k: card_f64[k] / limit[k])
+        steps = [(leaf_gaps(gk, gf)[worst], leaf_gaps(gp, gf)[worst]) for gk, gp, gf in zip(
+            grads["kernels"], grads["plain"], grads["plain f64"])]
+        print(f"  (b) {case}: training against the f64 run, worst leaf {worst} "
+              f"{card_f64[worst]:.3e} of its largest entry (phase 9 (e)'s rule "
+              f"{'allows' if card_f64[worst] <= limit[worst] else 'would refuse past'} "
+              f"{limit[worst]:.3e}; the plain f32's {plain_f64[worst]:.3e}); its gradients "
+              "from the f64 run's a step, kernels / plain f32: "
+              + ", ".join(f"{a:.2e} / {b:.2e}" for a, b in steps))
+        out[case] = dict(optimizer_vs_f64_copy=vs_copy[arith], worst_leaf=worst,
+                         distance=card_f64[worst], rule_limit=limit[worst],
+                         plain_f32_distance=plain_f64[worst],
+                         gradient_distances=steps)
+    print(f"[language] (b) {len(OPTIMIZER_CASES)} optimizer cases held; the moving statistics "
+          "moved under AdamW alone, by its decay")
+    return out
+
+
+def attention_reference(dev, card: str, counts, add) -> dict:
+    """(c): phase 5's attention flagship with `attention_softmax: reference`
+    (the reference's softmax over each graph's destinations): the per-edge
+    form, whatever the batch holds, its weighted sum through kernel A, no
+    kernel D or E. Served and trained, held to the plain path (CPU)."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+
+    desc = attention_description()
+    desc["message_passing"]["stages"][1]["stage_mp"][0]["aggregation"][
+        "attention_softmax"] = "reference"
+    ir = igt.parse_model_description(desc, FEATURE_DIMS)
+    params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 7)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    out = {}
+    samples = [make_sample(rng, **FLAGSHIP) for _ in range(N_FLAGSHIP_REQUESTS)]
+    server = serve_one_size(dev, ir, params, samples, padding)
+    # a forward: B at each iteration's stage 1, A at each stage 2's weighted sum
+    serve_requests("(c) reference attention", server, samples, FLAGSHIP["n_paths"], counts,
+                   add, masked_gru_scan=ITERATIONS, csr_segment_sum=ITERATIONS)
+    kernels_vs_plain_forward("(c) reference attention", server, ir, params, samples[0], dev,
+                             (None, torch.bfloat16))
+    out["serving"] = serving_times("(c) reference attention", server, samples[0], card, dev)
+
+    arrays, meta = igt.build_batch([make_sample(rng, **FLAGSHIP)], ir, padding, training=True)
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+    batch = to_device(arrays, trainer.device)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    step0_gradients_vs_plain("(c) reference attention", ir, padding, arrays, meta, state,
+                             batch, noise=1e-7)
+    # kernel A a step: the weighted sum at each iteration (forward); the slice
+    # gather's, the edge gather's and the destination scores' backwards but
+    # at the last iteration, whose link states no prediction reads
+    state, rows = step_launches(
+        "(c) reference attention training", trainer, state, batch, meta,
+        LANGUAGE_REFERENCE_STEPS, counts, add,
+        csr_segment_sum=ITERATIONS + 3 * (ITERATIONS - 1),
+        masked_gru_scan=ITERATIONS, masked_gru_scan_bwd=ITERATIONS)
+    out["training"] = dict(losses=[r[0] for r in rows], **time_training_step(
+        "(c) reference attention", trainer.train_step_fn(meta), state, batch, arrays, card))
+    return out
+
+
+def qsize_attention(dev, card: str, counts, add) -> dict:
+    """(d): Q-size with stage 1's interleave replaced by attention over its
+    two sources (link and node states into each path) at the shapes of
+    phase 6: the sources' edges concatenated, `segment_softmax` and the
+    library's unsorted sum, then one GRU cell step. Served and trained,
+    held to the plain path (CPU); its launches reported."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+
+    igt.register_normalization("normalization_queue_size", normalization_queue_size)
+    desc = qsize_description()
+    desc["message_passing"]["stages"][0]["stage_mp"][0]["aggregation"] = {"type": "attention"}
+    ir = igt.parse_model_description(desc, QSIZE_FEATURE_DIMS)
+    params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 8)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    out = {}
+    samples = [make_qsize_sample(rng, **QSIZE) for _ in range(QSIZE_REQUESTS)]
+    server = serve_one_size(dev, ir, params, samples, padding)
+    # no kernel of the port: the edge gathers, the softmax, the unsorted sum,
+    # the cell step and stage 2's incidence products are library calls
+    serve_requests("(d) qsize attention", server, samples, QSIZE["n_paths"], counts, add)
+    kernels_vs_plain_forward("(d) qsize attention", server, ir, params, samples[0], dev,
+                             (None, torch.bfloat16))
+    out["serving"] = serving_times("(d) qsize attention", server, samples[0], card, dev)
+
+    arrays, meta = igt.build_batch([make_qsize_sample(rng, **QSIZE)], ir, padding,
+                                   training=True)
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+    batch = to_device(arrays, trainer.device)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    step0_gradients_vs_plain("(d) qsize attention", ir, padding, arrays, meta, state, batch,
+                             noise=1e-7)
+    # kernel A: each source's edge gather backward, but at the first
+    # iteration, whose link and node states need no gradient
+    state, rows = step_launches(
+        "(d) qsize attention training", trainer, state, batch, meta,
+        LANGUAGE_REFERENCE_STEPS, counts, add, csr_segment_sum=2 * (ITERATIONS - 1))
+    edges = sum(int(np.sum(v > 0)) for k, v in arrays.items() if k.startswith("edge_mask_"))
+    out["training"] = dict(losses=[r[0] for r in rows], **time_training_step(
+        "(d) qsize attention", trainer.train_step_fn(meta), state, batch, arrays, card,
+        edge_messages=ITERATIONS * edges))
+    return out
+
+
+def tensorboard_run(dev, counts, add) -> dict:
+    """(e): `Trainer.train` on (a)'s model for 5 bf16 steps over a dataset
+    of the port's `write_dataset` with a TensorBoard directory; the event
+    file read back holds each step's loss scalars, equal to the logged
+    ones."""
+    import shutil
+    import tempfile
+
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.data.synthetic import write_dataset
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    ir = igt.parse_model_description(layers_description(), FEATURE_DIMS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tb_")
+    try:
+        data_dir, tb = os.path.join(root, "train"), os.path.join(root, "tb")
+        write_dataset(data_dir, 1, TENSORBOARD["samples"], seed=SEED, **API_SAMPLE)
+        trainer = igt.Trainer(igt.build(ir), compute_dtype=torch.bfloat16)
+        steps = TENSORBOARD["steps"]
+        counts.reset()
+        with StepLosses() as log:
+            state = trainer.train(trainer.init_state(torch.Generator().manual_seed(SEED)),
+                                  data_dir, steps, batch_size=TENSORBOARD["batch"],
+                                  shuffle=False, log_every=1, tensorboard_dir=tb)
+        got = counts.read()
+        add(got)
+        expect_counts(f"(e) train() with tensorboard_dir, {steps} steps", got,
+                      csr_segment_sum=(ITERATIONS - 1) * steps,
+                      csr_segment_sum_windows=got["csr_segment_sum_windows"],
+                      masked_gru_scan=ITERATIONS * steps,
+                      masked_gru_scan_bwd=ITERATIONS * steps)
+        events = EventAccumulator(tb)
+        events.Reload()
+        scalars = {tag: [(e.step, e.value) for e in events.Scalars(tag)]
+                   for tag in ("loss", "regularization_loss", "total_loss")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    logged = {"loss": [r[0] for r in log.rows], "regularization_loss": [r[1] for r in log.rows],
+              "total_loss": [r[2] for r in log.rows]}
+    for tag, rows in scalars.items():
+        if [s for s, _ in rows] != list(range(1, steps + 1)):
+            raise AssertionError(f"(e) {tag}: steps {[s for s, _ in rows]}")
+        compare(f"(e) TensorBoard scalar {tag} of {steps} steps against the logged values",
+                torch.tensor([v for _, v in rows]), torch.tensor(logged[tag]),
+                atol=0.0, rtol=1e-6, why="the event file stores float32")
+    if state.step != steps:
+        raise AssertionError(f"(e) train() ended at step {state.step}")
+    return {tag: [v for _, v in rows] for tag, rows in scalars.items()}
+
+
+def description_language(dev, card: str) -> dict:
+    """Phase 10: (a) the flagship with every built-in layer and a registered
+    one in its readout, (b) every optimizer, (c) the reference attention
+    softmax, (d) attention over Q-size's two sources, (e) TensorBoard."""
+    import ignnition_tpu_torch as igt
+
+    counts = Counts()
+    total = {k: 0 for k in counts.read()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    igt.register_layer("ChipScale", chip_scale_init, chip_scale_apply)
+    result = {}
+    result["flagship_layers"], (padding, arrays, meta, tree) = flagship_layers(
+        dev, card, counts, add)
+    result["optimizers"] = optimizers(dev, counts, add, padding, arrays, meta, tree)
+    result["attention_reference"] = attention_reference(dev, card, counts, add)
+    result["qsize_attention"] = qsize_attention(dev, card, counts, add)
+    result["tensorboard"] = tensorboard_run(dev, counts, add)
+    print("[language] main path launch counts: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, **result)
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -3963,6 +4487,10 @@ def main() -> None:
     # ---- phase 9: the entry points ----
     api = entry_points(dev, card, trained["steps"]["flagship"]["step_ms"])
     seconds["entry points"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 10: the description language ----
+    language = description_language(dev, card)
+    seconds["description language"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -3995,8 +4523,9 @@ def main() -> None:
         on_homogeneous = homog["launches"][name]
         on_item1 = item1["launches"][name]
         on_api = api["launches"][name]
+        on_language = language["launches"][name]
         launches = (on_serving + on_training + on_attention + on_qsize + on_mlp
-                    + on_homogeneous + on_item1 + on_api)
+                    + on_homogeneous + on_item1 + on_api + on_language)
         if launches == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
@@ -4005,6 +4534,7 @@ def main() -> None:
             launches_attention=on_attention, launches_qsize=on_qsize,
             launches_mlp_message=on_mlp, launches_homogeneous=on_homogeneous,
             launches_blocks_g4_and_x8=on_item1, launches_api=on_api,
+            launches_description_language=on_language,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -4037,6 +4567,8 @@ def main() -> None:
                       "homogeneous": {k: v for k, v in homog.items() if k != "launches"},
                       "blocks_g4_and_x8": {k: v for k, v in item1.items() if k != "launches"},
                       "api": {k: v for k, v in api.items() if k != "launches"},
+                      "description_language": {k: v for k, v in language.items()
+                                               if k != "launches"},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

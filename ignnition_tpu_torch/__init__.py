@@ -10,12 +10,18 @@ its attention family, the Q-size model, and the homogeneous-graph models:
 multi-source message passing; direct messages and message networks;
 ordered, interleave, concat, sum, attention and convolution aggregations;
 recurrent and feed-forward updates; the neural_network, pooling, product,
-extend_adjacencies and predict readouts). Serving: `build` a
+extend_adjacencies and predict readouts; every built-in layer kind of the
+description language and custom kinds through `register_layer`, the
+readout's dropout-style layers drawing from the trainer's generator in
+training; both attention softmax modes and attention over several
+sources). Serving: `build` a
 `GnnModel` from a parsed description, move a `build_batch` result to the
 device with `batch.to_device`, and serve it with `ServingModel`. Training:
 `Trainer` (`init_state`, `train_step_fn`, `accum_train_step_fn`,
 `eval_step_fn`, `train`, `evaluate`, `predict`, checkpoints) with the
-losses, Adam/SGD and the learning-rate schedules. The user's verbs, as in
+losses, every optimizer of the JAX package (Adam with or without amsgrad,
+AdamW, SGD, RMSprop, Adagrad, Adadelta, Adamax, Nadam) and the
+learning-rate schedules. The user's verbs, as in
 the JAX package: `create_model(config)`, `train_and_evaluate(model)`,
 `Runner(model).evaluate(state)`, `predict(model, state)`, with the run
 configuration of `config.RunConfig` (`train_options.ini`). The entry points run on the
@@ -42,6 +48,7 @@ from .frontend import (
     parse_model_file,
 )
 from .model import GnnModel, build, params_from_jax
+from .nn.layers import register_layer
 from .serving import ServingModel
 from .training import Trainer, TrainState, build_optimizer, build_schedule, get_loss
 from .utils import get_normalization, register_normalization
@@ -70,6 +77,7 @@ __all__ = [
     "params_from_jax",
     "parse_model_description",
     "parse_model_file",
+    "register_layer",
     "register_normalization",
     "__version__",
 ]

@@ -42,10 +42,15 @@ Aggregations, by branch, in the JAX package's order:
     incidence products (message tables) and the CSR sums
     (`_one_source_sum`, kernel A); a factored last layer is applied to
     each part at node rate (`_finish`); the parts add;
-  * `attention` (per-destination GAT softmax, one source): block-diagonal
-    or dense attention over the int8 incidence matrix (message tables;
-    kernels D and E), else the per-edge form over the sorted edge
-    messages (`_attention`, kernel A);
+  * `attention` (GAT): in the `per_destination` softmax mode over one
+    source, block-diagonal or dense attention over the int8 incidence
+    matrix (message tables; kernels D and E), else the per-edge form
+    (`_attention`): over the sorted edge messages with row pointers the
+    fused softmax-sum (kernel A), else `seg.segment_softmax` and a sum; the
+    `reference` mode (the reference's softmax over each graph's
+    destinations) and several sources (their edges concatenated) always
+    take the per-edge form, its weighted sum kernel A where a single
+    source has row pointers;
   * `convolution` (GCN-style, `_convolution`): the messages times the
     pass's kernel summed by the block-diagonal or dense incidence product
     (message tables), else by the sorted sum (kernel A with row pointers),
@@ -56,15 +61,16 @@ recurrent cell step or a feed-forward network over [aggregated, state]
 (`{dst}_ff_update`, shared per destination).
 
 The readout (`_readout`) runs the JAX package's pipeline: `neural_network`
-and `predict` (Dense networks), `pooling` of entity rows per graph
+and `predict` networks, `pooling` of entity rows per graph
 (`seg.graph_pool`: the id-keyed kernel for sum and mean), `product`
 (element-wise, or the row-wise dot product) and `extend_adjacencies` (the
 final states gathered per edge, both backwards kernel A); graph-level
 tensors broadcast onto entity rows, and a readout input may be a batch
-feature. What is not ported (layers other than Dense, multi-source
-attention, the `reference` softmax, per-edge attention without row
-pointers) raises NotImplementedError naming it, when the model is built or,
-for the last, run.
+feature. Networks take every built-in layer kind and the kinds registered
+with `register_layer`; in a training step (`apply(training=True,
+generator=)`) the readout's Dropout, AlphaDropout and GaussianNoise draw
+from the generator, while message and update networks stay deterministic
+(a Dropout there is the identity in training too), as in the JAX package.
 
 `apply(params, batch, meta)` is a function of a parameter tree, which the
 trainer differentiates (its leaves require grad; the batch's training
@@ -97,7 +103,7 @@ from ..data.graph import interleave_tag as IVT
 from ..frontend import ir as IR
 from ..nn import mlp as MLP
 from ..nn import rnn as RNN
-from ..nn.layers import activation, glorot_uniform, unsupported_layer
+from ..nn.layers import SUPPORTED_LAYERS, activation, glorot_uniform
 from ..ops import segment as seg
 
 
@@ -106,11 +112,6 @@ class BuildError(ValueError):
 
 
 _SEQUENCE_AGGS = ("ordered", "concat", "interleave")
-_PORTED_AGGS = _SEQUENCE_AGGS + ("sum", "attention", "convolution")
-
-
-def _unported(feature: str) -> NotImplementedError:
-    return NotImplementedError(f"{feature} is not ported to ignnition_tpu_torch yet")
 
 
 _SPLIT_INPUTS = ("hs_source", "hs_dest", "edge_params")
@@ -370,39 +371,10 @@ class GnnModel(nn.Module):
         super().__init__()
         self.ir = model_ir
         self.state_dims = model_ir.state_dims()
-        self._check_supported()
         self.dims = _resolve_dims(model_ir)
         self.domains = infer_readout_domains(model_ir)
         self._structure: Dict[str, Any] = {}
         self.params = nn.ParameterDict()
-
-    def _check_supported(self) -> None:
-        ir = self.ir
-        networks = [op.mlp for op in ir.readout if op.mlp is not None]
-        for stage in ir.stages:
-            for mp in stage.passes:
-                networks += [op.mlp for src in mp.sources for op in src.ops if op.kind == "mlp"]
-                if mp.update.kind == "mlp":
-                    networks.append(mp.update.mlp)
-                if mp.aggregation.kind not in _PORTED_AGGS:
-                    raise _unported(f"the '{mp.aggregation.kind}' aggregation")
-                if len(mp.sources) != 1 and mp.aggregation.kind == "attention":
-                    raise _unported(
-                        f"multi-source message passing with the attention "
-                        f"aggregation (destination '{mp.destination}')"
-                    )
-                if (
-                    mp.aggregation.kind == "attention"
-                    and mp.aggregation.attention_softmax != "per_destination"
-                ):
-                    raise _unported(
-                        f"the '{mp.aggregation.attention_softmax}' attention softmax "
-                        f"mode (attention_softmax; only per_destination is ported)"
-                    )
-        for mlp in networks:
-            for layer in mlp.layers:
-                if layer.kind != "Dense":
-                    raise unsupported_layer(layer.kind, mlp.name)
 
     # ------------------------------------------------------------------
     # parameters
@@ -535,6 +507,9 @@ class GnnModel(nn.Module):
         batch: Mapping[str, torch.Tensor],
         meta: BatchMeta,
         compute_dtype: Optional[torch.dtype] = None,
+        *,
+        training: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Predictions [rows] (last dim squeezed when 1), float32, from the
         parameter tree `params` (JAX layout, float32 tensors).
@@ -542,7 +517,13 @@ class GnnModel(nn.Module):
         compute_dtype (e.g. torch.bfloat16): parameters and hidden states are
         cast to it with explicit casts, as the JAX `apply(compute_dtype=)`
         does, so gradients arrive in float32 on the tree's leaves;
-        predictions come back as float32."""
+        predictions come back as float32.
+
+        training: the readout's random layers (Dropout, AlphaDropout,
+        GaussianNoise) draw from `generator`, and raise without one; with
+        training=False they are the identity and `generator` is not read.
+        Message and update networks are deterministic either way, as in the
+        JAX package."""
         ir = self.ir
         if compute_dtype is not None:
             params = map_params(lambda v: v.to(compute_dtype), params)
@@ -573,7 +554,7 @@ class GnnModel(nn.Module):
         for _ in range(ir.num_iterations):
             states = self._message_passing_iteration(params, batch, meta, states, cache)
 
-        preds = self._readout(params, batch, meta, states)
+        preds = self._readout(params, batch, meta, states, training, generator)
         if compute_dtype is not None:
             preds = preds.to(torch.float32)
         return preds
@@ -609,9 +590,9 @@ class GnnModel(nn.Module):
                         ]
                         part = sum(parts[1:], parts[0])
                     elif kind == "attention":
-                        (s,) = sources
                         part = self._attention_aggregate(
-                            params["aggregation"][f"s{si}/m{mi}"], s, dst_states, batch, n_dst
+                            params["aggregation"][f"s{si}/m{mi}"], mp, sources,
+                            dst_states, batch, meta, n_dst,
                         )
                     else:
                         part = self._convolution(
@@ -782,9 +763,13 @@ class GnnModel(nn.Module):
             # an hs_dest-only chain: each of a destination's edges carries the
             # same message, so it is broadcast over the slots
             pre = part.expand((L,) + part.shape[1:]) if pre is None else pre + part
-        if want_prefix:
-            return MLP.prefix_from_first_preact(op.mlp, pkey, pre)
-        return MLP.apply_from_first_preact(op.mlp, pkey, pre)
+        tail = MLP.prefix_from_first_preact if want_prefix else MLP.apply_from_first_preact
+        if all(layer.kind in SUPPORTED_LAYERS for layer in op.mlp.layers):
+            return tail(op.mlp, pkey, pre)
+        # a custom layer may act on more than the last axis: it sees the
+        # slots as [L * n_dst, H] rows, as in the JAX package
+        rows = tail(op.mlp, pkey, pre.reshape(-1, pre.shape[-1]))
+        return rows.reshape(pre.shape[0], pre.shape[1], -1)
 
     # ------------------------------------------------------------------
     # aggregations
@@ -935,50 +920,107 @@ class GnnModel(nn.Module):
             s.messages, s.dst_idx, n_dst, row_ptr=row_ptr, indices_are_sorted=True
         )
 
-    def _attention_aggregate(self, ap, s, dst_states, batch, n_dst):
-        """Per-destination GAT attention over one destination-sorted source,
-        by the best lowering the batch and the messages allow: for a message
-        table block-diagonal attention > dense attention over the incidence
-        matrix (both kernels D and E; the int8 matrix goes in as it is);
-        else per-edge attention over the edge messages (`_attention`, kernel
-        A). The JAX package's slot-rate lowering (`_slot_attention`), which
-        it would try first for per-edge networks and for tables without an
-        incidence matrix, is not ported: the per-edge form computes the same
-        function."""
+    def _attention_aggregate(self, ap, mp, sources, dst_states, batch, meta, n_dst):
+        """GAT attention by the best lowering the batch and the messages
+        allow, in the JAX package's order: in the `per_destination` mode
+        over one message table, block-diagonal attention > dense attention
+        over the incidence matrix (both kernels D and E; the int8 matrix
+        goes in as it is); else, and always in the `reference` mode or over
+        several sources, the per-edge form (`_attention`). The JAX package's
+        slot-rate lowering (`_slot_attention`), which it would try first for
+        per-edge networks and for tables without an incidence matrix, is not
+        ported: the per-edge form computes the same function."""
+        s = sources[0]
         a, table = s.adj, s.table
-        if table is not None and f"inc_blocks_{a}" in batch:
-            return seg.dense_attention_aggregate_blocks(
-                table, dst_states, batch[f"inc_blocks_{a}"],
-                ap["kernel1"], ap["kernel2"], ap["attn_kernel"], n_dst,
-            )
-        if table is not None and f"dense_inc_{a}" in batch:
-            return seg.dense_attention_aggregate(
-                table, dst_states, batch[f"dense_inc_{a}"],
-                ap["kernel1"], ap["kernel2"], ap["attn_kernel"],
-            )
-        return self._attention(ap, s, dst_states, batch, n_dst)
+        reference = mp.aggregation.attention_softmax == "reference"
+        if len(sources) == 1 and not reference and table is not None:
+            if f"inc_blocks_{a}" in batch:
+                return seg.dense_attention_aggregate_blocks(
+                    table, dst_states, batch[f"inc_blocks_{a}"],
+                    ap["kernel1"], ap["kernel2"], ap["attn_kernel"], n_dst,
+                )
+            if f"dense_inc_{a}" in batch:
+                return seg.dense_attention_aggregate(
+                    table, dst_states, batch[f"dense_inc_{a}"],
+                    ap["kernel1"], ap["kernel2"], ap["attn_kernel"],
+                )
+        return self._attention(ap, mp, sources, dst_states, batch, meta, n_dst)
 
-    def _attention(self, ap, s, dst_states, batch, n_dst):
-        """Per-edge GAT attention in the `per_destination` mode over a sorted
-        edge list: scores decompose into a per-edge source scalar and a
-        per-node destination scalar gathered per edge (8 lanes wide, as in
-        the JAX package; `seg.gather_by_dst`'s transpose is kernel A), then
-        the fused `seg.sorted_softmax_aggregate`."""
-        row_ptr = batch.get(f"row_ptr_{s.adj}")
-        if row_ptr is None:
-            raise _unported(
-                "per-edge attention without CSR row pointers (segment_softmax)"
-            )
-        messages = s.messages
+    def _attention(self, ap, mp, sources, dst_states, batch, meta, n_dst):
+        """Per-edge GAT attention (the JAX `_attention`) over the sources'
+        edges, concatenated when there are several. Scores decompose into a
+        per-edge source scalar and a per-node destination scalar gathered
+        per edge: for one sorted source with row pointers 8 lanes wide, as
+        in the JAX package (`seg.gather_by_dst`'s transpose is kernel A),
+        else by plain indexing. Then, by softmax mode:
+          * `per_destination` with row pointers: the fused
+            `seg.sorted_softmax_aggregate` (kernel A);
+          * `per_destination` otherwise: `seg.segment_softmax` weights;
+          * `reference`: `_reference_weights`;
+        and the weighted messages summed per destination: kernel A for one
+        source with row pointers, else the library's unsorted sum (the JAX
+        package's XLA sum, in the input dtype)."""
+        single = len(sources) == 1
+        s0 = sources[0]
+        row_ptr = batch.get(f"row_ptr_{s0.adj}") if single else None
+        if single:
+            messages, dst_idx, mask = s0.messages, s0.dst_idx, s0.mask
+        else:
+            messages = torch.cat([s.messages for s in sources], 0)
+            dst_idx = torch.cat([s.dst_idx for s in sources], 0)
+            mask = torch.cat([s.mask for s in sources], 0)
         d1 = ap["kernel1"].shape[1]
         s_src = ((messages @ ap["kernel1"]) @ ap["attn_kernel"][:d1]).reshape(-1)
         s_dst_node = (dst_states @ ap["kernel2"]) @ ap["attn_kernel"][d1:]
-        s_dst8 = s_dst_node.expand(s_dst_node.shape[0], 8)
-        s_dst = seg.gather_by_dst(s_dst8, s.dst_idx, row_ptr)[:, 0]
+        if row_ptr is not None:
+            s_dst8 = s_dst_node.expand(s_dst_node.shape[0], 8)
+            s_dst = seg.gather_by_dst(s_dst8, dst_idx, row_ptr)[:, 0]
+        else:
+            s_dst = s_dst_node[dst_idx, 0]
         scores = F.leaky_relu(s_src + s_dst, 0.2)
-        return seg.sorted_softmax_aggregate(
-            messages, scores, s.dst_idx, n_dst, s.mask, row_ptr
+        if mp.aggregation.attention_softmax == "reference":
+            weights = self._reference_weights(
+                scores, sources, dst_idx, mask, batch, meta, mp.destination, n_dst
+            )
+        elif row_ptr is not None:
+            return seg.sorted_softmax_aggregate(messages, scores, dst_idx, n_dst, mask, row_ptr)
+        else:
+            weights = seg.segment_softmax(scores, dst_idx, n_dst, mask)
+        return seg.segment_sum(messages * weights[:, None], dst_idx, n_dst, row_ptr=row_ptr)
+
+    @staticmethod
+    def _reference_weights(scores, sources, dst_idx, mask, batch, meta, dst, n_dst):
+        """The `reference` softmax (the reference's axis-0 softmax of its
+        scattered [n_dst, max_len, 1] scores, per graph): the masked scores
+        scattered into each destination's sequence slots (a source's slots
+        follow the earlier sources' real messages), a softmax over the
+        destination axis per graph and slot, empty slots counting as exp(0)
+        and padding destinations excluded, and each edge's coefficient
+        picked back. The per-graph max is detached: the softmax does not
+        depend on it."""
+        lens = _lens(sources, batch, n_dst)
+        seqs = []
+        offset = torch.zeros(n_dst, dtype=torch.float32, device=scores.device)
+        for s, l in zip(sources, lens):
+            seqs.append(s.seq + offset[s.dst_idx].to(s.seq.dtype))
+            offset = offset + l
+        seq = torch.cat(seqs, 0).to(torch.int64)
+        max_len = sum(meta.maxlen(s.adj) for s in sources)
+        scattered = seg.scatter_to_sequences(
+            (scores * mask)[:, None], dst_idx, seq, n_dst, max_len
+        )[:, :, 0]
+        real = (batch[f"node_mask_{dst}"] > 0)[:, None]
+        graph_id = batch[f"graph_id_{dst}"]
+        ng = meta.num_graphs
+        gmax = seg.segment_max(
+            torch.where(real, scattered, torch.full_like(scattered, -1e30)).detach(),
+            graph_id, ng,
         )
+        ex = torch.exp(scattered - gmax[graph_id]) * real
+        den = seg.segment_sum(ex, graph_id, ng)
+        coeff = ex / torch.where(den > 0, den, torch.ones_like(den))[graph_id]
+        picked = coeff.reshape(n_dst * max_len)[dst_idx.to(torch.int64) * max_len + seq]
+        return picked * mask
 
     def _convolution(self, cp, agg, sources, dst_states, batch, n_dst, cache):
         """GCN-style aggregation (the JAX package's, lowerings in its order):
@@ -1015,11 +1057,12 @@ class GnnModel(nn.Module):
         normalized = total / torch.clamp_min(deg.to(torch.float32), 1.0)[:, None]
         return activation(agg.activation)(normalized)
 
-    def _readout(self, params, batch, meta, states):
+    def _readout(self, params, batch, meta, states, training, generator):
         """The readout pipeline (the JAX `_readout`). Intermediates live in
         `ro`, each tagged with its domain (`infer_readout_domains`), so that
         a graph-level tensor broadcasts onto entity rows where it meets one.
-        Returns the predict op's output."""
+        Its networks draw from `generator` in training. Returns the predict
+        op's output."""
         ro: Dict[str, torch.Tensor] = {}
 
         def domain_of(name):
@@ -1048,7 +1091,10 @@ class GnnModel(nn.Module):
                 xs = [broadcast_to(fetch(n), d, target) for n, d in zip(op.inputs, doms)]
                 # concatenating bf16 states with f32 features promotes to f32
                 x = torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
-                out = MLP.apply(op.mlp, params["readout"][f"op{i}"], x)
+                out = MLP.apply(
+                    op.mlp, params["readout"][f"op{i}"], x,
+                    deterministic=not training, generator=generator,
+                )
                 if op.kind == "predict":
                     result = out[:, 0] if out.shape[-1] == 1 else out
                 else:

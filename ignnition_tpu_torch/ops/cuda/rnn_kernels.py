@@ -56,14 +56,16 @@ def _cast_params(params: Mapping[str, torch.Tensor], dtype):
 def masked_gru_scan_plain(
     xs: torch.Tensor, lens: torch.Tensor, h0: torch.Tensor, params
 ) -> torch.Tensor:
-    """The same function in plain PyTorch (the reference of the kernel)."""
+    """The same function in plain PyTorch (the reference of the kernel): f32
+    arithmetic over operands rounded to the input dtype, f64 for f64 input."""
     dtype = xs.dtype
-    wx, wh, b = (p.to(torch.float32) for p in _cast_params(params, dtype))
+    acc = torch.promote_types(dtype, torch.float32)
+    wx, wh, b = (p.to(acc) for p in _cast_params(params, dtype))
     u = h0.shape[1]
-    h = h0.to(dtype).to(torch.float32)
+    h = h0.to(dtype).to(acc)
     for t in range(xs.shape[0]):
-        xw = xs[t].to(torch.float32) @ wx + b[0]
-        hw = h.to(dtype).to(torch.float32) @ wh + b[1]
+        xw = xs[t].to(acc) @ wx + b[0]
+        hw = h.to(dtype).to(acc) @ wh + b[1]
         z = torch.sigmoid(xw[:, :u] + hw[:, :u])
         r = torch.sigmoid(xw[:, u : 2 * u] + hw[:, u : 2 * u])
         hcand = torch.tanh(xw[:, 2 * u :] + r * hw[:, 2 * u :])

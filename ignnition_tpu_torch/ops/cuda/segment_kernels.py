@@ -52,13 +52,15 @@ ids_launch_count = 0  # launches of the id-keyed kernel
 
 
 def sorted_segment_sum_csr_plain(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """The same function in plain PyTorch (the reference of the kernel)."""
+    """The same function in plain PyTorch (the reference of the kernel): f32
+    sums, f64 for f64 data."""
     n = row_ptr.shape[0] - 1
     rp = row_ptr.to(torch.int64)
     counts = rp[1:] - rp[:-1]
     ids = torch.repeat_interleave(torch.arange(n, device=data.device), counts)
-    rows = data[int(rp[0]) : int(rp[0]) + ids.shape[0]].to(torch.float32)
-    out = torch.zeros((n, data.shape[1]), dtype=torch.float32, device=data.device)
+    acc = torch.promote_types(data.dtype, torch.float32)
+    rows = data[int(rp[0]) : int(rp[0]) + ids.shape[0]].to(acc)
+    out = torch.zeros((n, data.shape[1]), dtype=acc, device=data.device)
     return out.index_add_(0, ids, rows)
 
 
@@ -186,12 +188,13 @@ def sorted_segment_sum_csr_windows(
 def sorted_segment_sum_ids_plain(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
-    """The id-keyed sum in plain PyTorch (its reference): f32 sums of every
-    row whose id lies in [0, num_segments)."""
+    """The id-keyed sum in plain PyTorch (its reference): f32 sums (f64 for
+    f64 data) of every row whose id lies in [0, num_segments)."""
     ids = segment_ids.to(torch.int64)
     keep = (ids >= 0) & (ids < num_segments)
-    out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32, device=data.device)
-    return out.index_add_(0, ids[keep], data[keep].to(torch.float32))
+    acc = torch.promote_types(data.dtype, torch.float32)
+    out = torch.zeros((num_segments, data.shape[1]), dtype=acc, device=data.device)
+    return out.index_add_(0, ids[keep], data[keep].to(acc))
 
 
 def _ids_row_ptr(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -203,6 +203,41 @@ def segment_sum(
     return out.index_add_(0, segment_ids, data)
 
 
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The largest row of `data` in each segment (along the first axis), -inf
+    where a segment has no row (`jax.ops.segment_max`); the library's
+    `scatter_reduce`. Its callers detach it: a softmax does not depend on
+    the shift."""
+    index = segment_ids.to(torch.int64).reshape((-1,) + (1,) * (data.dim() - 1))
+    out = torch.full(
+        (num_segments,) + tuple(data.shape[1:]), float("-inf"), dtype=data.dtype,
+        device=data.device,
+    )
+    return out.scatter_reduce(0, index.expand_as(data), data, "amax", include_self=False)
+
+
+def segment_softmax(
+    scores: torch.Tensor,  # [E] or [E, 1]
+    segment_ids: torch.Tensor,  # [E]
+    num_segments: int,
+    mask: torch.Tensor,  # [E], 1 on real edges
+) -> torch.Tensor:
+    """Per-segment softmax of edge scores over unsorted ids (the JAX
+    `segment_softmax` without its sharded form): stabilized by each
+    segment's max over its real edges, detached as JAX's `stop_gradient`
+    does; masked edges get weight 0 and an empty segment all-zero weights.
+    In scores' dtype."""
+    scores = scores.reshape(-1)
+    on = mask > 0
+    masked = torch.where(on, scores, torch.full_like(scores, torch.finfo(scores.dtype).min))
+    seg_max = segment_max(masked.detach(), segment_ids, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros_like(seg_max))
+    exp = torch.where(on, torch.exp(masked - seg_max[segment_ids]), torch.zeros_like(scores))
+    denom = segment_sum(exp, segment_ids, num_segments)
+    denom = torch.where(denom > 0, denom, torch.ones_like(denom))
+    return exp / denom[segment_ids]
+
+
 def _pool_ids(graph_ids: torch.Tensor, num_graphs: int, node_mask: torch.Tensor) -> torch.Tensor:
     """Each row's graph for the id-keyed sum: a real row's own, a padding
     row's that of the next real row (`num_graphs` after the last one), from

@@ -4,16 +4,23 @@ names and kwargs onto optax).
 
 A schedule is a closed form of the step count, evaluated on the host in
 Python floats: the step reads it at the count *before* the update, as
-`optax.adam` does, and no device value is read back.
+optax does, and no device value is read back.
 
-Ported optimizers: Adam (Keras epsilon 1e-7, added outside the root of the
-bias-corrected second moment) and SGD (momentum, nesterov), with the three
-clip options. The state is a dict in the parameter tree's layout
-(`{"count": int, "mu": tree, "nu": tree}` for Adam, `{"count", "trace"}` for
-SGD with momentum), so checkpoints can cross between the packages.
+Every optimizer of the JAX package, with its arithmetic: Adam (Keras epsilon
+1e-7, added outside the root of the bias-corrected second moment; with
+`amsgrad` the Keras form, which maxes the raw second moment), AdamW
+(optax's `adamw`: decoupled weight decay, default 0.004, on every leaf),
+SGD (momentum, nesterov), RMSprop (optax's: epsilon inside the root, the
+centered variant, momentum over the learning-rate-scaled update), Adagrad
+(initial accumulator 0.1), Adadelta, Adamax and Nadam (the Keras form with
+its momentum-schedule product `u_prod`), each after the three clip options.
+The state is a dict in the parameter tree's layout: `count` (int), then the
+kind's trees (`mu`, `nu`, `vhat`, `trace`, `sum_of_squares`, `e_g`, `e_x`)
+and for Nadam the float `u_prod`, so that `torch.save` checkpoints carry it
+as it is.
 
 `Optimizer.step` updates the parameters and the state **in place** (the JAX
-package returns new trees; here the float32 masters and both moments are
+package returns new trees; here the float32 masters and the moments are
 held once). It is plain tensor code over the flattened leaves, batched with
 `torch._foreach_*` so a step costs a handful of launches, not a dozen per
 leaf.
@@ -22,7 +29,7 @@ leaf.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import torch
 
@@ -153,6 +160,16 @@ def _zeros_like_tree(params):
     return map_params(torch.zeros_like, params)
 
 
+# the state's trees by kind (beyond `count`); RMSprop's depend on its options
+_STATE_TREES = {
+    "Adam": ("mu", "nu"),
+    "AdamW": ("mu", "nu"),
+    "Adamax": ("mu", "nu"),
+    "Nadam": ("mu", "nu"),
+    "Adadelta": ("e_g", "e_x"),
+}
+
+
 class Optimizer:
     """One Keras optimizer: `init(params)` makes its state, `step(params,
     grads, state)` applies one update in place."""
@@ -174,12 +191,23 @@ class Optimizer:
         return float(lr(count)) if callable(lr) else float(lr)
 
     def init(self, params) -> Dict[str, Any]:
+        h = self.hyper
         state: Dict[str, Any] = {"count": 0}
-        if self.kind == "Adam":
-            state["mu"] = _zeros_like_tree(params)
-            state["nu"] = _zeros_like_tree(params)
-        elif self.hyper["momentum"] > 0:
-            state["trace"] = _zeros_like_tree(params)
+        trees = list(_STATE_TREES.get(self.kind, ()))
+        if self.kind == "Adam" and h["amsgrad"]:
+            trees.append("vhat")
+        if self.kind == "RMSprop":
+            trees = ["nu"] + (["mu"] if h["centered"] else [])
+        if self.kind in ("SGD", "RMSprop") and h["momentum"] > 0:
+            trees.append("trace")
+        for name in trees:
+            state[name] = _zeros_like_tree(params)
+        if self.kind == "Adagrad":
+            state["sum_of_squares"] = map_params(
+                lambda v: torch.full_like(v, h["initial_accumulator_value"]), params
+            )
+        if self.kind == "Nadam":
+            state["u_prod"] = 1.0
         return state
 
     def _clipped(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -208,28 +236,129 @@ class Optimizer:
         lr = self.lr(state["count"])
         state["count"] += 1
         t = state["count"]
-        if self.kind == "Adam":
-            b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
-            mu, nu = _leaves(state["mu"]), _leaves(state["nu"])
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, g, alpha=1 - b1)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_addcmul_(nu, g, g, value=1 - b2)
-            denom = torch._foreach_div(nu, 1 - b2**t)  # bias-corrected nu
-            torch._foreach_sqrt_(denom)
+        trees = {k: _leaves(v) for k, v in state.items() if isinstance(v, Mapping)}
+        getattr(self, f"_{self.kind.lower()}")(p, g, lr, t, state, **trees)
+
+    @staticmethod
+    def _moments(g, mu, nu, b1, b2) -> None:
+        """mu <- b1 mu + (1 - b1) g; nu <- b2 nu + (1 - b2) g^2, in place."""
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+
+    def _adam(self, p, g, lr, t, state, mu, nu, vhat=None) -> None:
+        b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
+        self._moments(g, mu, nu, b1, b2)
+        if vhat is not None:
+            # Keras AMSGrad: the raw second moment's running max, the bias
+            # corrections in the step size, epsilon outside the root
+            torch._foreach_maximum_(vhat, nu)
+            denom = torch._foreach_sqrt(vhat)
             torch._foreach_add_(denom, eps)
-            torch._foreach_addcdiv_(p, mu, denom, value=-lr / (1 - b1**t))
+            alpha = lr * math.sqrt(1 - b2**t) / (1 - b1**t)
+            torch._foreach_addcdiv_(p, mu, denom, value=-alpha)
             return
-        momentum, nesterov = self.hyper["momentum"], self.hyper["nesterov"]
-        if momentum > 0:
-            trace = _leaves(state["trace"])
-            torch._foreach_mul_(trace, momentum)
+        denom = torch._foreach_div(nu, 1 - b2**t)  # bias-corrected nu
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_addcdiv_(p, mu, denom, value=-lr / (1 - b1**t))
+
+    def _adamw(self, p, g, lr, t, state, mu, nu) -> None:
+        """optax.adamw: the Adam direction plus weight_decay * p, times -lr."""
+        b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
+        self._moments(g, mu, nu, b1, b2)
+        denom = torch._foreach_div(nu, 1 - b2**t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        update = torch._foreach_div(mu, denom)
+        torch._foreach_mul_(update, 1 / (1 - b1**t))
+        torch._foreach_add_(update, p, alpha=self.hyper["weight_decay"])
+        torch._foreach_add_(p, update, alpha=-lr)
+
+    def _sgd(self, p, g, lr, t, state, trace=None) -> None:
+        if trace is not None:
+            torch._foreach_mul_(trace, self.hyper["momentum"])
             torch._foreach_add_(trace, g)
-            if nesterov:
-                g = torch._foreach_add(g, trace, alpha=momentum)
+            if self.hyper["nesterov"]:
+                g = torch._foreach_add(g, trace, alpha=self.hyper["momentum"])
             else:
                 g = trace
         torch._foreach_add_(p, g, alpha=-lr)
+
+    def _rmsprop(self, p, g, lr, t, state, nu, mu=None, trace=None) -> None:
+        """optax.rmsprop: g / sqrt(nu + eps) (centered: nu - mu^2 + eps),
+        scaled by -lr, then the momentum trace of the scaled updates."""
+        rho, eps = self.hyper["rho"], self.hyper["eps"]
+        torch._foreach_mul_(nu, rho)
+        torch._foreach_addcmul_(nu, g, g, value=1 - rho)
+        var = nu
+        if mu is not None:
+            torch._foreach_mul_(mu, rho)
+            torch._foreach_add_(mu, g, alpha=1 - rho)
+            var = torch._foreach_addcmul(nu, mu, mu, value=-1.0)
+        var = torch._foreach_add(var, eps)
+        torch._foreach_rsqrt_(var)
+        update = torch._foreach_mul(var, g)
+        torch._foreach_mul_(update, -lr)
+        if trace is not None:
+            torch._foreach_mul_(trace, self.hyper["momentum"])
+            torch._foreach_add_(trace, update)
+            update = trace
+        torch._foreach_add_(p, update)
+
+    def _adagrad(self, p, g, lr, t, state, sum_of_squares) -> None:
+        """optax.adagrad: g / sqrt(sum of squares + eps), 0 where the sum is 0."""
+        torch._foreach_addcmul_(sum_of_squares, g, g)
+        eps = self.hyper["eps"]
+        for pi, gi, si in zip(p, g, sum_of_squares):
+            scale = torch.where(si > 0, torch.rsqrt(si + eps), torch.zeros_like(si))
+            pi.add_(scale * gi, alpha=-lr)
+
+    def _adadelta(self, p, g, lr, t, state, e_g, e_x) -> None:
+        """optax.adadelta: g * sqrt(e_x + eps) / sqrt(e_g + eps), then e_x
+        takes the update's square."""
+        rho, eps = self.hyper["rho"], self.hyper["eps"]
+        torch._foreach_mul_(e_g, rho)
+        torch._foreach_addcmul_(e_g, g, g, value=1 - rho)
+        num = torch._foreach_add(e_x, eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(e_g, eps)
+        torch._foreach_sqrt_(den)
+        update = torch._foreach_div(num, den)
+        torch._foreach_mul_(update, g)
+        torch._foreach_mul_(e_x, rho)
+        torch._foreach_addcmul_(e_x, update, update, value=1 - rho)
+        torch._foreach_add_(p, update, alpha=-lr)
+
+    def _adamax(self, p, g, lr, t, state, mu, nu) -> None:
+        """optax.adamax: nu <- max(|g| + eps, b2 nu); the bias-corrected mu
+        over nu."""
+        b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        a = torch._foreach_abs(g)
+        torch._foreach_add_(a, eps)
+        torch._foreach_maximum_(nu, a)
+        torch._foreach_addcdiv_(p, mu, nu, value=-lr / (1 - b1**t))
+
+    def _nadam(self, p, g, lr, t, state, mu, nu) -> None:
+        """Keras Nadam (keras/src/optimizers/nadam.py) with the momentum
+        schedule u_t = b1 (1 - 0.5 * 0.96^t) and its running product."""
+        b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
+        u_t = b1 * (1.0 - 0.5 * 0.96**t)
+        u_t1 = b1 * (1.0 - 0.5 * 0.96 ** (t + 1))
+        u_prod = state["u_prod"] * u_t
+        u_prod1 = u_prod * u_t1
+        state["u_prod"] = u_prod
+        self._moments(g, mu, nu, b1, b2)
+        m_hat = torch._foreach_mul(mu, u_t1 / (1 - u_prod1))
+        torch._foreach_add_(m_hat, g, alpha=(1 - u_t) / (1 - u_prod))
+        denom = torch._foreach_div(nu, 1 - b2**t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_addcdiv_(p, m_hat, denom, value=-lr)
 
 
 def build_optimizer(spec: OptimizerSpec) -> Optimizer:
@@ -259,16 +388,16 @@ def build_optimizer(spec: OptimizerSpec) -> Optimizer:
         lr = build_schedule(spec.schedule)
     else:
         lr = float(p.get("learning_rate", 0.001))
+    b = lambda: dict(
+        b1=float(p.get("beta_1", 0.9)),
+        b2=float(p.get("beta_2", 0.999)),
+        eps=float(p.get("epsilon", 1e-7)),
+    )
     if kind == "Adam":
-        if _to_bool(p.get("amsgrad", False)):
-            raise NotImplementedError(
-                "Adam with amsgrad is not ported to ignnition_tpu_torch yet"
-            )
+        return Optimizer("Adam", lr, clip, amsgrad=_to_bool(p.get("amsgrad", False)), **b())
+    if kind == "AdamW":
         return Optimizer(
-            "Adam", lr, clip,
-            b1=float(p.get("beta_1", 0.9)),
-            b2=float(p.get("beta_2", 0.999)),
-            eps=float(p.get("epsilon", 1e-7)),
+            "AdamW", lr, clip, weight_decay=float(p.get("weight_decay", 0.004)), **b()
         )
     if kind == "SGD":
         return Optimizer(
@@ -276,6 +405,23 @@ def build_optimizer(spec: OptimizerSpec) -> Optimizer:
             momentum=float(p.get("momentum", 0.0)),
             nesterov=_to_bool(p.get("nesterov", False)),
         )
-    raise NotImplementedError(
-        f"the {kind} optimizer is not ported to ignnition_tpu_torch yet"
-    )
+    if kind == "RMSprop":
+        return Optimizer(
+            "RMSprop", lr, clip,
+            rho=float(p.get("rho", 0.9)),
+            eps=float(p.get("epsilon", 1e-7)),
+            momentum=float(p.get("momentum", 0.0)),
+            centered=_to_bool(p.get("centered", False)),
+        )
+    if kind == "Adagrad":
+        return Optimizer(
+            "Adagrad", lr, clip,
+            initial_accumulator_value=float(p.get("initial_accumulator_value", 0.1)),
+            eps=float(p.get("epsilon", 1e-7)),
+        )
+    if kind == "Adadelta":
+        return Optimizer(
+            "Adadelta", lr, clip,
+            rho=float(p.get("rho", 0.95)), eps=float(p.get("epsilon", 1e-7)),
+        )
+    return Optimizer(kind, lr, clip, **b())  # Adamax, Nadam

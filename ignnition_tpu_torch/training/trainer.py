@@ -19,6 +19,11 @@
 A step runs eagerly; `train_step_fn(meta)` exists so callers are written as
 against the JAX package, where it returns the function jitted for that
 batch shape. Unlike there, a step updates `state` in place and returns it.
+The readout's random layers (Dropout, AlphaDropout, GaussianNoise) draw from
+the trainer's own generator on its device (`Trainer.generator`), which
+`train` seeds from its `seed` (42, as the JAX package's `PRNGKey(42)`); a
+step without such a layer draws nothing. Evaluation, prediction and
+serving are deterministic.
 The mesh paths of the JAX package (`mesh`, `model_strategy="dest_shard"`,
 `locality_reorder`) are not ported yet (ROADMAP item 6). Checkpoints do not
 cross between the packages (orbax there, `torch.save` here).
@@ -89,6 +94,8 @@ class Trainer:
         self.compute_dtype = compute_dtype
         self.loss_fn = get_loss(self.ir.learning.loss)
         self.optimizer = build_optimizer(self.ir.learning.optimizer)
+        # the training steps' draws (dropout masks, noise), on the device
+        self.generator = torch.Generator(device=self.device).manual_seed(42)
         self._eval_batches: Dict[Any, list] = {}
 
     # ------------------------------------------------------------------
@@ -112,7 +119,10 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _loss(self, params, batch, meta) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        preds = self.model.apply(params, batch, meta, compute_dtype=self.compute_dtype)
+        preds = self.model.apply(
+            params, batch, meta, compute_dtype=self.compute_dtype,
+            training=True, generator=self.generator,
+        )
         loss = self.loss_fn(batch["label"], preds, batch["label_mask"])
         reg = self.model.regularization_loss(params)
         return loss + reg, (loss, reg)
@@ -184,11 +194,17 @@ class Trainer:
 
     def grads_fn(self, meta: BatchMeta) -> Callable:
         """`grads(params, batch) -> (gradient tree, {"loss", "reg", "total"})`:
-        the step's forward and backward without the update."""
+        the step's forward and backward without the update. A leaf that the
+        loss does not read (a BatchNormalization's moving statistics) gets
+        a zero gradient, as under `jax.grad`, so that every optimizer sees
+        the whole tree."""
 
         def grads(params, batch):
             total, (loss, reg) = self._loss(params, batch, meta)
-            g = torch.autograd.grad(total, list(flatten_params(params).values()))
+            g = torch.autograd.grad(
+                total, list(flatten_params(params).values()),
+                allow_unused=True, materialize_grads=True,
+            )
             return with_leaves(params, g), {
                 "loss": loss.detach(), "reg": reg.detach(), "total": total.detach()
             }
@@ -498,6 +514,7 @@ class Trainer:
         profile_dir: Optional[str] = None,
         profile_steps: Tuple[int, int] = (10, 15),
         locality_reorder="auto",
+        seed: int = 42,
     ) -> TrainState:
         """Run the training loop to `max_steps` optimizer steps; `state` is
         updated in place and returned.
@@ -507,6 +524,11 @@ class Trainer:
         later step than `state` resumes from its latest checkpoint
         (parameters, optimizer state and step). The batch stream restarts at
         the dataset's start, as in the JAX package.
+        seed: seeds `self.generator` once, at the start (the JAX package's
+        `rng`, `PRNGKey(42)` by default). A resumed run starts the generator
+        anew, as the JAX package does its key, so a resumed run of a model
+        with a random readout layer draws other masks than one run without
+        a stop; without one it resumes exactly.
         eval_fn: called with the state every `eval_secs` (host clock).
         accumulate_steps: each optimizer step consumes this many merged
         batches (stacked, then run one after another: accum_train_step_fn).
@@ -538,6 +560,7 @@ class Trainer:
             raise _unported_parallel("locality_reorder=True")
         if accumulate_steps == "auto":
             accumulate_steps, batch_size = self._auto_accumulate(data_dir, batch_size)
+        self.generator.manual_seed(seed)
         manager = None
         if checkpoint_dir:
             manager = _make_checkpoint_manager(checkpoint_dir, keep_max)

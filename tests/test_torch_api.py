@@ -2,8 +2,10 @@
 `RunConfig.from_ini`, `Trainer.batches` (bitwise, with workers, with its
 caches), `stack_batches` and `_auto_accumulate`, `accum_train_step_fn`,
 `train()`, `evaluate()`, `Runner.predict` on entity, edge and graph labels,
-checkpoints (keep-max, resume, warm start), packed transfer, the api verbs
-end to end, and what is not ported yet raising with its ROADMAP item.
+checkpoints (keep-max, resume, warm start, every optimizer's state), packed
+transfer, the api verbs end to end (also a yaml description with a dropout
+readout under centered RMSprop), and what is not ported yet raising with
+its ROADMAP item.
 
 Both packages read the same synthetic datasets (written by the port's
 `data.synthetic`) and start from the same weights (`params_from_jax`). One
@@ -544,9 +546,99 @@ def test_restore_and_warm_start(tmp_path):
         warm_start(other.init_state(), str(tmp_path / "ck"))
 
 
+# each optimizer's state: (kind, options); a schedule on Nadam
+OPTIMIZER_STATES = {
+    "Adam_amsgrad": ("Adam", {"amsgrad": True}),
+    "AdamW": ("AdamW", {"weight_decay": 0.1}),
+    "RMSprop_centered_momentum": ("RMSprop", {"centered": True, "momentum": 0.9}),
+    "Adagrad": ("Adagrad", {"initial_accumulator_value": 0.2}),
+    "Adadelta": ("Adadelta", {"learning_rate": 1.0}),
+    "Adamax": ("Adamax", {}),
+    "Nadam_schedule": ("Nadam", {}),
+    "SGD_momentum": ("SGD", {"momentum": 0.9}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTIMIZER_STATES))
+def test_optimizer_state_round_trips_through_a_checkpoint(tmp_path, case):
+    """Each kind's state (moments, `vhat`, accumulators, RMSprop's mean
+    gradient and trace, Nadam's `u_prod`) saved after 2 steps and restored
+    into a fresh state: the third step of both is bitwise the same."""
+    from ignnition_tpu_torch.frontend.ir import OptimizerSpec, ScheduleSpec
+    from ignnition_tpu_torch.training.optimizers import build_optimizer
+
+    kind, options = OPTIMIZER_STATES[case]
+    schedule = (ScheduleSpec(kind="ExponentialDecay", params={
+        "initial_learning_rate": 0.01, "decay_steps": 2, "decay_rate": 0.5})
+        if case.endswith("schedule") else None)
+    tx = build_optimizer(OptimizerSpec(kind=kind, params=options, schedule=schedule))
+    rng = np.random.default_rng(5)
+    tree = lambda: igt.params_from_jax({"w": rng.standard_normal((3, 2)).astype(np.float32),
+                                        "b": (rng.standard_normal(2).astype(np.float32),)})
+    state = igt.TrainState(tree(), None, 2)
+    state.opt_state = tx.init(state.params)
+    for _ in range(2):
+        tx.step(state.params, tree(), state.opt_state)
+    manager = CheckpointManager(str(tmp_path / "ck"))
+    save_checkpoint(manager, state)
+    fresh = igt.TrainState(tree(), None, 0)
+    fresh.opt_state = tx.init(fresh.params)
+    fresh = restore_checkpoint(manager, fresh)
+    assert fresh.step == 2 and sorted(flatten_params(fresh.opt_state)) == sorted(
+        flatten_params(state.opt_state))
+    g = tree()
+    tx.step(state.params, g, state.opt_state)
+    tx.step(fresh.params, g, fresh.opt_state)
+    for tree_name in ("params", "opt_state"):
+        got = flatten_params(getattr(fresh, tree_name))
+        for k, v in flatten_params(getattr(state, tree_name)).items():
+            assert torch.equal(torch.as_tensor(got[k]), torch.as_tensor(v)), (tree_name, k)
+
+
 # --------------------------------------------------------------------------
 # the api verbs, and the loop's options
 # --------------------------------------------------------------------------
+
+
+def test_train_and_evaluate_with_a_dropout_readout_and_rmsprop(data, tmp_path):
+    """A model_description.yaml variant written here: a readout with Dropout,
+    LayerNormalization and GaussianNoise, trained by centered RMSprop with
+    momentum through `create_model` -> `train_and_evaluate` -> `predict`.
+    Training draws masks (two runs of one seed end equal, the parameters
+    move, the state holds RMSprop's trees); `predict` is deterministic."""
+    import yaml
+
+    desc = _desc()
+    net = next(n for n in desc["neural_networks"] if n["nn_type"] == "feed_forward")
+    net["nn_architecture"][1:1] = [{"type_layer": "Dropout", "rate": 0.3},
+                                   {"type_layer": "LayerNormalization"},
+                                   {"type_layer": "GaussianNoise", "stddev": 0.05}]
+    desc["learning_options"]["optimizer"] = {
+        "type": "RMSprop", "learning_rate": 0.005, "centered": True, "momentum": 0.9}
+    (tmp_path / "model_description.yaml").write_text(yaml.safe_dump(desc))
+    cfg = RunConfig(train_dataset=str(data / "train"), eval_dataset=str(data / "eval"),
+                    predict_dataset=str(data / "eval"),
+                    json_path=str(tmp_path / "model_description.yaml"),
+                    model_dir=str(tmp_path / "ck"), batch_size=2, train_steps=4,
+                    eval_samples=2, eval_batch_size=2, shuffle_train_samples=False)
+    model = igt.create_model(cfg)
+    runs = [igt.train_and_evaluate(model, run_dir=str(tmp_path / f"run{i}"), device="cpu")
+            for i in range(2)]
+    state = runs[0]
+    assert state.step == 4 and sorted(state.opt_state) == ["count", "mu", "nu", "trace"]
+    init = flatten_params(igt.Runner(model, device="cpu")._init_state().params)
+    for k, v in flatten_params(state.params).items():
+        assert torch.equal(v, flatten_params(runs[1].params)[k]), k
+        assert np.isfinite(v.detach().numpy()).all()
+    assert any(not torch.equal(v, init[k]) for k, v in flatten_params(state.params).items())
+    model.config.warm_start_path = str(tmp_path / "run0")
+    preds = igt.predict(model, device="cpu")
+    again = igt.predict(model, device="cpu")
+    direct = igt.Runner(model, device="cpu").predict(state)
+    assert len(preds) == 6
+    for p, q, r in zip(preds, again, direct):
+        np.testing.assert_array_equal(p, q)
+        np.testing.assert_array_equal(p, r)
 
 
 def test_api_verbs_end_to_end_on_the_cpu(data, tmp_path, caplog):

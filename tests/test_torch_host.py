@@ -288,8 +288,9 @@ def _qsize_ir(desc):
 
 def test_unported_feature_raises_naming_it():
     """Q-size with its links updated by a feed-forward network after their
-    sum: the update is ported with Dense layers only, so a Dropout in it
-    makes the build raise, naming the layer and the network."""
+    sum: a Dropout in the update builds and initializes like any built-in
+    kind; a kind that is neither built in nor registered makes `init` raise,
+    naming the layer and the network, as the JAX package does."""
     desc = qsize_description()
     desc["neural_networks"].append(
         {"nn_name": "ff_update", "nn_type": "feed_forward",
@@ -298,15 +299,18 @@ def test_unported_feature_raises_naming_it():
     links = desc["message_passing"]["stages"][1]["stage_mp"][0]
     assert links["aggregation"]["type"] == "sum"
     links["update"] = {"type": "neural_network", "nn_name": "ff_update"}
-    with pytest.raises(NotImplementedError, match="layer type 'Dropout' in network 'ff_update'"):
-        igt.build(_qsize_ir(desc))
-    desc["neural_networks"][-1]["nn_architecture"].pop()
-    igt.build(_qsize_ir(desc))  # the same network of Dense layers alone builds
+    igt.build(_qsize_ir(desc)).init(torch.Generator().manual_seed(0))
+    desc["neural_networks"][-1]["nn_architecture"].append({"type_layer": "Conv1D"})
+    model = igt.build(_qsize_ir(desc))  # the kind may still be registered
+    with pytest.raises(ValueError, match="unsupported layer type 'Conv1D' in network "
+                                         "'ff_update'; built-ins: Dense, Dropout"):
+        model.init(torch.Generator().manual_seed(0))
 
 
 def test_message_network_with_a_non_dense_layer_raises_naming_it():
-    """Message networks are ported with Dense layers only: a Dropout in one
-    makes the build raise, naming the layer and the network."""
+    """A message network takes every built-in kind (a Dropout builds and
+    initializes); an unknown kind there makes `init` raise, naming the
+    layer and the network."""
     desc = qsize_description()
     desc["neural_networks"].append(
         {"nn_name": "src_msg", "nn_type": "feed_forward",
@@ -314,10 +318,10 @@ def test_message_network_with_a_non_dense_layer_raises_naming_it():
     )
     link = desc["message_passing"]["stages"][0]["stage_mp"][0]["source_entities"][0]
     link["message"] = [{"type": "neural_network", "nn_name": "src_msg", "input": ["hs_source"]}]
-    with pytest.raises(NotImplementedError, match="layer type 'Dropout' in network 'src_msg'"):
-        igt.build(_qsize_ir(desc))
-    desc["neural_networks"][-1]["nn_architecture"].pop()
-    igt.build(_qsize_ir(desc))  # the same network of Dense layers alone builds
+    igt.build(_qsize_ir(desc)).init(torch.Generator().manual_seed(0))
+    desc["neural_networks"][-1]["nn_architecture"][1] = {"type_layer": "GRUCell"}
+    with pytest.raises(ValueError, match="unsupported layer type 'GRUCell' in network 'src_msg'"):
+        igt.build(_qsize_ir(desc)).init(torch.Generator().manual_seed(0))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

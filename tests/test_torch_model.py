@@ -329,41 +329,17 @@ def _wide_path_convolution(d):
 @pytest.mark.parametrize(
     "mutate,error,feature",
     [
-        (lambda d: d["message_passing"]["stages"][1]["stage_mp"][0].update(
-            aggregation={"type": "attention", "attention_softmax": "reference"}),
-         NotImplementedError, "'reference' attention softmax mode"),
         # the convolution is ported: what it refuses names it
         (_wide_path_convolution, ValueError,
          r"convolution aggregation requires message dim \(12\) == destination state dim"),
     ],
-    ids=["reference_softmax", "convolution"],
+    ids=["convolution"],
 )
 def test_unported_aggregations_raise_by_name(mutate, error, feature):
     desc = flagship_dict(mutate=mutate)
     ir = igt.parse_model_description(copy.deepcopy(desc), DIMS)
     with pytest.raises(error, match=feature):
         igt.build(ir)
-
-
-def test_multi_source_attention_raises_by_name():
-    def two_sources(d):
-        to_attention(d)
-        mp = d["message_passing"]["stages"][1]["stage_mp"][0]
-        mp["source_entities"].append(copy.deepcopy(mp["source_entities"][0]))
-
-    ir = igt.parse_model_description(flagship_dict(mutate=two_sources), DIMS)
-    with pytest.raises(NotImplementedError, match="multi-source message passing"):
-        igt.build(ir)
-
-
-def test_per_edge_attention_without_row_pointers_raises_by_name(monkeypatch):
-    patch_branch(monkeypatch, True)
-    _, t_ir, _, t_arrays, meta = _batches(flagship_dict(mutate=to_attention), 1)
-    del t_arrays["row_ptr_adj_paths_links"]
-    model = igt.build(t_ir)
-    model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="segment_softmax"):
-        model(to_device(t_arrays, "cpu"), meta)
 
 
 STAGE2_LOWERING_KEYS = tuple(

@@ -18,8 +18,8 @@ is not ported: both take the per-edge form there, which computes the same
 function. f32 agrees at atol = rtol = 1e-4, bf16 at 3e-2, `graph_pool` at
 1e-5 (bf16 at 1e-2); forward, loss, every gradient leaf and 10 Adam steps.
 Also: every example under `examples/` builds, predicts like the JAX package
-and takes a training step in the port, and what is still not ported raises
-naming itself.
+and takes a training step in the port, and the model's own errors name
+what they refuse.
 """
 
 import collections
@@ -645,15 +645,8 @@ def test_every_example_builds_predicts_and_trains(name, monkeypatch):
 
 
 # --------------------------------------------------------------------------
-# what is still not ported, and the model's own errors
+# the model's own errors
 # --------------------------------------------------------------------------
-
-
-def _with_dropout(net_name):
-    def mutate(d):
-        net = next(n for n in d["neural_networks"] if n["nn_name"] == net_name)
-        net["nn_architecture"].insert(1, {"type_layer": "Dropout", "rate": 0.1})
-    return mutate
 
 
 def _ff_after_ordered(d):
@@ -676,10 +669,6 @@ def _pool_graph_tensor(d):
 
 
 BUILD_ERRORS = {
-    "dropout_in_update": (_with_dropout("node_update"), NotImplementedError,
-                          "layer type 'Dropout' in network 'node_update'"),
-    "dropout_in_readout": (_with_dropout("graph_readout"), NotImplementedError,
-                           "layer type 'Dropout' in network 'graph_readout'"),
     "ff_after_ordered": (_ff_after_ordered, BuildError,
                          "a feed-forward update requires a single-vector aggregation"),
     "convolution_width": (_narrow_messages, BuildError,

@@ -408,10 +408,14 @@ def test_optimizer_options_raise_as_in_jax():
         t_opt.build_optimizer(spec("SGD", clipvalue=1.0, clipnorm=1.0))
     with pytest.raises(ValueError, match="unknown optimizer 'Nope'"):
         t_opt.build_optimizer(spec("Nope"))
-    with pytest.raises(NotImplementedError, match="RMSprop"):
-        t_opt.build_optimizer(spec("RMSprop", rho=0.9))
-    with pytest.raises(NotImplementedError, match="amsgrad"):
-        t_opt.build_optimizer(spec("Adam", amsgrad=True))
+    with pytest.raises(ValueError, match="unsupported RMSprop option"):
+        t_opt.build_optimizer(spec("RMSprop", beta_1=0.9))
+    with pytest.raises(ValueError, match="unsupported Nadam option"):
+        t_opt.build_optimizer(spec("Nadam", amsgrad=True))
+    # every kind and option of the JAX package builds
+    for kind, opts in t_opt._KNOWN_OPT_KW.items():
+        t_opt.build_optimizer(spec(kind, **{k: True if k in ("amsgrad", "nesterov", "centered")
+                                            else 0.5 for k in opts}))
 
 
 # --------------------------------------------------------------------------
