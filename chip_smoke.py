@@ -165,7 +165,25 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      served and trained against the plain path; (d) Q-size with stage 1's
      interleave replaced by attention over its two sources (the library's
      softmax and sum; A x14 a step); (e) `Trainer.train` with a TensorBoard
-     directory, the event file read back.
+     directory, the event file read back;
+ 11. serving artifacts: the flagship (kernel B 8 times a forward), the
+     attention flagship (B 8, D 8), flagship_x4 (A 8, B 8), graphprop CSR
+     and linkpred (phase 8's first request of 1,024 graphs: A and the
+     id-keyed kernel; an edge-level label trimmed through `label_perm`),
+     each exported in bf16 (linkpred in f32 too) on the card through
+     `igt.export_serving` (`torch.export` of the forward, the kernels in the
+     program as the operators `torch.ops.ignnition_tpu_torch.*`), reloaded
+     with `igt.load_serving` and served through `predict_samples`. Held: each
+     request's launch counts; one artifact forward launches what the
+     in-process `ServingModel` forward launches (the wrappers' counts and
+     the port's kernels by name in torch.profiler); the predictions against
+     the in-process ones on the same weights and batch (f32 within 1e-6, bf16
+     within 2^-8 of the largest |prediction|; the difference printed).
+     Printed: the device forward and the whole request against the in-process
+     ones, export and load seconds, the artifact's size. Then `igt.debug` on
+     the card for `examples/routenet`'s description (its `model.export.txt`
+     calls kernel B's operator once an iteration) and `Runner.export_serving`
+     reloaded against `Runner.predict`.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -175,6 +193,7 @@ nvcc; it never continues on the CPU.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -1337,6 +1356,109 @@ def training_over_seeds(package_root: str, seeds: str = "0,1,2,3,4,5") -> None:
             runs.append(f"{'bf16' if dtype else 'f32'} " + " ".join(f"{t:.4f}" for t in totals)
                         + (" (falls)" if totals[-1] < totals[0] else " (ends higher)"))
         print(f"  seed {seed}: " + "; ".join(runs))
+
+
+def time_flagship_step(package_root: str) -> dict:
+    """Print the flagship's bf16 training step and serving forward (medians
+    of 20, CUDA events, after 3 warm calls) and the host time of one call of
+    each kernel entry that the step calls (mean of 200 calls at a tiny shape,
+    host clock, the device synchronized once at the end; without gradients
+    as in serving, and with inputs that ask for them, the forward only, as
+    in a step) of the `ignnition_tpu_torch` package under `package_root`:
+    what a kernel call's Python dispatch costs, tree against tree, run as
+    `time_gru_kernels` says or through `time_flagship_turns`. The last line
+    printed is the numbers as JSON. `main` never calls it."""
+    sys.path.insert(0, os.path.abspath(package_root))
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+    ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    arrays, meta = igt.build_batch([make_sample(np.random.default_rng(SEED + 1), **FLAGSHIP)],
+                                   ir, padding, training=True)
+    dev = torch.device("cuda", 0)
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16, device=dev)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    batch, step = to_device(arrays, dev), trainer.train_step_fn(meta)
+    server = igt.ServingModel(igt.build(ir), state.params, meta, ir, device=dev)
+    inputs = to_device({k: v for k, v in arrays.items() if k not in ("label", "label_mask")},
+                       dev)
+
+    def median_ms(fn):
+        times = []
+        for i in range(23):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    step_ms = median_ms(lambda: step(state, batch))
+    fwd_ms = median_ms(lambda: server.forward_device(inputs))
+    f = lambda *s: torch.ones(s, device=dev, dtype=torch.bfloat16)
+    row_ptr = torch.arange(0, 66, 2, device=dev, dtype=torch.int32)
+    lens = torch.full((32,), 2, device=dev, dtype=torch.int32)
+    params = {"kernel": f(32, 96), "recurrent_kernel": f(32, 96), "bias": f(2, 96)}
+    x_a, x_b, h0 = f(64, 32), f(2, 32, 32), f(32, 32)
+    g_a, g_b, g_h0 = (t.clone().requires_grad_() for t in (x_a, x_b, h0))
+    g_params = {k: v.clone().requires_grad_() for k, v in params.items()}
+    calls = {"kernel A": (False, lambda: sk.sorted_segment_sum_csr(x_a, row_ptr)),
+             "kernel B": (False, lambda: rk.masked_gru_scan(x_b, lens, h0, params)),
+             "kernel A, grad": (True, lambda: sk.sorted_segment_sum_csr(g_a, row_ptr)),
+             "kernel B, grad": (True, lambda: rk.masked_gru_scan(g_b, lens, g_h0, g_params))}
+    host = {}
+    for what, (grad, fn) in calls.items():
+        with torch.set_grad_enabled(grad):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host[what] = (time.perf_counter() - t0) / 200 * 1e3
+            torch.cuda.synchronize()
+    print(f"flagship of {os.path.abspath(package_root)}: bf16 training step median "
+          f"{step_ms:.3f} ms, serving forward median {fwd_ms:.3f} ms (20 each, CUDA events); "
+          f"host per call at a tiny shape: " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                                        host.items()))
+    out = dict(step_ms=step_ms, forward_ms=fwd_ms, host_ms=host)
+    print(json.dumps(out))
+    return out
+
+
+def time_flagship_turns(roots, rounds: int = 10) -> None:
+    """`time_flagship_step` of each package root in its own process, in turns
+    (the roots' order reversed every other round, so that each takes each
+    place as often), `rounds` times; prints each root's median and quartiles
+    of every number. One card; run from the checkout whose timing method is
+    to be used:
+
+        python3 -c "import chip_smoke as c; c.time_flagship_turns(['P', 'C'])"
+
+    `main` never calls it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    got = {r: [] for r in roots}
+    for k in range(rounds):
+        for root in (roots if k % 2 == 0 else roots[::-1]):
+            run = subprocess.run(
+                [sys.executable, "-c",
+                 f"import chip_smoke as c; c.time_flagship_step({os.path.abspath(root)!r})"],
+                cwd=here, capture_output=True, text=True, timeout=600, check=True)
+            got[root].append(json.loads(run.stdout.strip().splitlines()[-1]))
+            print(f"round {k + 1} {root}: {run.stdout.strip().splitlines()[-2]}", flush=True)
+    for root, runs in got.items():
+        series = {"step_ms": [r["step_ms"] for r in runs],
+                  "forward_ms": [r["forward_ms"] for r in runs]}
+        for what in runs[0]["host_ms"]:
+            series[f"host ms, {what}"] = [r["host_ms"][what] for r in runs]
+        print(f"{root}, {len(runs)} processes: " + "; ".join(
+            f"{k} median {float(np.median(v))!r} (quartiles {float(np.percentile(v, 25))!r} - "
+            f"{float(np.percentile(v, 75))!r}, all {v!r})" for k, v in series.items()), flush=True)
 
 
 def _gru_plain_f64(xs, lens, h0, params):
@@ -3057,7 +3179,7 @@ def homogeneous(dev, card: str) -> dict:
 
     rng, check_rng = np.random.default_rng(SEED + 4), np.random.default_rng(SEED + 6)
     padding = igt.PaddingConfig()
-    result, checked = {}, {}
+    result, checked, served = {}, {}, {}
     cases = (("graphprop CSR", "graphprop", False), ("graphprop blocks", "graphprop", True),
              ("linkpred", "linkpred", False))
     for name, kind, equal in cases:
@@ -3101,6 +3223,7 @@ def homogeneous(dev, card: str) -> dict:
             name, server, requests, to_device(inputs, dev), card, counts, add, per_request))
         result[name]["bf16_forward"] = homogeneous_vs_plain_forward(
             name, server, ir, params, requests[0], dev)
+        served[name] = (ir, params, meta, requests[0])  # phase 11's artifacts
 
         t0 = time.perf_counter()
         t_arrays, t_meta = igt.build_batch(requests[0], ir, padding, training=True)
@@ -3117,7 +3240,7 @@ def homogeneous(dev, card: str) -> dict:
             edge_messages=ir.num_iterations * passes * edges)
     print("[homogeneous] main path launch counts: "
           + ", ".join(f"{k} {v}" for k, v in total.items()))
-    return dict(launches=total, kernels_at_batch_shapes=checked, **result)
+    return dict(launches=total, kernels_at_batch_shapes=checked, served=served, **result)
 
 
 def check_kernels_at_x8(dev, rng, arrays, meta) -> dict:
@@ -4358,6 +4481,310 @@ def description_language(dev, card: str) -> dict:
     return dict(launches=total, **result)
 
 
+# --------------------------------------------------------------------------
+# phase 11: serving artifacts
+# --------------------------------------------------------------------------
+
+PORT_KERNELS = ("segment_sum_kernel", "masked_gru_scan", "flash_gat_fwd")
+
+
+def profiled_device_kernels(fn, runs: int, warmup_step: bool = False) -> list:
+    """The names of the device kernels of `runs` calls of `fn` in one
+    torch.profiler profile, opened by 256 short sleep kernels that are not
+    counted (a profile once lost its first device events: one call of the
+    flagship forward showed 190 of its 216 launches). With `warmup_step` the
+    profiler first records a warm-up step of the same calls and drops it, as
+    its schedule's `warmup` is meant to; that does not stop the losses that
+    `profiler_losses` counts, so only it asks for one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    steps = 2 if warmup_step else 1
+    plan = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup_step else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=plan) as prof:
+        for _ in range(steps):
+            for _ in range(256):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            if warmup_step:
+                prof.step()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+            and not e.name.startswith("ProfilerStep")]
+
+
+def profiler_losses(repeats: int = 40) -> None:
+    """How often a profile of `profiled_device_kernels` loses device events,
+    with and without its warm-up step: `repeats` profiles each, in turns, of
+    3 calls of a function that launches 72 small kernels (as many as
+    linkpred's serving forward). `main` never calls it."""
+    x = torch.ones(256, device="cuda")
+
+    def fn():
+        for _ in range(72):
+            x.add_(1.0)
+
+    lost = {False: [], True: []}
+    for _ in range(repeats):
+        for warmup_step in lost:
+            lost[warmup_step].append(3 * 72 - len(profiled_device_kernels(fn, 3, warmup_step)))
+    for warmup_step, v in lost.items():
+        print(f"profiler, warm-up step {warmup_step}: {sum(n > 0 for n in v)} of {repeats} "
+              f"profiles lost device events, {sum(v)} events in all (each: {v})", flush=True)
+
+
+def profiled_port_launches(fn, runs: int = 3) -> tuple:
+    """({port kernel: device launches a call}, device launches a call) of
+    `fn`, from `profiled_device_kernels`. Now and then a profile drops a run
+    of device records (1 of 40 profiles, 81-88 of 216 events, by
+    `profiler_losses` on an H100), so profiles are taken until two in a row
+    hold the same kernels, and it raises if 5 do not. Kernel A and the
+    id-keyed sum share one `__global__`, `segment_sum_kernel`."""
+    last = None
+    for _ in range(5):
+        names = sorted(profiled_device_kernels(fn, runs))
+        if names == last:
+            break
+        last = names
+    else:
+        raise AssertionError("torch.profiler: no two of 5 profiles in a row held the same "
+                             "device kernels")
+    ours = {}
+    for n in names:
+        for k in PORT_KERNELS:
+            if k in n:
+                ours[k] = ours.get(k, 0) + 1
+    return {k: v / runs for k, v in sorted(ours.items())}, len(names) / runs
+
+
+def artifact_size(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def serving_artifact(name, ir, params, meta, request, description, dev, card, root,
+                     counts, add, want, f32: bool = False) -> dict:
+    """Export, save, reload and serve one model's bf16 artifact (and with
+    `f32` its f32 one); hold its predictions and kernel launches to the
+    in-process `ServingModel` on the same weights and batch, and time both."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.serving import kernel_ops
+
+    out = {}
+    for compute_dtype in (torch.bfloat16, None) if f32 else (torch.bfloat16,):
+        tag = "bf16" if compute_dtype else "f32"
+        server = igt.ServingModel(igt.build(ir), params, meta, ir,
+                                  compute_dtype=compute_dtype, device=dev)
+        arrays = server.build_batch(request)
+        path = os.path.join(root, f"{name}-{tag}".replace(" ", "_"))
+        t0 = time.perf_counter()
+        igt.export_serving(igt.build(ir), params, meta, arrays, path,
+                           compute_dtype=compute_dtype, description=description)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = igt.load_serving(path)
+        load_s = time.perf_counter() - t0
+        ops = kernel_ops(loaded.program)
+        size = artifact_size(path)
+
+        # the main path: a request through the artifact, its launches held
+        counts.reset()
+        preds = loaded.predict_samples(request)
+        got = counts.read()
+        add(got)
+        p_in = server.predict(arrays, denormalize=False)
+        rows = len(server.trim(p_in, arrays))
+        if preds.shape != (rows,) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"{name} artifact ({tag}): predictions {preds.shape} "
+                                 f"(want ({rows},)) or non-finite")
+        expect_counts(f"{name} artifact ({tag}) request ({rows} predictions, mean "
+                      f"{preds.mean():.5f})", got, **want)
+        # one forward of each, by wrapper counts and by the profiler
+        batch_art = to_device(loaded._check(arrays), dev)
+        batch_in = to_device({k: v for k, v in arrays.items()
+                              if k not in ("label", "label_mask", "label_perm")}, dev)
+        per_forward = {}
+        for who, fn in (("artifact", lambda: loaded.forward_device(batch_art)),
+                        ("in-process", lambda: server.forward_device(batch_in))):
+            counts.reset()
+            fn()
+            torch.cuda.synchronize()
+            per_forward[who] = (counts.read(), *profiled_port_launches(fn))
+        if per_forward["artifact"][:2] != per_forward["in-process"][:2]:
+            raise AssertionError(f"{name} ({tag}): the artifact's forward launched "
+                                 f"{per_forward['artifact'][:2]}, the in-process forward "
+                                 f"{per_forward['in-process'][:2]} (wrapper counts, "
+                                 f"the port's kernels by the profiler)")
+        print(f"  {name} ({tag}): one forward launches the port's kernels "
+              f"{ {k: v for k, v in per_forward['artifact'][0].items() if v} } (wrapper counts), "
+              f"{per_forward['artifact'][1]} (torch.profiler, by kernel name, 3 calls), in the "
+              f"artifact and in process alike; {per_forward['artifact'][2]:.0f} device launches "
+              f"a call in all in the artifact, {per_forward['in-process'][2]:.0f} in process; "
+              f"the program calls {len(ops)} kernel operators")
+
+        # predictions against the in-process forward, on the same weights and batch
+        p_art = loaded.predict(arrays, denormalize=False)
+        diff = float(np.max(np.abs(p_art - p_in)))
+        scale = float(np.max(np.abs(p_in)))
+        limit = (2.0 ** -8 if compute_dtype else 1e-6) * scale
+        print(f"  {name} ({tag}): artifact vs in-process predictions max abs difference "
+              f"{diff:.3e} (limit {limit:.3e} = {'2^-8' if compute_dtype else '1e-6'} x max "
+              f"|pred| {scale:.4f}){'; bitwise equal' if diff == 0.0 else ''}")
+        if not diff <= limit:
+            raise AssertionError(f"{name} ({tag}): the artifact's predictions lie "
+                                 f"{diff:.3e} from the in-process ones (limit {limit:.3e})")
+        entry = dict(export_s=export_s, load_s=load_s, artifact_bytes=size, max_abs_diff=diff,
+                     kernel_ops=len(ops), device_launches=per_forward["artifact"][2],
+                     device_launches_in_process=per_forward["in-process"][2])
+        if compute_dtype is torch.bfloat16:
+            fwd_art, fwd_in = forward_ms(loaded, batch_art), forward_ms(server, batch_in)
+            req_art, req_in = [], []
+            for _ in range(4):
+                for who, model, acc in (("a", loaded, req_art), ("i", server, req_in)):
+                    t1 = time.perf_counter()
+                    model.predict_samples(request)
+                    acc.append((time.perf_counter() - t1) * 1e3)
+            entry.update(forward_ms=float(np.median(fwd_art)),
+                         forward_ms_in_process=float(np.median(fwd_in)),
+                         request_ms=float(np.median(req_art[1:])),
+                         request_ms_in_process=float(np.median(req_in[1:])))
+            print(f"[latency] {name} artifact (bf16): device forward median "
+                  f"{entry['forward_ms']:.3f} ms against {entry['forward_ms_in_process']:.3f} ms "
+                  f"in process (x{entry['forward_ms'] / entry['forward_ms_in_process']:.3f}, 20 "
+                  f"runs each, CUDA events); whole request median {entry['request_ms']:.1f} ms "
+                  f"against {entry['request_ms_in_process']:.1f} ms (x"
+                  f"{entry['request_ms'] / entry['request_ms_in_process']:.3f}, 3 runs each, "
+                  f"host clock); export {export_s:.2f} s, load {load_s:.2f} s, {size / 1e6:.2f} "
+                  f"MB on disk; on {card}")
+            entry.update(print_profile(f"{name} artifact forward",
+                                       lambda: loaded.forward_device(batch_art),
+                                       entry["forward_ms"]))
+        else:
+            print(f"  {name} (f32): export {export_s:.2f} s, load {load_s:.2f} s, "
+                  f"{size / 1e6:.2f} MB on disk")
+        out[tag] = entry
+    return out
+
+
+def debug_on_card(dev, root: str) -> dict:
+    """`igt.debug` on the card for `examples/routenet`'s description over one
+    written sample: its `model.export.txt` calls kernel B's operator once an
+    iteration; then `Runner.export_serving` there, reloaded, against
+    `Runner.predict`, on that description cut to 2 iterations (an export of
+    8 takes 5-14 s on the card's host)."""
+    import ignnition_tpu_torch as igt
+    import ignnition_tpu_torch.examples.routenet  # noqa: F401 (normalization_routenet)
+    from ignnition_tpu_torch.config import RunConfig
+    from ignnition_tpu_torch.data.synthetic import write_dataset
+    from ignnition_tpu_torch.frontend import load_description
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(root, "debug_data")
+    write_dataset(data, 1, 4, seed=SEED, **API_SAMPLE)
+    description = os.path.join(here, "examples", "routenet", "model_description.yaml")
+    cfg = RunConfig(train_dataset=data, eval_dataset=data, predict_dataset=data,
+                    json_path=description, model_dir=os.path.join(root, "debug_ck"),
+                    debug_dir=os.path.join(root, "debug"), batch_size=2)
+    model = igt.create_model(cfg)
+    t0 = time.perf_counter()
+    out = igt.debug(model)
+    seconds = time.perf_counter() - t0
+    program = open(os.path.join(out, "model.export.txt")).read()
+    calls = program.count("torch.ops.ignnition_tpu_torch.masked_gru_scan.default(")
+    files = sorted(os.listdir(out))
+    print(f"[serving artifacts] igt.debug on the card in {seconds:.1f} s: {', '.join(files)}; "
+          f"model.export.txt calls kernel B's operator {calls} times")
+    if calls != model.ir.num_iterations or "model.svg" not in files:
+        raise AssertionError(f"debug: kernel B's operator {calls} times (want "
+                             f"{model.ir.num_iterations}), files {files}")
+    short = load_description(description)
+    short["message_passing"]["num_iterations"] = 2
+    cfg = dataclasses.replace(cfg, json_path=os.path.join(root, "routenet_2_iterations.json"))
+    with open(cfg.json_path, "w") as f:
+        json.dump(short, f)
+    model = igt.create_model(cfg)
+    runner = igt.Runner(model)
+    state = runner.trainer.init_state(torch.Generator().manual_seed(SEED))
+    loaded = igt.load_serving(runner.export_serving(os.path.join(root, "runner"), state=state))
+    arrays, _ = next(iter(runner.trainer.batches(data, cfg.batch_size, shuffle=False,
+                                                 repeat=False, training=False)))
+    got = loaded.trim(loaded.predict(arrays), arrays)
+    want = runner.predict(state)[0]
+    diff = float(np.max(np.abs(got[: len(want)] - want)))
+    print(f"[serving artifacts] Runner.export_serving on the card, reloaded: first sample's "
+          f"{len(want)} predictions against Runner.predict, max abs difference {diff:.3e}")
+    if not diff <= 1e-5 * float(np.max(np.abs(want))):
+        raise AssertionError(f"Runner.export_serving: {diff:.3e} from Runner.predict")
+    return dict(debug_s=seconds, export_calls_b=calls, runner_artifact_diff=diff)
+
+
+def serving_artifacts(dev, card: str, homogeneous_served: dict) -> dict:
+    """Phase 11: bf16 artifacts of the flagship, the attention flagship,
+    flagship_x4, graphprop CSR and linkpred (the last two on phase 8's first
+    request of 1,024 graphs) and linkpred's f32 one exported, saved,
+    reloaded and served on the card, then `igt.debug` and
+    `Runner.export_serving`. An export of an 8-iteration model takes ~8-14
+    s on the card's host, so only linkpred's, ~2 s, is made in f32
+    too."""
+    import shutil
+    import tempfile
+
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.frontend import load_description
+
+    counts = Counts()
+    total = {k: 0 for k in counts.read()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    rng = np.random.default_rng(SEED + 11)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    flagship_ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    attention_ir = igt.parse_model_description(attention_description(), FEATURE_DIMS)
+    flagship_params = igt.build(flagship_ir).init(torch.Generator().manual_seed(SEED))
+    attention_params = igt.build(attention_ir).init(torch.Generator().manual_seed(SEED))
+    sample, sample_x4 = make_sample(rng, **FLAGSHIP), make_sample(rng, **FLAGSHIP_X4)
+    meta_of = lambda ir, s: igt.build_batch([s], ir, padding, training=False)[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    example = lambda kind: load_description(
+        os.path.join(here, "examples", kind, "model_description.yaml"))
+    b, a = dict(masked_gru_scan=ITERATIONS), ITERATIONS
+    cases = [
+        ("flagship", flagship_ir, flagship_params, meta_of(flagship_ir, sample), [sample],
+         flagship_description(), b),
+        ("attention flagship", attention_ir, attention_params, meta_of(attention_ir, sample),
+         [sample], attention_description(), dict(b, flash_gat_fwd=ITERATIONS)),
+        ("flagship_x4", flagship_ir, flagship_params, meta_of(flagship_ir, sample_x4),
+         [sample_x4], flagship_description(), dict(b, csr_segment_sum=a)),
+    ]
+    for name, kind in (("graphprop CSR", "graphprop"), ("linkpred", "linkpred")):
+        ir, params, meta, request = homogeneous_served[name]
+        cases.append((name, ir, params, meta, request, example(kind),
+                      homogeneous_launches(kind, ir, igt.build_batch(
+                          request, ir, training=False, target=meta)[0], training=False)))
+    root = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    result = {}
+    try:
+        for name, ir, params, meta, request, description, want in cases:
+            result[name] = serving_artifact(name, ir, params, meta, request, description, dev,
+                                            card, root, counts, add, want,
+                                            f32=name == "linkpred")
+        result["debug"] = debug_on_card(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("[serving artifacts] main path launch counts: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, **result)
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -4480,6 +4907,7 @@ def main() -> None:
     homog = homogeneous(dev, card)
     seconds["homogeneous"] = time.perf_counter() - t_start - sum(seconds.values())
     at_batch = homog.pop("kernels_at_batch_shapes")
+    homog_served = homog.pop("served")
     item1 = item1_sizes(dev, card)
     at_x8 = item1["flagship_x8"].pop("kernels_at_its_shapes")
     seconds["blocks_g4 and x8"] = time.perf_counter() - t_start - sum(seconds.values())
@@ -4491,6 +4919,10 @@ def main() -> None:
     # ---- phase 10: the description language ----
     language = description_language(dev, card)
     seconds["description language"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 11: serving artifacts and the debug verb ----
+    artifacts = serving_artifacts(dev, card, homog_served)
+    seconds["serving artifacts"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -4524,8 +4956,9 @@ def main() -> None:
         on_item1 = item1["launches"][name]
         on_api = api["launches"][name]
         on_language = language["launches"][name]
+        on_export = artifacts["launches"][name]
         launches = (on_serving + on_training + on_attention + on_qsize + on_mlp
-                    + on_homogeneous + on_item1 + on_api + on_language)
+                    + on_homogeneous + on_item1 + on_api + on_language + on_export)
         if launches == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
@@ -4535,6 +4968,7 @@ def main() -> None:
             launches_mlp_message=on_mlp, launches_homogeneous=on_homogeneous,
             launches_blocks_g4_and_x8=on_item1, launches_api=on_api,
             launches_description_language=on_language,
+            launches_serving_export=on_export,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -4569,6 +5003,8 @@ def main() -> None:
                       "api": {k: v for k, v in api.items() if k != "launches"},
                       "description_language": {k: v for k, v in language.items()
                                                if k != "launches"},
+                      "serving_artifacts": {k: v for k, v in artifacts.items()
+                                            if k != "launches"},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

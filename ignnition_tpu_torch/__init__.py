@@ -16,16 +16,21 @@ readout's dropout-style layers drawing from the trainer's generator in
 training; both attention softmax modes and attention over several
 sources). Serving: `build` a
 `GnnModel` from a parsed description, move a `build_batch` result to the
-device with `batch.to_device`, and serve it with `ServingModel`. Training:
+device with `batch.to_device`, and serve it with `ServingModel`; or freeze
+it into an artifact with `export_serving` (`torch.export`, the kernels in
+the program as `torch.ops.ignnition_tpu_torch.*` operators) and serve the
+reloaded `LoadedServingModel` of `load_serving`. Training:
 `Trainer` (`init_state`, `train_step_fn`, `accum_train_step_fn`,
 `eval_step_fn`, `train`, `evaluate`, `predict`, checkpoints) with the
 losses, every optimizer of the JAX package (Adam with or without amsgrad,
 AdamW, SGD, RMSprop, Adagrad, Adadelta, Adamax, Nadam) and the
 learning-rate schedules. The user's verbs, as in
 the JAX package: `create_model(config)`, `train_and_evaluate(model)`,
-`Runner(model).evaluate(state)`, `predict(model, state)`, with the run
-configuration of `config.RunConfig` (`train_options.ini`). The entry points run on the
-current CUDA device unless `device="cpu"` is passed. The hand-written Hopper
+`Runner(model).evaluate(state)`, `predict(model, state)`,
+`Runner(model).export_serving(out_dir)` and `debug(model)`, with the run
+configuration of `config.RunConfig` (`train_options.ini`). The entry points
+run on the current CUDA device unless `device="cpu"` is passed; the mesh
+options are not ported (ROADMAP item 6). The hand-written Hopper
 kernels (CSR and id-keyed segment sums, masked GRU scan forward and
 backward, flash-GAT forward and backward) are in `csrc/`, their wrappers in
 `ops/cuda/`; `build_batch` runs on the port's native C++ helpers
@@ -52,6 +57,13 @@ from .nn.layers import register_layer
 from .serving import ServingModel
 from .training import Trainer, TrainState, build_optimizer, build_schedule, get_loss
 from .utils import get_normalization, register_normalization
+
+from . import debug as _debug_module  # noqa: F401,E402
+
+# importing the submodule bound `debug` on the package; that name is the
+# user's verb `debug(model)` (`api.debug`, through `__getattr__`), and a
+# module already imported is not bound again
+del debug
 
 __version__ = "0.1.0"
 
@@ -90,4 +102,8 @@ def __getattr__(name):
         from . import api
 
         return getattr(api, name)
+    if name in ("export_serving", "load_serving", "LoadedServingModel"):
+        from . import serving
+
+        return getattr(serving, name)
     raise AttributeError(name)

@@ -7,8 +7,9 @@ the reference's module-global `model_info` handle (generate_model.py:34-43).
 
 Every entry point runs on the current CUDA device unless `device="cpu"` is
 passed (`Runner(..., device="cpu")`, or `device=` through the module verbs'
-keywords). Serving export and debug are not ported yet (ROADMAP items 5 and
-7), nor the mesh paths (item 6).
+keywords). `Runner.export_serving` freezes the forward into a serving
+artifact (`serving.export_serving`); the mesh paths are not ported yet
+(ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -235,11 +236,46 @@ class Runner:
                 outputs.append(preds)
         return outputs
 
-    def export_serving(self, *args, **kwargs) -> str:
-        raise NotImplementedError(
-            "export_serving is not ported to ignnition_tpu_torch yet "
-            "(ROADMAP item 5); serve in process with ignnition_tpu_torch.ServingModel"
+    def export_serving(
+        self,
+        out_dir: str,
+        state: Optional[TrainState] = None,
+        dataset: Optional[str] = None,
+        batch_size: Optional[int] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> str:
+        """Freeze the forward pass into a reloadable serving artifact
+        (`serving.export_serving`) on the Runner's device. Shapes come from
+        the first batch of `dataset` (default: predict_dataset, else
+        train_dataset) at `batch_size` (default: the config's batch_size);
+        parameters from `state` or the config's warm_start_path."""
+        cfg = self.model.config
+        dataset = dataset or cfg.predict_dataset or cfg.train_dataset
+        batch_size = batch_size or cfg.batch_size
+        if state is None:
+            if not cfg.warm_start_path:
+                raise ValueError(
+                    "the path of the model to export is unspecified; pass a "
+                    "TrainState or add warm_start_path to the config"
+                )
+            state = warm_start(self._init_state(), cfg.warm_start_path)
+        arrays, meta = next(
+            iter(
+                self.trainer.batches(
+                    dataset, batch_size, shuffle=False, repeat=False, training=False
+                )
+            )
         )
+        from .frontend import load_description
+        from .serving import export_serving as _export
+
+        path = _export(
+            self.gnn, state.params, meta, arrays, out_dir,
+            compute_dtype=compute_dtype, description=load_description(cfg.json_path),
+            device=self.trainer.device,
+        )
+        log.info("serving artifact written to %s", path)
+        return path
 
 
 # --------------------------------------------------------------------------
@@ -261,6 +297,12 @@ def predict(model: Model, state: Optional[TrainState] = None, **runner_kw):
 
 
 def debug(model: Model, **runner_kw) -> str:
-    raise NotImplementedError(
-        "debug is not ported to ignnition_tpu_torch yet (ROADMAP item 7)"
-    )
+    """Write the debug artifacts to config.debug_dir (`debug.write_debug_artifacts`:
+    the structure and parameter reports, the model graph as DOT, SVG and a
+    TensorBoard graph, and the exported program of one forward; the
+    reference writes a TensorBoard graph, f_o.py:239-268); returns the
+    directory."""
+    log.info("generating the debug model\n" + "-" * 55)
+    from .debug import write_debug_artifacts
+
+    return write_debug_artifacts(model, **runner_kw)

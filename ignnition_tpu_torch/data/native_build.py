@@ -1,7 +1,9 @@
 """Build the port's native batch helpers (`native/loader.cpp`, `native/aux.cpp`).
 
 `library_path()` names the shared library for the current sources: it lives
-in `ignnition_tpu_torch/_build/` (listed in .gitignore) under a name that
+in `BUILD_DIR` (`ignnition_tpu_torch/_build/`, listed in .gitignore, or a
+per-user cache directory when the package directory cannot be written:
+`utils.build_dir`) under a name that
 hashes the sources and the compiler flags, so an edit rebuilds and an
 unchanged tree reuses the earlier build. `build()` compiles it with g++ at
 first use. Concurrent builders (test workers, reader threads) take a file
@@ -23,9 +25,11 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from ..utils.build_dir import build_dir
+
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCE_DIR = _PKG_DIR / "native"
-BUILD_DIR = _PKG_DIR / "_build"
+BUILD_DIR = build_dir(_PKG_DIR)
 SOURCES = ("loader.cpp", "aux.cpp")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 

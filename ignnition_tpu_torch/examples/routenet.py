@@ -1,5 +1,6 @@
 """RouteNet quickstart on the port (`examples/routenet/main.py` on
-ignnition_tpu_torch; the debug artifact is not ported yet, ROADMAP item 7).
+ignnition_tpu_torch): the debug artifacts, training with evaluation, a
+final evaluation.
 
 Either migrate a real KDN dataset first:
 
@@ -61,6 +62,7 @@ def main():
     )
 
     model = igt.create_model(cfg)
+    igt.debug(model, device=args.device)
     state = igt.train_and_evaluate(model, device=args.device)
     runner = igt.Runner(model, device=args.device)
     print("final eval:", runner.evaluate(state))

@@ -4,13 +4,21 @@
 Hopper (`-gencode arch=compute_90a,code=sm_90a`), one nvcc per source and all
 started together, links the objects into one shared library with a plain C
 interface, at first use, and loads it with ctypes. The library goes
-into `ignnition_tpu_torch/_build/` (listed in .gitignore) under a name that
+into `BUILD_DIR` (`ignnition_tpu_torch/_build/`, listed in .gitignore, or a
+per-user cache directory when the package directory cannot be written:
+`utils.build_dir`) under a name that
 hashes the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the earlier build. Nothing is built when the module is imported.
 
 Each C entry takes device pointers, sizes, a dtype code and the CUDA stream,
 launches on that stream without synchronizing, and returns
 `cudaGetLastError()`; `check()` raises on a non-zero code.
+
+The kernel modules register each entry as an operator of the namespace
+`OPS` (`torch.ops.ignnition_tpu_torch.*`, through `op_library()`): its CUDA
+body launches the kernel, its CPU body is the plain version, and its fake
+gives the outputs' shapes, so that `torch.export` traces the model into a
+graph that calls the operators.
 """
 
 from __future__ import annotations
@@ -27,15 +35,19 @@ from typing import Optional
 
 import torch
 
+from ...utils.build_dir import build_dir
+
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR / "_build"
+BUILD_DIR = build_dir(_PKG_DIR)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",
     "-Xcompiler", "-fPIC",
 )
+
+OPS = "ignnition_tpu_torch"  # the operators' namespace
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -160,6 +172,12 @@ def library() -> ctypes.CDLL:
             lib.ign_flash_gat_bwd_layout.restype = i32
             _lib = lib
         return _lib
+
+
+def op_library() -> torch.library.Library:
+    """A registration handle of the operators' namespace (one a kernel
+    module; keep it for the life of the process)."""
+    return torch.library.Library(OPS, "FRAGMENT")
 
 
 def stream_handle(device: torch.device) -> int:

@@ -194,19 +194,56 @@ def _launch_backward(ssrc, sdst, x, m, stab, den, ct, srow):
     return dtab_plus, d_sdst
 
 
+# --------------------------------------------------------------------------
+# the kernels as operators (`torch.ops.ignnition_tpu_torch.*`, see
+# `_build.op_library`); `ops.segment._FlashMaskedSoftmaxMatmul` joins them
+# --------------------------------------------------------------------------
+
+_lib = _build.op_library()
+_lib.define(
+    "flash_gat_forward(Tensor ssrc, Tensor sdst, Tensor x, Tensor m, Tensor stab) "
+    "-> (Tensor, Tensor)"
+)
+_lib.define(
+    "flash_gat_backward(Tensor ssrc, Tensor sdst, Tensor x, Tensor m, Tensor stab, "
+    "Tensor den, Tensor ct, Tensor srow) -> (Tensor, Tensor)"
+)
+
+
+def _forward_fake(ssrc, sdst, x, m, stab):
+    g, bd = m.shape[0], m.shape[1]
+    return x.new_empty((g, bd, x.shape[2])), x.new_empty((g, bd), dtype=torch.float32)
+
+
+def _backward_fake(ssrc, sdst, x, m, stab, den, ct, srow):
+    g, bs, d = x.shape
+    f32 = torch.float32
+    return x.new_empty((g, bs, d + 1), dtype=f32), x.new_empty((g, m.shape[1]), dtype=f32)
+
+
+# the bodies look their functions up when called, so that a patched name is
+# the one that runs
+_lib.impl("flash_gat_forward", lambda *args: _launch_forward(*args), "CUDA")
+_lib.impl("flash_gat_forward", lambda *args: flash_gat_forward_plain(*args), "CPU")
+_lib.impl("flash_gat_backward", lambda *args: _launch_backward(*args), "CUDA")
+_lib.impl("flash_gat_backward", lambda *args: flash_gat_backward_plain(*args), "CPU")
+torch.library.register_fake(f"{_build.OPS}::flash_gat_forward", _forward_fake, lib=_lib)
+torch.library.register_fake(f"{_build.OPS}::flash_gat_backward", _backward_fake, lib=_lib)
+
+
 def flash_gat_forward(ssrc, sdst, x, m, stab) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, den) of the contract above. A CPU tensor takes the plain version;
-    a CUDA tensor launches kernel D (and raises if it cannot)."""
-    if x.device.type == "cpu":
-        return flash_gat_forward_plain(ssrc, sdst, x, m, stab)
-    return _launch_forward(ssrc, sdst, x, m, stab)
+    """(out, den) of the contract above: the operator `flash_gat_forward`. A
+    CPU tensor takes the plain version; a CUDA tensor launches kernel D (and
+    raises if it cannot)."""
+    return torch.ops.ignnition_tpu_torch.flash_gat_forward(ssrc, sdst, x, m, stab)
 
 
 def flash_gat_backward(
     ssrc, sdst, x, m, stab, den, ct, srow
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dtab_plus, d_sdst) of the contract above. A CPU tensor takes the plain
-    version; a CUDA tensor launches kernel E (and raises if it cannot)."""
-    if x.device.type == "cpu":
-        return flash_gat_backward_plain(ssrc, sdst, x, m, stab, den, ct, srow)
-    return _launch_backward(ssrc, sdst, x, m, stab, den, ct, srow)
+    """(dtab_plus, d_sdst) of the contract above: the operator
+    `flash_gat_backward`. A CPU tensor takes the plain version; a CUDA tensor
+    launches kernel E (and raises if it cannot)."""
+    return torch.ops.ignnition_tpu_torch.flash_gat_backward(
+        ssrc, sdst, x, m, stab, den, ct, srow
+    )

@@ -77,13 +77,13 @@ def masked_gru_scan_plain(
 def masked_gru_scan_bwd_plain(xs, lens, h0, params, ct):
     """Gradients of `masked_gru_scan_plain` by autograd (the reference of
     kernel C): (d_xs, d_h0, d_kernel, d_recurrent_kernel, d_bias), each in
-    its input's dtype."""
+    its input's dtype (None for an input that no step reads: L = 0)."""
     with torch.enable_grad():
         leaves = [xs.detach().requires_grad_(True), h0.detach().requires_grad_(True)]
         names = ("kernel", "recurrent_kernel", "bias")
         leaves += [params[k].detach().requires_grad_(True) for k in names]
         out = masked_gru_scan_plain(leaves[0], lens, leaves[1], dict(zip(names, leaves[2:])))
-        return torch.autograd.grad(out, leaves, ct.to(out.dtype))
+        return torch.autograd.grad(out, leaves, ct.to(out.dtype), allow_unused=True)
 
 
 def masked_gru_scan_bwd_kernel_plain(xs, lens, h0, params, ct):
@@ -281,7 +281,7 @@ def _launch_backward(xs, lens, h0, wx, wh, b, ct):
     f32 = torch.float32
     if L == 0 or N == 0:
         zeros = lambda *shape: torch.zeros(shape, dtype=f32, device=dev)
-        return (torch.zeros_like(xs), ct.to(f32), zeros(D, 3 * U), zeros(U, 3 * U),
+        return (torch.zeros_like(xs), ct.to(f32, copy=True), zeros(D, 3 * U), zeros(U, 3 * U),
                 zeros(2, 3 * U))
     lib = _build.library()
     hstash = None
@@ -333,23 +333,103 @@ def _launch_backward(xs, lens, h0, wx, wh, b, ct):
     return d_xs, d_h0, wgrad[:D], wgrad[D:], d_b
 
 
+# --------------------------------------------------------------------------
+# the kernels as operators (`torch.ops.ignnition_tpu_torch.*`, see
+# `_build.op_library`); `_MaskedGruScan` differentiates B, with C on the card
+# --------------------------------------------------------------------------
+
+_lib = _build.op_library()
+_lib.define(
+    "masked_gru_scan(Tensor xs, Tensor lens, Tensor h0, Tensor kernel, "
+    "Tensor recurrent_kernel, Tensor bias) -> Tensor"
+)
+_lib.define(
+    "masked_gru_scan_backward(Tensor xs, Tensor lens, Tensor h0, Tensor kernel, "
+    "Tensor recurrent_kernel, Tensor bias, Tensor ct) -> (Tensor, Tensor, Tensor, Tensor)"
+)
+_PARAM_NAMES = ("kernel", "recurrent_kernel", "bias")
+
+
+def _forward_cuda(xs, lens, h0, wx, wh, b):
+    return _launch_forward(*(t.contiguous() for t in (xs, lens, h0, wx, wh, b)))
+
+
+def _forward_cpu(xs, lens, h0, wx, wh, b):
+    if xs.shape[0] == 0:  # no step: h0 itself, as a new tensor
+        return h0.to(xs.dtype, copy=True)
+    return masked_gru_scan_plain(xs, lens, h0, dict(zip(_PARAM_NAMES, (wx, wh, b))))
+
+
+def _forward_fake(xs, lens, h0, wx, wh, b):
+    return xs.new_empty((xs.shape[1], h0.shape[1]))
+
+
+def _backward_cuda(xs, lens, h0, wx, wh, b, ct):
+    """Kernel C: (d_xs in xs's dtype; d_h0, d_w, d_b in f32), d_w the
+    gradients of `kernel` and `recurrent_kernel` stacked [D + u, 3u] as
+    the kernel writes them."""
+    d_xs, d_h0, d_wx, d_wh, d_b = _launch_backward(
+        *(t.contiguous() for t in (xs, lens, h0, wx, wh, b, ct.to(xs.dtype)))
+    )
+    # d_wx and d_wh are the two row blocks of one tensor, unless L or N is 0
+    d_w = d_wx._base if d_wx._base is not None else torch.cat([d_wx, d_wh])
+    return d_xs, d_h0, d_w, d_b
+
+
+def _backward_cpu(xs, lens, h0, wx, wh, b, ct):
+    """Kernel C's plain version (the TPU kernel's rounding), in the CUDA
+    body's dtypes."""
+    d_xs, d_h0, d_wx, d_wh, d_b = masked_gru_scan_bwd_kernel_plain(
+        xs, lens, h0, dict(zip(_PARAM_NAMES, (wx, wh, b))), ct
+    )
+    acc = torch.promote_types(xs.dtype, torch.float32)
+    # with no step d_h0 is ct itself: copied, as an output aliases no input
+    return d_xs, d_h0.to(acc, copy=True), torch.cat([d_wx, d_wh]).to(acc), d_b.to(acc)
+
+
+def _backward_fake(xs, lens, h0, wx, wh, b, ct):
+    (d, three_u), u = wx.shape, h0.shape[1]
+    acc = torch.promote_types(xs.dtype, torch.float32)
+    return (torch.empty_like(xs), h0.new_empty(h0.shape, dtype=acc),
+            wx.new_empty((d + u, three_u), dtype=acc), b.new_empty(b.shape, dtype=acc))
+
+
+_lib.impl("masked_gru_scan", _forward_cuda, "CUDA")
+_lib.impl("masked_gru_scan", _forward_cpu, "CPU")
+_lib.impl("masked_gru_scan_backward", _backward_cuda, "CUDA")
+_lib.impl("masked_gru_scan_backward", _backward_cpu, "CPU")
+torch.library.register_fake(f"{_build.OPS}::masked_gru_scan", _forward_fake, lib=_lib)
+torch.library.register_fake(f"{_build.OPS}::masked_gru_scan_backward", _backward_fake, lib=_lib)
+
+
 class _MaskedGruScan(torch.autograd.Function):
-    """Kernel B forward, kernel C backward, on CUDA tensors in one dtype."""
+    """The operator `masked_gru_scan` with its backward: kernel C on the card;
+    on the CPU autograd through the plain scan (`masked_gru_scan_bwd_plain`,
+    which recomputes the forward). Gradients come back in the inputs' dtypes.
+    (Not an autograd registration of the operator: see `segment_kernels`.)"""
 
     @staticmethod
     def forward(ctx, xs, lens, h0, wx, wh, b):
-        xs, h0, wx, wh, b = (t.contiguous() for t in (xs, h0, wx, wh, b))
         ctx.save_for_backward(xs, lens, h0, wx, wh, b)
-        return _launch_forward(xs, lens, h0, wx, wh, b)
+        return torch.ops.ignnition_tpu_torch.masked_gru_scan(xs, lens, h0, wx, wh, b)
 
     @staticmethod
     def backward(ctx, ct):
         xs, lens, h0, wx, wh, b = ctx.saved_tensors
-        d_xs, d_h0, d_wx, d_wh, d_b = _launch_backward(
-            xs, lens, h0, wx, wh, b, ct.to(xs.dtype).contiguous()
+        if xs.device.type == "cpu":
+            grads = masked_gru_scan_bwd_plain(
+                xs, lens, h0, dict(zip(_PARAM_NAMES, (wx, wh, b))), ct
+            )
+            d_xs, d_h0, d_wx, d_wh, d_b = (
+                torch.zeros_like(t) if g is None else g
+                for g, t in zip(grads, (xs, h0, wx, wh, b))
+            )
+            return d_xs, None, d_h0, d_wx, d_wh, d_b
+        d_xs, d_h0, d_w, d_b = torch.ops.ignnition_tpu_torch.masked_gru_scan_backward(
+            xs, lens, h0, wx, wh, b, ct
         )
-        dtype = xs.dtype
-        return d_xs, None, d_h0.to(dtype), d_wx.to(dtype), d_wh.to(dtype), d_b.to(dtype)
+        dtype, d = xs.dtype, xs.shape[2]
+        return d_xs, None, d_h0.to(dtype), d_w[:d].to(dtype), d_w[d:].to(dtype), d_b.to(dtype)
 
 
 def masked_gru_scan(
@@ -358,13 +438,12 @@ def masked_gru_scan(
     """Masked GRU scan over time-major slices; returns the final h.
     Differentiable in xs, h0 and the params.
 
-    A CPU tensor takes the plain version (and autograd's backward of it); a
-    CUDA tensor launches kernel B, and kernel C in the backward (and raises
-    if it cannot)."""
-    if xs.device.type == "cpu":
-        return masked_gru_scan_plain(xs, lens, h0, params)
+    The operator `masked_gru_scan`: a CPU tensor takes the plain version
+    (and autograd's backward of it); a CUDA tensor launches kernel B, and
+    kernel C in the backward (and raises if it cannot)."""
     dtype = xs.dtype
     wx, wh, b = _cast_params(params, dtype)
-    return _MaskedGruScan.apply(
-        xs, lens.to(torch.int32).contiguous(), h0.to(dtype), wx, wh, b
-    )
+    args = (xs, lens.to(torch.int32), h0.to(dtype), wx, wh, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _MaskedGruScan.apply(*args)
+    return torch.ops.ignnition_tpu_torch.masked_gru_scan(*args)

@@ -136,53 +136,12 @@ def _launch_ids(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 
 def _segment_ids(row_ptr: torch.Tensor, num_edges: int) -> torch.Tensor:
     """The segment of each of `num_edges` edges under `row_ptr`; edges outside
-    [row_ptr[0], row_ptr[-1]) (padding) get -1."""
+    [row_ptr[0], row_ptr[-1]) (padding) get -1. Over the pointers of several
+    windows the segment counts on through the windows."""
     e = torch.arange(num_edges, device=row_ptr.device, dtype=row_ptr.dtype)
     ids = torch.searchsorted(row_ptr[1:].contiguous(), e, right=True)
     live = (e >= row_ptr[0]) & (e < row_ptr[-1])
     return torch.where(live, ids, torch.full_like(ids, -1))
-
-
-class _CsrSegmentSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, data, row_ptr):
-        ctx.save_for_backward(row_ptr)
-        ctx.data_dtype, ctx.num_edges = data.dtype, data.shape[0]
-        return _launch(data, row_ptr, row_ptr.shape[0] - 1)
-
-    @staticmethod
-    def backward(ctx, ct):
-        (row_ptr,) = ctx.saved_tensors
-        ids = _segment_ids(row_ptr, ctx.num_edges)
-        grad = ct[ids.clamp_min(0)] * (ids >= 0)[:, None].to(ct.dtype)
-        return grad.to(ctx.data_dtype), None
-
-
-def sorted_segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """[E, D] bf16/f32 rows summed into len(row_ptr) - 1 segments -> f32.
-    Differentiable in `data`: the backward gathers the cotangent row of each
-    edge's segment (ids derived from `row_ptr`); padding edges get zero.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and raises if it cannot)."""
-    if data.device.type == "cpu":
-        return sorted_segment_sum_csr_plain(data, row_ptr)
-    return _CsrSegmentSum.apply(data, row_ptr)
-
-
-def sorted_segment_sum_csr_windows(
-    data: torch.Tensor, row_ptr: torch.Tensor, num_segments: int
-) -> torch.Tensor:
-    """[E, D] bf16/f32 rows summed over the row pointers of several windows
-    (`row_ptr` [windows * num_segments + 1], offsets into the whole of
-    `data`) -> [num_segments, D] f32, row n adding row n of every window.
-    Not differentiable: backwards call it.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches kernel A
-    once (and raises if it cannot)."""
-    if data.device.type == "cpu":
-        return sorted_segment_sum_csr_windows_plain(data, row_ptr, num_segments)
-    return _launch(data.detach(), row_ptr, num_segments)
 
 
 def sorted_segment_sum_ids_plain(
@@ -214,17 +173,130 @@ def sorted_segment_sum_ids_transpose(ct: torch.Tensor, segment_ids: torch.Tensor
     return ct[ids.clamp(0, max(ct.shape[0] - 1, 0))] * keep[:, None].to(ct.dtype)
 
 
+# --------------------------------------------------------------------------
+# the kernels as operators (`torch.ops.ignnition_tpu_torch.*`): a CUDA body
+# that launches the kernel, a CPU body that is the plain version, a fake that
+# gives the output's shape without building or launching anything (what
+# `torch.export` traces); the public entries differentiate
+# --------------------------------------------------------------------------
+
+_lib = _build.op_library()
+_lib.define("csr_segment_sum(Tensor data, Tensor row_ptr, int num_segments) -> Tensor")
+_lib.define(
+    "csr_segment_sum_windows(Tensor data, Tensor row_ptr, int num_segments) -> Tensor")
+_lib.define("segment_sum_ids(Tensor data, Tensor segment_ids, int num_segments) -> Tensor")
+
+
+# the bodies look their functions up when called, so that a patched name
+# (a spy, the plain path on the card) is the one that runs
+
+
+def _csr_cuda(data, row_ptr, num_segments):
+    return _launch(data, row_ptr, num_segments)
+
+
+def _csr_cpu(data, row_ptr, num_segments):
+    return sorted_segment_sum_csr_plain(data, row_ptr)
+
+
+def _windows_cpu(data, row_ptr, num_segments):
+    return sorted_segment_sum_csr_windows_plain(data, row_ptr, num_segments)
+
+
+def _ids_cuda(data, segment_ids, num_segments):
+    return _launch_ids(data, segment_ids, num_segments)
+
+
+def _ids_cpu(data, segment_ids, num_segments):
+    return sorted_segment_sum_ids_plain(data, segment_ids, num_segments)
+
+
+def _sum_fake(data, index, num_segments):
+    acc = torch.promote_types(data.dtype, torch.float32)
+    return data.new_empty((num_segments, data.shape[1]), dtype=acc)
+
+
+_lib.impl("csr_segment_sum", _csr_cuda, "CUDA")
+_lib.impl("csr_segment_sum", _csr_cpu, "CPU")
+_lib.impl("csr_segment_sum_windows", _csr_cuda, "CUDA")
+_lib.impl("csr_segment_sum_windows", _windows_cpu, "CPU")
+_lib.impl("segment_sum_ids", _ids_cuda, "CUDA")
+_lib.impl("segment_sum_ids", _ids_cpu, "CPU")
+torch.library.register_fake(f"{_build.OPS}::csr_segment_sum", _sum_fake, lib=_lib)
+torch.library.register_fake(f"{_build.OPS}::csr_segment_sum_windows", _sum_fake, lib=_lib)
+torch.library.register_fake(f"{_build.OPS}::segment_sum_ids", _sum_fake, lib=_lib)
+
+
+# Gradients come from autograd Functions around the operators, not from an
+# autograd registration of the operators: that would add a Python kernel, and
+# its host time, to every call of a step that the host bounds. An operator
+# called by itself therefore does not differentiate; the public entries do.
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _CsrSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, row_ptr):
+        ctx.save_for_backward(row_ptr)
+        ctx.data_dtype, ctx.num_edges = data.dtype, data.shape[0]
+        return torch.ops.ignnition_tpu_torch.csr_segment_sum(data, row_ptr, row_ptr.shape[0] - 1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        """The TPU function's `_csr_bwd`: a row gather of the cotangent by
+        segment id, zero for padding edges, in the data's dtype."""
+        (row_ptr,) = ctx.saved_tensors
+        ids = _segment_ids(row_ptr, ctx.num_edges)
+        grad = ct[ids.clamp_min(0)] * (ids >= 0)[:, None].to(ct.dtype)
+        return grad.to(ctx.data_dtype), None
+
+
 class _IdsSegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, segment_ids, num_segments):
         ctx.save_for_backward(segment_ids)
         ctx.data_dtype = data.dtype
-        return _launch_ids(data, segment_ids, num_segments)
+        return torch.ops.ignnition_tpu_torch.segment_sum_ids(data, segment_ids, num_segments)
 
     @staticmethod
     def backward(ctx, ct):
         (segment_ids,) = ctx.saved_tensors
         return sorted_segment_sum_ids_transpose(ct, segment_ids).to(ctx.data_dtype), None, None
+
+
+# --------------------------------------------------------------------------
+# public entries
+# --------------------------------------------------------------------------
+
+
+def sorted_segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """[E, D] bf16/f32 rows summed into len(row_ptr) - 1 segments -> f32.
+    Differentiable in `data`: the backward gathers the cotangent row of each
+    edge's segment (ids derived from `row_ptr`); padding edges get zero.
+
+    The operator `csr_segment_sum`: a CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (and raises if it cannot)."""
+    if _wants_grad(data):
+        return _CsrSegmentSum.apply(data, row_ptr)
+    return torch.ops.ignnition_tpu_torch.csr_segment_sum(data, row_ptr, row_ptr.shape[0] - 1)
+
+
+def sorted_segment_sum_csr_windows(
+    data: torch.Tensor, row_ptr: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """[E, D] bf16/f32 rows summed over the row pointers of several windows
+    (`row_ptr` [windows * num_segments + 1], offsets into the whole of
+    `data`) -> [num_segments, D] f32, row n adding row n of every window.
+    Not differentiable: backwards call it.
+
+    The operator `csr_segment_sum_windows`: a CPU tensor takes the plain
+    version; a CUDA tensor launches kernel A once (and raises if it
+    cannot)."""
+    return torch.ops.ignnition_tpu_torch.csr_segment_sum_windows(
+        data.detach(), row_ptr, num_segments)
 
 
 def sorted_segment_sum_ids(
@@ -236,13 +308,14 @@ def sorted_segment_sum_ids(
     Differentiable in `data`: the backward is `ct[segment_ids]` in the data's
     dtype (the TPU function's `_sss_bwd`), zero for an id out of range.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    id-keyed kernel once (and raises if it cannot)."""
+    The operator `segment_sum_ids`: a CPU tensor takes the plain version; a
+    CUDA tensor launches the id-keyed kernel once (and raises if it
+    cannot)."""
     if segment_ids.dim() != 1 or segment_ids.shape[0] != data.shape[0]:
         raise ValueError(
             f"sorted_segment_sum_ids: {tuple(segment_ids.shape)} ids for data "
             f"{tuple(data.shape)}"
         )
-    if data.device.type == "cpu":
-        return sorted_segment_sum_ids_plain(data, segment_ids, num_segments)
-    return _IdsSegmentSum.apply(data, segment_ids, num_segments)
+    if _wants_grad(data):
+        return _IdsSegmentSum.apply(data, segment_ids, num_segments)
+    return torch.ops.ignnition_tpu_torch.segment_sum_ids(data, segment_ids, num_segments)

@@ -337,3 +337,68 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_serving_and_debug_import_without_jax():
+    """The serving and debug modules import no JAX and nothing of the JAX
+    package, and their verbs resolve."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import ignnition_tpu_torch as igt\n"
+        "import ignnition_tpu_torch.serving, ignnition_tpu_torch.debug\n"
+        "import ignnition_tpu_torch.debuggraph\n"
+        "igt.export_serving, igt.load_serving, igt.LoadedServingModel\n"
+        "assert callable(igt.debug) and igt.debug.__module__ == 'ignnition_tpu_torch.api'\n"
+        "bad = [m for m in sys.modules if m == 'ignnition_tpu' or m.startswith('ignnition_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_compiled_sources_are_package_data():
+    """Every source that the port compiles at first use (the native batch
+    helpers, the CUDA kernels) matches a package-data glob of
+    pyproject.toml, so that an installed port can build both."""
+    import fnmatch
+    import tomllib
+
+    from ignnition_tpu_torch.data import native_build
+    from ignnition_tpu_torch.ops.cuda import _build
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["ignnition_tpu_torch"]
+    pkg = REPO / "ignnition_tpu_torch"
+    cu, cuh = _build._sources()
+    sources = [native_build.SOURCE_DIR / n for n in native_build.SOURCES] + cu + cuh
+    assert len(sources) >= 4
+    for src in sources:
+        rel = src.resolve().relative_to(pkg.resolve()).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
+
+
+def test_build_directory_falls_back_when_the_package_cannot_be_written(
+        tmp_path, monkeypatch):
+    """In a checkout the libraries go to `ignnition_tpu_torch/_build/`;
+    where the package directory cannot be written (an installed package),
+    to the per-user cache directory."""
+    from ignnition_tpu_torch.data import native_build
+    from ignnition_tpu_torch.ops.cuda import _build
+    from ignnition_tpu_torch.utils import build_dir as bd
+
+    pkg = REPO / "ignnition_tpu_torch"
+    assert native_build.BUILD_DIR == _build.BUILD_DIR == pkg / "_build"
+    installed = tmp_path / "site-packages" / "ignnition_tpu_torch"
+    installed.mkdir(parents=True)
+    assert bd.build_dir(installed) == installed / "_build"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    monkeypatch.setattr(bd, "_writable", lambda path: not str(path).startswith(
+        str(tmp_path / "site-packages")))
+    assert bd.build_dir(installed) == tmp_path / "cache" / "ignnition_tpu_torch"
+    (installed / "_build").mkdir()
+    assert bd.build_dir(installed) == tmp_path / "cache" / "ignnition_tpu_torch"
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert bd.build_dir(installed) == tmp_path / "home" / ".cache" / "ignnition_tpu_torch"
