@@ -183,7 +183,24 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      ones, export and load seconds, the artifact's size. Then `igt.debug` on
      the card for `examples/routenet`'s description (its `model.export.txt`
      calls kernel B's operator once an iteration) and `Runner.export_serving`
-     reloaded against `Runner.predict`.
+     reloaded against `Runner.predict`;
+ 12. the roofline, the memory model and the sharded step: (a) the floors
+     of `utils/roofline.HardwareSpec` computed again from this run's phase-2
+     graph-replay times (the row gather's: its byte bound, beside the
+     library's gathers timed here) and printed beside the held constants,
+     then `roofline_report` for the flagship, flagship_x4 and attention
+     bf16 steps over each step's wall time and its device-busy time
+     (profiler); (b) `estimate_train_hbm` against the
+     device memory a bf16 step of the flagship, x4 and x8 allocates at its
+     peak, which the estimate must not fall below; (c) the flagship at full
+     width stepped 3 times in f32 and bf16 over 1x2, 2x1 and 2x2 meshes of a
+     gloo world of 4 processes on the card and a 1x1 mesh of an NCCL world
+     of one (this script run with `--parallel-rank` per rank), each held to
+     the single-device steps on the card (f32 losses at rtol 1e-5 and
+     parameters by `tests/test_torch_train.py`'s rule, bf16 losses within
+     3e-2), every rank's parameters alike, each rank's launches of B, C and
+     the id-keyed kernel (edge sharding) or A (data parallel) counted; the
+     step time and the all-reduce's share of a profiled step printed.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -4785,6 +4802,485 @@ def serving_artifacts(dev, card: str, homogeneous_served: dict) -> dict:
     return dict(launches=total, **result)
 
 
+# --------------------------------------------------------------------------
+# phase 12: the roofline, the memory model and the sharded step
+# --------------------------------------------------------------------------
+
+# (table rows, indices) of the row-gather calibration: 64-byte rows (bf16,
+# D=32) at the x4 and the flagship stage-2 shapes
+GATHER_SHAPES = ((8192, 524_288), (2048, 131_072))
+# the library's row gathers timed there; the fastest sets the floor if it
+# comes within 2x of the byte bound, else the bound does
+GATHERS = {"torch.index_select": lambda a, i: torch.index_select(a, 0, i),
+           "table[idx]": lambda a, i: a[i],
+           "F.embedding": lambda a, i: torch.nn.functional.embedding(i, a)}
+MEMORY_SIZES = {"flagship": (FLAGSHIP, 1), "flagship_x4": (FLAGSHIP_X4, 1),
+                "flagship_x8": (dict(n_links=16384, n_paths=131072, path_len=8), 1)}
+PARALLEL_STEPS = 3
+# the meshes of the gloo world of 4 (one card: NCCL refuses two ranks on a
+# device), then a world of one over NCCL
+PARALLEL_MESHES = ((1, 2), (2, 1), (2, 2))
+PARALLEL_SECONDS = 420  # a world's time limit: its ranks are killed past it
+BF16_STEP_ATOL = 3e-2  # phase 4's bf16 limit on a step's loss
+
+
+def calibrated_floors(dev, rng, seg, gru, gru_bwd, gat) -> dict:
+    """The H100 floors of `utils/roofline.HardwareSpec` from this run's
+    graph-replay device times (bf16; phase 2's timers, and the library's row
+    gathers timed here), beside the constants the module holds. The row
+    gather's floor is the fastest library gather where it comes within 2x of
+    the byte bound (a 64-byte row read and written, its int64 index read),
+    else the bound."""
+    from ignnition_tpu_torch.utils.roofline import HardwareSpec
+
+    bf16 = torch.bfloat16
+    held = HardwareSpec()
+    gathers = {}
+    for rows, n in GATHER_SHAPES:
+        table = torch.randn(rows, HS, device=dev).to(bf16)
+        idx = torch.from_numpy(rng.integers(0, rows, n)).to(dev)
+        for name, call in GATHERS.items():
+            t = device_times(call, rotations((table, idx)))
+            gathers[f"{name} [{rows},{HS}] x {n}"] = t["graph_ms"] * 1e6 / n
+    gather_bound = (2 * HS * 2 + 8) / held.hbm_gbps
+    library = min(gathers.values())
+    L, d = FLAGSHIP["path_len"], HS
+    scans = {
+        n: (gru[bf16][k]["graph_ms"] if k else gru[bf16]["graph_ms"])
+        + (gru_bwd[bf16][k]["graph_ms"] if k else gru_bwd[bf16]["graph_ms"])
+        for n, k in ((FLAGSHIP["n_paths"], None), (FLAGSHIP_X4["n_paths"], "at_x4_shape"))
+    }
+    entries = FLAGSHIP["n_links"] * FLAGSHIP["n_paths"]
+    measured = dict(
+        gather_ns_per_row=library if library <= 2 * gather_bound else gather_bound,
+        dense_attn_ps_per_entry=(gat["fwd"][bf16]["graph_ms"] + gat["bwd"][bf16]["graph_ms"])
+        * 1e9 / (2 * entries),
+        rnn_scan_ps_per_elem=min(t * 1e9 / (L * n * d) for n, t in scans.items()),
+        rnn_scan_us_per_step=min(t * 1e3 / L for t in scans.values()),
+        segsum_ns_per_row=seg["csr"][bf16]["graph_ms"] * 1e6 / 524_288,
+    )
+    print("[roofline] floors from this run's graph-replay times (bf16) beside "
+          "utils/roofline.HardwareSpec's:")
+    for k, v in measured.items():
+        print(f"    {k}: {v:.5g} this run, {getattr(held, k):.5g} held ({v / getattr(held, k):.3f}x)")
+    print("    row gathers, ns a row: " + ", ".join(f"{k} {v:.5g}" for k, v in gathers.items())
+          + f"; the fastest {library:.5g} = {library / gather_bound:.2f}x the byte bound "
+          f"{gather_bound:.5g} ({2 * HS * 2 + 8} bytes a row at {held.hbm_gbps:g} GB/s)"
+          + "; B+C ms a call: " + ", ".join(f"[{L},{n},{d}] {t:.4f}" for n, t in scans.items()))
+    return dict(measured=measured, held={k: getattr(held, k) for k in measured},
+                gather_ns_by_shape=gathers, gather_library_ns=library,
+                gather_bound_ns=gather_bound, scan_ms_by_paths=scans)
+
+
+def _train_setup(desc, size, dtype, seed, graphs: int = 1, rows: int = 1):
+    """(ir, trainer on the card, state, [(arrays, meta)] of `rows` batches)."""
+    import ignnition_tpu_torch as igt
+
+    ir = igt.parse_model_description(desc, FEATURE_DIMS)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    rng = np.random.default_rng(seed)
+    batches = [igt.build_batch([make_sample(rng, **size) for _ in range(graphs)], ir, padding,
+                               training=True) for _ in range(rows)]
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=dtype)
+    state = trainer.init_state(torch.Generator().manual_seed(seed))
+    return ir, trainer, state, batches
+
+
+def roofline_steps(card: str, gather_library_ns: float) -> dict:
+    """(a): the flagship, flagship_x4 and attention bf16 training steps timed
+    (median of 20, CUDA events) and profiled; `roofline_report` over the
+    step's wall time and over its device-busy time; the report's gather rows
+    also at the fastest library gather's rate, what they take."""
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.utils.roofline import roofline_report
+
+    out = {}
+    for name, desc, size in (("flagship", flagship_description(), FLAGSHIP),
+                             ("flagship_x4", flagship_description(), FLAGSHIP_X4),
+                             ("attention", attention_description(), FLAGSHIP)):
+        ir, trainer, state, [(arrays, meta)] = _train_setup(desc, size, torch.bfloat16,
+                                                            SEED + 12)
+        batch = to_device(arrays, trainer.device)
+        timed = time_training_step(f"{name} (phase 12)", trainer.train_step_fn(meta), state,
+                                   batch, arrays, card)
+        reports = {"wall": roofline_report(ir, meta, timed["step_ms"])}
+        if "device_busy_ms" in timed:
+            reports["device_busy"] = roofline_report(ir, meta, timed["device_busy_ms"])
+        for over, r in reports.items():
+            print(f"[roofline] {name}, bf16 step over its {over} time {r['measured_ms']} ms: "
+                  f"bound (sol) {r['sol_ms']} ms = {r['sol_pct']}% ({r['binding']}), "
+                  f"access-pattern bound (apsol) {r['apsol_ms']} ms = {r['apsol_pct']}% "
+                  f"(scan {r['rnn_scan_ms']}, segment sums {r['segsum_ms']}, gathers "
+                  f"{r['gather_floor_ms_informational']}, dense attention "
+                  f"{r['dense_attn_ms']} ms); {r['bytes_mb']} MB, {r['gflops']} GFLOP")
+        library_ms = reports["wall"]["gather_rows_m"] * 1e6 * gather_library_ns * 1e-6
+        print(f"    bytes by item (MB): {reports['wall']['bytes_items_mb']}; "
+              f"GFLOP by item: {reports['wall']['flops_items_g']}; the "
+              f"{reports['wall']['gather_rows_m']} M gather rows at the library's "
+              f"{gather_library_ns:.5g} ns a row: {library_ms:.3f} ms")
+        out[name] = dict(step_ms=timed["step_ms"], device_busy_ms=timed.get("device_busy_ms"),
+                         roofline=reports, gathers_at_library_ms=library_ms)
+    return out
+
+
+def memory_model(card: str) -> dict:
+    """(b): `estimate_train_hbm` (with the device batch's exact bytes)
+    against the device memory that a bf16 training step of the flagship, x4
+    and x8 allocates at its peak above what was allocated before its state
+    and batch; the estimate must not fall below it."""
+    import gc
+
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.utils.memory import estimate_train_hbm
+
+    out = {}
+    for name, (size, graphs) in MEMORY_SIZES.items():
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        ir, trainer, state, [(arrays, meta)] = _train_setup(
+            flagship_description(), size, torch.bfloat16, SEED + 12, graphs)
+        batch = to_device(arrays, trainer.device)
+        step = trainer.train_step_fn(meta)
+        step(state, batch)  # the optimizer's moments exist from here on
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+        batch_bytes = sum(t.numel() * t.element_size() for t in batch.values())
+        est = estimate_train_hbm(ir, meta, batch_bytes=batch_bytes)
+        ratio = est["total_bytes"] / measured
+        print(f"[memory] {name}: estimate {est['total_bytes'] / 2**20:.1f} MiB ("
+              + ", ".join(f"{k[:-6]} {v / 2**20:.1f}" for k, v in est.items()
+                          if k != "total_bytes")
+              + f") against {measured / 2**20:.1f} MiB allocated at the step's peak above "
+              f"the {base / 2**20:.1f} MiB before it: estimate / measured {ratio:.3f}, on {card}")
+        out[name] = dict(estimate_bytes=est, measured_bytes=measured, ratio=ratio)
+        del state, batch, step, trainer
+        if ratio < 1.0:
+            raise AssertionError(f"{name}: the memory estimate falls below the measured peak")
+    return out
+
+
+def _parallel_rows(dtype):
+    """The flagship's two data rows of the sharded steps (seeded)."""
+    return _train_setup(flagship_description(), FLAGSHIP, dtype, SEED + 12, rows=2)
+
+
+def parallel_reference(dtype, n_rows: int) -> dict:
+    """The single-device steps on the card that a mesh of `n_rows` data rows
+    must match: each step the mean of the rows' gradients (serial), one
+    update; the losses, the parameters after every step and the first
+    step's gradients."""
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params, with_leaves
+    from ignnition_tpu_torch.parallel import stack_batches
+
+    ir, trainer, state, batches = _parallel_rows(dtype)
+    # the rows as the mesh's step gets them: stacked, re-padded to one meta
+    stacked, meta = stack_batches(batches[:n_rows], ir)
+    grads = trainer.grads_fn(meta)
+    device_batches = [to_device({k: v[i] for k, v in stacked.items()}, trainer.device)
+                      for i in range(n_rows)]
+    losses, params, first = [], [], None
+    for _ in range(PARALLEL_STEPS):
+        total, loss = None, 0.0
+        for batch in device_batches:
+            g, m = grads(state.params, batch)
+            g = list(flatten_params(g).values())
+            total = g if total is None else [a + b for a, b in zip(total, g)]
+            loss += float(m["loss"])
+        mean = [t / n_rows for t in total]
+        first = first or {k: v.float().cpu() for k, v in
+                          zip(flatten_params(state.params), mean)}
+        trainer.optimizer.step(state.params, with_leaves(state.params, mean), state.opt_state)
+        losses.append(loss / n_rows)
+        params.append({k: v.detach().float().cpu() for k, v in
+                       flatten_params(state.params).items()})
+    return dict(losses=losses, params=params, first_grads=first)
+
+
+def parallel_rank(job_dir: str, port: str, rank: str, world: str, backend: str) -> None:
+    """One rank of a sharded-step world (this script run with
+    `--parallel-rank`): joins the world, steps the flagship over each mesh
+    of the job in f32 and bf16 and writes, per mesh and dtype, its losses,
+    its parameters after each step, the launches of its kernels, its step
+    times and the all-reduce's share of a profiled step."""
+    import pickle
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from ignnition_tpu_torch.model.builder import flatten_params
+    from ignnition_tpu_torch.parallel import distributed, make_mesh, make_parallel_train_step
+    from ignnition_tpu_torch.parallel import stack_batches
+    from ignnition_tpu_torch.parallel.steps import GRADIENT_ALL_REDUCE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(rank), int(world)
+    with open(os.path.join(job_dir, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    distributed.initialize(f"localhost:{port}", world, rank, backend=backend)
+    out = {"backend": dist.get_backend()}
+    from torch.profiler import ProfilerActivity, profile
+
+    # the profiler's start-up (CUPTI), outside the profiled steps: a rank's
+    # first profile stalled its mesh ~10 s once
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    counts = Counts()
+    for shape in job["meshes"]:
+        mesh = make_mesh(*shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            if mesh.coords is None:
+                dist.barrier()
+                continue
+            ir, trainer, state, batches = _parallel_rows(dtype)
+            stacked, meta = stack_batches(batches[:shape[0]], ir)
+            step = make_parallel_train_step(trainer.model, trainer.optimizer, trainer.loss_fn,
+                                            meta, mesh, compute_dtype=dtype)
+            losses, params, times = [], [], []
+            counts.reset()
+            for _ in range(PARALLEL_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _, _, loss = step(state.params, state.opt_state, stacked,
+                                  generator=trainer.generator)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                losses.append(float(loss))
+                params.append({k: v.detach().float().cpu()
+                               for k, v in flatten_params(state.params).items()})
+            launched = counts.read()
+            # one more step under the profiler: the all-reduces' share (the
+            # model axis's, forward and backward, and the gradients'; each
+            # call waits for its collective on the host)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(state.params, state.opt_state, stacked, generator=trainer.generator)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            # the host-side records only: a record_function also has a device
+            # record of the same key, whose host time is 0
+            reduce_ms = dict.fromkeys(
+                ("_AllReduceSum", "_AllReduceSumBackward", GRADIENT_ALL_REDUCE), 0.0)
+            for e in prof.key_averages():
+                if e.key in reduce_ms and e.device_type == torch.autograd.DeviceType.CPU:
+                    reduce_ms[e.key] += e.cpu_time_total / 1e3
+            out[(shape, str(dtype))] = dict(
+                coords=mesh.coords, losses=losses, params=params if rank == 0 else None,
+                checksum=[float(sum(float(v.double().sum()) for v in p.values()))
+                          for p in params],
+                launches=launched, step_ms=times, profiled_step_ms=wall,
+                allreduce_ms=reduce_ms)
+            del state, step, trainer, batches, stacked
+            dist.barrier()
+    with open(os.path.join(job_dir, f"out_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def spawn_parallel_world(world: int, backend: str, meshes, root: str) -> list:
+    """Run `world` ranks of `parallel_rank` (each a process of this script);
+    every rank's results, or a raise with every rank's output when one
+    fails or the world outlives `PARALLEL_SECONDS` (its ranks are killed)."""
+    import pickle
+    import socket
+
+    job_dir = os.path.join(root, f"{backend}_{world}")
+    os.makedirs(job_dir, exist_ok=True)
+    with open(os.path.join(job_dir, "job.pkl"), "wb") as f:
+        pickle.dump({"meshes": meshes}, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    logs = [os.path.join(job_dir, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank", job_dir,
+                 str(port), str(r), str(world), backend],
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline, failed = time.monotonic() + PARALLEL_SECONDS, None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                failed = (f"rank {bad[0]} exited with {procs[bad[0]].returncode}" if bad
+                          else f"the world outlived {PARALLEL_SECONDS} s")
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed is None and any(p.returncode for p in procs):
+        failed = f"ranks exited with {[p.returncode for p in procs]}"
+    if failed:
+        for r in range(world):
+            print(f"--- {backend} rank {r}:\n{open(logs[r]).read()[-4000:]}")
+        raise AssertionError(f"sharded steps, {backend} world of {world}: {failed}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(job_dir, f"out_{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _expected_parallel_launches(model_axis: int) -> dict:
+    """A rank's launches in `PARALLEL_STEPS` flagship steps: B and C once an
+    iteration; under edge sharding the id-keyed sum once an iteration (the
+    stage-2 sum of this rank's sorted block), no kernel A (the gathers'
+    sorts are off) and no D or E; without it the single-device path (the
+    dense product, kernel A 7 times a step, phase 4)."""
+    s, it = PARALLEL_STEPS, ITERATIONS
+    if model_axis > 1:
+        return dict(masked_gru_scan=it * s, masked_gru_scan_bwd=it * s, segment_sum_ids=it * s)
+    return dict(masked_gru_scan=it * s, masked_gru_scan_bwd=it * s,
+                csr_segment_sum=(it - 1) * s)
+
+
+def sharded_steps(card: str) -> dict:
+    """(c): the flagship at full width (hs 32, 8 iterations, 2,048 links and
+    16,384 paths of length 8 a data row) stepped 3 times in f32 and in bf16
+    over 1x2, 2x1 and 2x2 meshes of a gloo world of 4 and a 1x1 mesh of an
+    NCCL world of 1, each held to the single-device steps on the card
+    (`parallel_reference`): f32 losses at rtol 1e-5 and the parameters by
+    the rule of `tests/test_torch_train.py` (elements whose first gradient
+    is above 1e-3 of the leaf's largest at rtol 5e-4 / atol 5e-6, every
+    element within 2 lr a step), bf16 losses within 3e-2; every rank of a
+    mesh ends with the same parameters; each rank's launches of B, C and the
+    id-keyed kernel counted."""
+    import tempfile
+
+    from ignnition_tpu_torch.parallel.steps import GRADIENT_ALL_REDUCE
+
+    refs = {(dtype, rows): parallel_reference(dtype, rows)
+            for dtype in (torch.float32, torch.bfloat16) for rows in (1, 2)}
+    lr = 1e-3  # the flagship's initial learning rate
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    t0 = time.perf_counter()
+    worlds = {"gloo": spawn_parallel_world(4, "gloo", PARALLEL_MESHES, root)}
+    worlds["nccl"] = spawn_parallel_world(1, "nccl", ((1, 1),), root)
+    print(f"[parallel] worlds spawned and run in {time.perf_counter() - t0:.1f} s (gloo: 4 "
+          f"processes on one card, meshes {PARALLEL_MESHES}; nccl: 1 process)")
+    total = {k: 0 for k in Counts().read()}
+    out = {}
+    for backend, ranks in worlds.items():
+        meshes = PARALLEL_MESHES if backend == "gloo" else ((1, 1),)
+        for shape in meshes:
+            for dtype in (torch.float32, torch.bfloat16):
+                key = (shape, str(dtype))
+                got = [r[key] for r in ranks if key in r]
+                if len(got) != shape[0] * shape[1]:
+                    raise AssertionError(f"{backend} {shape}: {len(got)} ranks reported")
+                ref = refs[(dtype, shape[0])]
+                what = f"{backend} {shape[0]}x{shape[1]} {str(dtype)[6:]}"
+                if len({tuple(g["checksum"]) for g in got}) != 1:
+                    raise AssertionError(f"{what}: the ranks' parameters differ")
+                lead = got[0]
+                if dtype == torch.float32:
+                    np.testing.assert_allclose(lead["losses"], ref["losses"], rtol=1e-5,
+                                               err_msg=what)
+                    firm = {k: g.abs() >= 1e-3 * g.abs().max()
+                            for k, g in ref["first_grads"].items()}
+                    worst_firm = worst_any = 0.0
+                    for i in range(PARALLEL_STEPS):
+                        for k, want in ref["params"][i].items():
+                            have = lead["params"][i][k]
+                            err = (have - want).abs()
+                            if not bool((err[firm[k]] <= 5e-6 + 5e-4 * want.abs()[firm[k]]).all()):
+                                raise AssertionError(f"{what}: step {i} {k} beyond the limits")
+                            if float(err.max()) > 2 * lr * (i + 1):
+                                raise AssertionError(f"{what}: step {i} {k} moved past 2 lr a step")
+                            if firm[k].any():
+                                worst_firm = max(worst_firm, float(err[firm[k]].max()))
+                            worst_any = max(worst_any, float(err.max()))
+                    held = (f"losses {lead['losses']} against {ref['losses']} (rtol 1e-5); "
+                            f"parameters: firm elements max |diff| {worst_firm:.3e}, any "
+                            f"element {worst_any:.3e} (limit {2 * lr:g} a step)")
+                else:
+                    diffs = [abs(a - b) for a, b in zip(lead["losses"], ref["losses"])]
+                    if max(diffs) > BF16_STEP_ATOL:
+                        raise AssertionError(f"{what}: a step's loss {max(diffs):.3e} from the "
+                                             f"single-device step's")
+                    held = (f"losses {lead['losses']} against {ref['losses']} (max |diff| "
+                            f"{max(diffs):.3e}, atol {BF16_STEP_ATOL})")
+                want = _expected_parallel_launches(shape[1])
+                for g in got:
+                    expect_counts(f"{what} rank {g['coords']}", g["launches"], **want)
+                    for k, v in g["launches"].items():
+                        total[k] += v
+                step_ms = float(np.median(lead["step_ms"][1:]))
+                # the gradients are all-reduced over every mesh of 2 or more
+                # ranks, the model axis's partials over a model axis of 2 or more
+                must = ([GRADIENT_ALL_REDUCE] if shape[0] * shape[1] > 1 else []) + (
+                    ["_AllReduceSum", "_AllReduceSumBackward"] if shape[1] > 1 else [])
+                unseen = [k for k in must if not lead["allreduce_ms"][k] > 0]
+                if unseen:
+                    raise AssertionError(f"{what}: the profile of a step shows no host time "
+                                         f"in {unseen}")
+                reduce_ms = sum(lead["allreduce_ms"].values())
+                share = reduce_ms / lead["profiled_step_ms"]
+                print(f"[parallel] {what}: {held}; step {step_ms:.1f} ms (median of steps "
+                      f"2-{PARALLEL_STEPS}, CUDA events, rank (0, 0)); profiled step "
+                      f"{lead['profiled_step_ms']:.1f} ms, all-reduces {reduce_ms:.1f} ms "
+                      f"({share:.1%}: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                    lead["allreduce_ms"].items())
+                      + f", torch.profiler host time), on {card}")
+                out[what] = dict(losses=lead["losses"], reference_losses=ref["losses"],
+                                 step_ms=step_ms, allreduce_share=share,
+                                 launches_per_rank=[g["launches"] for g in got])
+    print("[parallel] launch counts, every rank of every world: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, meshes=out)
+
+
+def phase12_alone() -> None:
+    """Phase 12 after the phase-2 timers whose times it reads (kernel A at
+    [524288,32], B and C, D and E), without the other phases:
+    `python3 -c "import chip_smoke as c; c.phase12_alone()"`."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ignnition_tpu_torch.ops.cuda import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    t0 = time.perf_counter()
+    _build.library()
+    rng = np.random.default_rng(SEED)
+    seg = check_segment_sums(dev, rng, "stage 2 forward at x4", 524_288,
+                             FLAGSHIP_X4["n_links"], HS, timed=True)
+    gru, gru_bwd = check_gru_scan(dev, rng), check_gru_scan_bwd(dev, rng)
+    gat = check_attention_kernels(dev, rng)
+    t1 = time.perf_counter()
+    out = roofline_memory_parallel(dev, card, seg, gru, gru_bwd, gat)
+    print(f"[time] build and timers {t1 - t0:.1f} s, phase 12 {time.perf_counter() - t1:.1f} s")
+    print(json.dumps({"floors": out["floors"]["measured"],
+                      "launches": out["parallel"]["launches"], "card": card}))
+
+
+def roofline_memory_parallel(dev, card: str, seg, gru, gru_bwd, gat) -> dict:
+    """Phase 12: the floors, (a) the roofline reports, (b) the memory model,
+    (c) the sharded steps."""
+    rng = np.random.default_rng(SEED + 12)
+    floors = calibrated_floors(dev, rng, seg, gru, gru_bwd, gat)
+    return dict(floors=floors, roofline=roofline_steps(card, floors["gather_library_ns"]),
+                memory=memory_model(card), parallel=sharded_steps(card))
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -4923,6 +5419,10 @@ def main() -> None:
     # ---- phase 11: serving artifacts and the debug verb ----
     artifacts = serving_artifacts(dev, card, homog_served)
     seconds["serving artifacts"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 12: the roofline, the memory model and the sharded step ----
+    meshed = roofline_memory_parallel(dev, card, seg, gru, gru_bwd, gat)
+    seconds["roofline, memory, mesh"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -4957,8 +5457,10 @@ def main() -> None:
         on_api = api["launches"][name]
         on_language = language["launches"][name]
         on_export = artifacts["launches"][name]
+        on_parallel = meshed["parallel"]["launches"][name]
         launches = (on_serving + on_training + on_attention + on_qsize + on_mlp
-                    + on_homogeneous + on_item1 + on_api + on_language + on_export)
+                    + on_homogeneous + on_item1 + on_api + on_language + on_export
+                    + on_parallel)
         if launches == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
@@ -4968,7 +5470,7 @@ def main() -> None:
             launches_mlp_message=on_mlp, launches_homogeneous=on_homogeneous,
             launches_blocks_g4_and_x8=on_item1, launches_api=on_api,
             launches_description_language=on_language,
-            launches_serving_export=on_export,
+            launches_serving_export=on_export, launches_parallel=on_parallel,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -5005,6 +5507,21 @@ def main() -> None:
                                                if k != "launches"},
                       "serving_artifacts": {k: v for k, v in artifacts.items()
                                             if k != "launches"},
+                      "roofline_memory_mesh": {
+                          "floors": meshed["floors"]["measured"],
+                          "floors_held": meshed["floors"]["held"],
+                          "gather_library_ns": meshed["floors"]["gather_library_ns"],
+                          "roofline": {k: {over: {f: r[f] for f in (
+                              "measured_ms", "sol_ms", "sol_pct", "apsol_ms", "apsol_pct")}
+                              for over, r in v["roofline"].items()}
+                              for k, v in meshed["roofline"].items()},
+                          "memory": {k: {"estimate_mib": v["estimate_bytes"]["total_bytes"]
+                                         / 2**20, "measured_mib": v["measured_bytes"] / 2**20,
+                                         "ratio": v["ratio"]}
+                                     for k, v in meshed["memory"].items()},
+                          "parallel": {k: {f: v[f] for f in ("losses", "step_ms",
+                                                            "allreduce_share")}
+                                       for k, v in meshed["parallel"]["meshes"].items()}},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -5014,4 +5531,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(*sys.argv[2:7])
+    else:
+        main()

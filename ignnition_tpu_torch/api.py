@@ -8,8 +8,10 @@ the reference's module-global `model_info` handle (generate_model.py:34-43).
 Every entry point runs on the current CUDA device unless `device="cpu"` is
 passed (`Runner(..., device="cpu")`, or `device=` through the module verbs'
 keywords). `Runner.export_serving` freezes the forward into a serving
-artifact (`serving.export_serving`); the mesh paths are not ported yet
-(ROADMAP item 6).
+artifact (`serving.export_serving`). `Runner(mesh=...)` trains over a
+`parallel.Mesh` of ranks (data- and edge-parallel, v1); destination
+sharding (`model_strategy="dest_shard"`) is not ported yet (ROADMAP item 6
+v2).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from .data.graph import PaddingConfig, infer_label_domain
 from .frontend import parse_model_file
 from .frontend.ir import ModelIR
 from .model import build
-from .training.trainer import Trainer, TrainState, warm_start
+from .training.trainer import Trainer, TrainState, check_mesh, warm_start
 from .utils.registry import normalizations
 
 log = logging.getLogger("ignnition_tpu_torch")
@@ -93,14 +95,14 @@ class Runner:
     ):
         """device: where the model trains and predicts; by default the
         current CUDA device, and without one this raises (pass device="cpu"
-        for the CPU). mesh and model_strategy other than "replicated" raise:
-        the parallel steps are ROADMAP item 6."""
-        if mesh is not None or model_strategy != "replicated":
-            raise NotImplementedError(
-                "training over a mesh (mesh, model_strategy) is not ported to "
-                "ignnition_tpu_torch yet: the data- and edge-parallel steps are "
-                "ROADMAP item 6"
-            )
+        for the CPU).
+        mesh: an optional `parallel.Mesh` ('data' x 'model' ranks):
+        train_and_evaluate then runs the data- and edge-parallel step on
+        every rank of it, consuming mesh.shape['data'] merged batches a step
+        (`Trainer.train`'s mesh). model_strategy: 'replicated' (v1, edges
+        split over the model axis); 'dest_shard' raises: destination
+        sharding is ROADMAP item 6 v2."""
+        check_mesh(mesh, model_strategy, None)
         self.model = model
         _note_compilation_cache(model.config)  # the programmatic-config path
         self.gnn = build(model.ir)
@@ -108,6 +110,8 @@ class Runner:
             padding = PaddingConfig(per_graph=True)
         self.trainer = Trainer(self.gnn, padding=padding, device=device)
         self.seed = seed
+        self.mesh = mesh
+        self.model_strategy = model_strategy
         self.tensorboard_dir = tensorboard_dir
 
     def _init_state(self) -> TrainState:
@@ -149,6 +153,13 @@ class Runner:
             cfg.model_dir,
             "experiment_" + datetime.datetime.now().strftime("%Y%m%d_%H%M%S"),
         )
+        if self.mesh is not None:
+            # one run directory for the mesh: its first rank's
+            import torch.distributed as dist
+
+            shared = [run_dir]
+            dist.broadcast_object_list(shared, src=0, group=self.mesh.group)
+            run_dir = shared[0]
         label_name = self.model.ir.output_info()[0]
         denorm = self._denorm_fn()
 
@@ -176,6 +187,8 @@ class Runner:
             keep_max=cfg.keep_checkpoint_max,
             eval_fn=eval_fn,
             eval_secs=cfg.throttle_secs,
+            mesh=self.mesh,
+            model_strategy=self.model_strategy,
             accumulate_steps=cfg.accumulate_steps,
             input_workers=cfg.input_workers,
             cache_batches=cfg.cache_batches,

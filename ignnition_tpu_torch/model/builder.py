@@ -72,6 +72,15 @@ generator=)`) the readout's Dropout, AlphaDropout and GaussianNoise draw
 from the generator, while message and update networks stay deterministic
 (a Dropout there is the identity in training too), as in the JAX package.
 
+Under edge sharding (`apply(edge_axis=group)`, the v1 step of
+`parallel/steps.py`) the batch holds this rank's block of every edge array:
+the lowerings whose companions describe the whole edge array are off, as in
+the JAX package (row pointers and the gathers' sorts, the incidence
+products, the slice maps, the slot-rate sum, the fused per-edge softmax),
+so every aggregation takes its generic branch over the rank's edges (a
+sorted sum is the id-keyed kernel, a sequence the padded scatter into
+kernel B) and all-reduces the partial over the group.
+
 `apply(params, batch, meta)` is a function of a parameter tree, which the
 trainer differentiates (its leaves require grad; the batch's training
 companions route each backward through the hand-written transposes of
@@ -246,31 +255,37 @@ def _readout_in_dims(model_ir, dims: _MessageDims, extra_dims=None) -> Dict[int,
     return in_dims
 
 
-def _lens(sources, batch, n_dst):
-    """Real messages per destination and source: the data layer's `lens_*`,
-    or counted from the edge masks."""
+def _lens(sources, batch, n_dst, edge_axis=None):
+    """Real messages per destination and source: the data layer's `lens_*`
+    (whole-graph counts, which the edge-sharded step needs as they are), or
+    counted from the edge masks (over every rank's edges under
+    `edge_axis`)."""
     return [
         batch[f"lens_{s.adj}"] if f"lens_{s.adj}" in batch
-        else seg.segment_count(s.dst_idx, n_dst, s.mask)
+        else seg.segment_count(s.dst_idx, n_dst, s.mask, group=edge_axis)
         for s in sources
     ]
 
 
-def _gather_src(batch, a, table):
+def _gather_src(batch, a, table, edge_axis=None):
     """Each edge's source row of `table`; with the batch's source sort
     (`src_perm_*`, `src_row_ptr_*`) the backward is kernel A, where
     autograd's scatter-add into a table of many rows takes hundreds of
-    milliseconds on the card (PERF.md §5)."""
+    milliseconds on the card (PERF.md §5). Under `edge_axis` plain indexing:
+    the sort describes the whole edge array, not this rank's block."""
+    if edge_axis is not None:
+        return table[batch[f"src_{a}"]]
     return seg.gather_rows(
         table, batch[f"src_{a}"], batch.get(f"src_perm_{a}"), batch.get(f"src_row_ptr_{a}")
     )
 
 
-def _gather_dst(batch, a, table):
+def _gather_dst(batch, a, table, edge_axis=None):
     """Each edge's destination row of `table`; with the batch's row pointers
-    the backward is kernel A, else autograd's scatter-add."""
+    the backward is kernel A, else (and under `edge_axis`) autograd's
+    scatter-add."""
     dst_idx, row_ptr = batch[f"dst_{a}"], batch.get(f"row_ptr_{a}")
-    if row_ptr is None:
+    if row_ptr is None or edge_axis is not None:
         return table[dst_idx]
     return seg.gather_by_dst(table, dst_idx, row_ptr)
 
@@ -284,13 +299,15 @@ class _Source:
     sum; `messages`, the per-edge messages [E, D], zero on padding edges,
     made by `make` at first use (the slot routes never read them)."""
 
-    def __init__(self, batch, src, table=None, pkey=None, post=None, make=None):
+    def __init__(self, batch, src, table=None, pkey=None, post=None, make=None,
+                 edge_axis=None):
         a = src.adj_name
         self.spec, self.adj, self.entity, self.pkey = src, a, src.entity, pkey
         self.dst_idx, self.seq = batch[f"dst_{a}"], batch[f"seq_{a}"]
         self.mask = batch[f"edge_mask_{a}"]
         self.table, self.post = table, post
-        self._make = make if make is not None else (lambda: _gather_src(batch, a, table))
+        self._make = make if make is not None else (
+            lambda: _gather_src(batch, a, table, edge_axis))
         self._messages = None
 
     @property
@@ -497,9 +514,12 @@ class GnnModel(nn.Module):
         batch: Mapping[str, torch.Tensor],
         meta: BatchMeta,
         compute_dtype: Optional[torch.dtype] = None,
+        edge_axis=None,
     ) -> torch.Tensor:
         """`apply` with the module's own parameters."""
-        return self.apply(self.param_tree(), batch, meta, compute_dtype=compute_dtype)
+        return self.apply(
+            self.param_tree(), batch, meta, compute_dtype=compute_dtype, edge_axis=edge_axis
+        )
 
     def apply(
         self,
@@ -510,6 +530,8 @@ class GnnModel(nn.Module):
         *,
         training: bool = False,
         generator: Optional[torch.Generator] = None,
+        edge_axis=None,
+        node_axis=None,
     ) -> torch.Tensor:
         """Predictions [rows] (last dim squeezed when 1), float32, from the
         parameter tree `params` (JAX layout, float32 tensors).
@@ -523,7 +545,24 @@ class GnnModel(nn.Module):
         GaussianNoise) draw from `generator`, and raise without one; with
         training=False they are the identity and `generator` is not read.
         Message and update networks are deterministic either way, as in the
-        JAX package."""
+        JAX package.
+
+        edge_axis: edge sharding (v1, `parallel/steps.py`): a process group
+        over whose ranks every adjacency's edges are split in contiguous
+        blocks (`batch` holds this rank's block of each edge array, and the
+        whole of every other array), node tables replicated. Every
+        aggregation computes this rank's partial and all-reduces it over
+        the group. As in the JAX package, the lowerings whose arrays
+        describe the whole edge array are off: row pointers and the sorts
+        of the gathers, the dense and block incidence, the slice maps, the
+        slot-rate sum and the fused per-edge softmax.
+
+        node_axis: destination sharding (v2) is not ported yet and raises."""
+        if node_axis is not None:
+            raise NotImplementedError(
+                "node_axis (destination sharding, v2) is not ported to "
+                "ignnition_tpu_torch yet: ROADMAP item 6 v2"
+            )
         ir = self.ir
         if compute_dtype is not None:
             params = map_params(lambda v: v.to(compute_dtype), params)
@@ -552,14 +591,16 @@ class GnnModel(nn.Module):
         # sum's library products; attention reads them as int8)
         cache: Dict[Any, torch.Tensor] = {}
         for _ in range(ir.num_iterations):
-            states = self._message_passing_iteration(params, batch, meta, states, cache)
+            states = self._message_passing_iteration(
+                params, batch, meta, states, cache, edge_axis
+            )
 
-        preds = self._readout(params, batch, meta, states, training, generator)
+        preds = self._readout(params, batch, meta, states, training, generator, edge_axis)
         if compute_dtype is not None:
             preds = preds.to(torch.float32)
         return preds
 
-    def _message_passing_iteration(self, params, batch, meta, states, cache):
+    def _message_passing_iteration(self, params, batch, meta, states, cache, edge_axis=None):
         new_states = dict(states)
         edge_vars: Dict[str, torch.Tensor] = {}  # output_name -> per-edge values
         for si, stage in enumerate(self.ir.stages):
@@ -568,23 +609,30 @@ class GnnModel(nn.Module):
                 n_dst = meta.nodes(dst)
                 dst_states = new_states[dst]
                 sources = self._sources(
-                    params["message"], si, mi, mp, batch, new_states, dst_states, edge_vars
+                    params["message"], si, mi, mp, batch, new_states, dst_states, edge_vars,
+                    edge_axis,
                 )
                 up = params["update"][self._update_key(mp)]
                 kind = mp.aggregation.kind
                 if kind in _SEQUENCE_AGGS:
                     new_state = self._sequence_update(
-                        mp, IVT(dst, si, mi), up, sources, dst_states, new_states, batch, meta
+                        mp, IVT(dst, si, mi), up, sources, dst_states, new_states, batch, meta,
+                        edge_axis,
                     )
                 else:
                     if kind == "sum":
-                        # per source, each on its own best lowering; the parts add
+                        # per source, each on its own best lowering (under edge
+                        # sharding each rank's sorted block, all-reduced); the
+                        # parts add
                         parts = [
                             self._finish(
                                 self._one_source_sum(
                                     s, dst_states, new_states, batch, meta, n_dst, cache
+                                ) if edge_axis is None else seg.segment_sum(
+                                    s.messages, s.dst_idx, n_dst, indices_are_sorted=True,
+                                    group=edge_axis,
                                 ),
-                                s, batch, n_dst,
+                                s, batch, n_dst, edge_axis,
                             )
                             for s in sources
                         ]
@@ -592,12 +640,12 @@ class GnnModel(nn.Module):
                     elif kind == "attention":
                         part = self._attention_aggregate(
                             params["aggregation"][f"s{si}/m{mi}"], mp, sources,
-                            dst_states, batch, meta, n_dst,
+                            dst_states, batch, meta, n_dst, edge_axis,
                         )
                     else:
                         part = self._convolution(
                             params["aggregation"][f"s{si}/m{mi}"], mp.aggregation, sources,
-                            dst_states, batch, n_dst, cache,
+                            dst_states, batch, n_dst, cache, edge_axis,
                         )
                     # the sorted sums return f32 (the kernel's accumulator)
                     aggregated = part.to(dst_states.dtype)
@@ -614,7 +662,8 @@ class GnnModel(nn.Module):
     # messages
     # ------------------------------------------------------------------
 
-    def _sources(self, mparams, si, mi, mp, batch, states, dst_states, edge_vars):
+    def _sources(self, mparams, si, mi, mp, batch, states, dst_states, edge_vars,
+                 edge_axis=None):
         """One `_Source` per source of a message passing (the JAX message
         creation): a direct or source-local chain becomes a per-node message
         table; any other chain per-edge messages, made at first use."""
@@ -630,15 +679,18 @@ class GnnModel(nn.Module):
                     else:
                         x = torch.cat([states[src.entity]] * len(op.inputs), dim=1)
                         table = MLP.apply(op.mlp, keys(oi), x)
-                out.append(_Source(batch, src, table=table))
+                out.append(_Source(batch, src, table=table, edge_axis=edge_axis))
                 continue
-            s = self._per_edge_source(mp, src, keys, batch, states, dst_states, edge_vars)
+            s = self._per_edge_source(
+                mp, src, keys, batch, states, dst_states, edge_vars, edge_axis
+            )
             if any(op.output_name for op in src.ops):
                 s.messages  # publishes its named outputs in the JAX order
             out.append(s)
         return out
 
-    def _per_edge_source(self, mp, src, keys, batch, states, dst_states, edge_vars):
+    def _per_edge_source(self, mp, src, keys, batch, states, dst_states, edge_vars,
+                         edge_axis=None):
         """A chain over per-edge inputs. A network whose first layer is Dense
         over {hs_source, hs_dest, edge_params} runs that layer as per-part
         matmuls at node rate, and the parts meet per edge (split first);
@@ -659,10 +711,10 @@ class GnnModel(nn.Module):
         edge_params = batch.get(f"params_{a}")
 
         def by_src(table):
-            return _gather_src(batch, a, table)
+            return _gather_src(batch, a, table, edge_axis)
 
         def by_dst(table):
-            return _gather_dst(batch, a, table)
+            return _gather_dst(batch, a, table, edge_axis)
 
         def make():
             gathered = {}
@@ -775,7 +827,8 @@ class GnnModel(nn.Module):
     # aggregations
     # ------------------------------------------------------------------
 
-    def _sequence_update(self, mp, tag, up, sources, dst_states, states, batch, meta):
+    def _sequence_update(self, mp, tag, up, sources, dst_states, states, batch, meta,
+                         edge_axis=None):
         """An ordered, interleave or concat aggregation into the masked scan,
         by the first branch the batch's companions and the messages allow,
         in the JAX package's order: the ordered update through the slice map
@@ -784,18 +837,27 @@ class GnnModel(nn.Module):
         of message tables through the combined slice map; concat and
         multi-source ordered of message tables through one slice map per
         source; else the padded sequences of every source's edge messages
-        (`interleave_perm_*` reorders an interleave's time axis)."""
+        (`interleave_perm_*` reorders an interleave's time axis). Under
+        `edge_axis` only the last: each rank scatters its edges and the
+        padded sequences are all-reduced."""
         agg = mp.aggregation
         spec = mp.update.rnn
         n_dst = meta.nodes(mp.destination)
         s0 = sources[0]
         a0 = s0.adj
+        sharded = edge_axis is not None
+
+        def lens():
+            return _lens(sources, batch, n_dst, edge_axis)
 
         def zero_padding_rows(s):
             # empty slots read a padding row: it must hold exact zeros
             return s.table * batch[f"node_mask_{s.entity}"][:, None].to(s.table.dtype)
 
-        if agg.kind == "ordered" and len(sources) == 1 and f"row_ptr_{a0}" in batch:
+        if (
+            agg.kind == "ordered" and len(sources) == 1 and f"row_ptr_{a0}" in batch
+            and not sharded
+        ):
             xs = self._slot_messages(s0, dst_states, states, batch, meta, n_dst, capped=False)
             if xs is not None:
                 return RNN.masked_update_stacked(spec, up, xs, batch[f"lens_{a0}"], dst_states)
@@ -803,14 +865,12 @@ class GnnModel(nn.Module):
                 spec, up, s0.messages, batch[f"row_ptr_{a0}"][:-1], s0.seq, s0.dst_idx,
                 batch[f"lens_{a0}"], dst_states, meta.maxlen(a0),
             )
-        tables = all(s.table is not None for s in sources)
+        tables = not sharded and all(s.table is not None for s in sources)
         one_width = tables and len({int(s.table.shape[1]) for s in sources}) == 1
         if agg.kind == "interleave" and f"ilv_slice_{tag}" in batch and one_width:
             combined = torch.cat([zero_padding_rows(s) for s in sources], 0)
             xs = _slices(batch, combined, "ilv_slice", "ilv_sort", tag)
-            return RNN.masked_update_stacked(
-                spec, up, xs, sum(_lens(sources, batch, n_dst)), dst_states
-            )
+            return RNN.masked_update_stacked(spec, up, xs, sum(lens()), dst_states)
         axis = agg.concat_axis if agg.kind == "concat" else 1
         if (
             agg.kind in ("concat", "ordered")
@@ -827,19 +887,21 @@ class GnnModel(nn.Module):
             ]
             if axis == 2:
                 return RNN.masked_update_stacked(
-                    spec, up, torch.cat(blocks, 2), _lens(sources, batch, n_dst)[0], dst_states
+                    spec, up, torch.cat(blocks, 2), lens()[0], dst_states
                 )
             return RNN.masked_update_stacked(
-                spec, up, torch.cat(blocks, 0), sum(_lens(sources, batch, n_dst)), dst_states
+                spec, up, torch.cat(blocks, 0), sum(lens()), dst_states
             )
         blocks = [
-            seg.scatter_to_sequences(s.messages, s.dst_idx, s.seq, n_dst, meta.maxlen(s.adj))
+            seg.scatter_to_sequences(
+                s.messages, s.dst_idx, s.seq, n_dst, meta.maxlen(s.adj), group=edge_axis
+            )
             for s in sources
         ]
         if axis == 2:
-            aggregated, final_len = torch.cat(blocks, 2), _lens(sources, batch, n_dst)[0]
+            aggregated, final_len = torch.cat(blocks, 2), lens()[0]
         else:
-            aggregated, final_len = torch.cat(blocks, 1), sum(_lens(sources, batch, n_dst))
+            aggregated, final_len = torch.cat(blocks, 1), sum(lens())
             if agg.kind == "interleave":
                 rows = batch[f"interleave_perm_{tag}"][batch[f"graph_id_{mp.destination}"]]
                 index = rows[:, :, None].expand(-1, -1, aggregated.shape[2])
@@ -874,7 +936,7 @@ class GnnModel(nn.Module):
         return torch.sum(slots * valid[:, :, None].to(slots.dtype), dim=0)
 
     @staticmethod
-    def _finish(part, s, batch, n_dst):
+    def _finish(part, s, batch, n_dst, edge_axis=None):
         """A factored last Dense layer applied to a source's sum at node rate:
         sum_e (g_e @ K + b) = (sum_e g_e) @ K + deg * b."""
         if s.post is None:
@@ -884,7 +946,7 @@ class GnnModel(nn.Module):
         if bias is not None:
             deg = batch.get(f"lens_{s.adj}")
             if deg is None:
-                deg = seg.segment_count(s.dst_idx, n_dst, s.mask)
+                deg = seg.segment_count(s.dst_idx, n_dst, s.mask, group=edge_axis)
             out = out + deg.to(out.dtype)[:, None] * bias
         return out
 
@@ -920,7 +982,8 @@ class GnnModel(nn.Module):
             s.messages, s.dst_idx, n_dst, row_ptr=row_ptr, indices_are_sorted=True
         )
 
-    def _attention_aggregate(self, ap, mp, sources, dst_states, batch, meta, n_dst):
+    def _attention_aggregate(self, ap, mp, sources, dst_states, batch, meta, n_dst,
+                             edge_axis=None):
         """GAT attention by the best lowering the batch and the messages
         allow, in the JAX package's order: in the `per_destination` mode
         over one message table, block-diagonal attention > dense attention
@@ -929,11 +992,12 @@ class GnnModel(nn.Module):
         several sources, the per-edge form (`_attention`). The JAX package's
         slot-rate lowering (`_slot_attention`), which it would try first for
         per-edge networks and for tables without an incidence matrix, is not
-        ported: the per-edge form computes the same function."""
+        ported: the per-edge form computes the same function. Under
+        `edge_axis` always the per-edge form."""
         s = sources[0]
         a, table = s.adj, s.table
         reference = mp.aggregation.attention_softmax == "reference"
-        if len(sources) == 1 and not reference and table is not None:
+        if len(sources) == 1 and not reference and table is not None and edge_axis is None:
             if f"inc_blocks_{a}" in batch:
                 return seg.dense_attention_aggregate_blocks(
                     table, dst_states, batch[f"inc_blocks_{a}"],
@@ -944,9 +1008,9 @@ class GnnModel(nn.Module):
                     table, dst_states, batch[f"dense_inc_{a}"],
                     ap["kernel1"], ap["kernel2"], ap["attn_kernel"],
                 )
-        return self._attention(ap, mp, sources, dst_states, batch, meta, n_dst)
+        return self._attention(ap, mp, sources, dst_states, batch, meta, n_dst, edge_axis)
 
-    def _attention(self, ap, mp, sources, dst_states, batch, meta, n_dst):
+    def _attention(self, ap, mp, sources, dst_states, batch, meta, n_dst, edge_axis=None):
         """Per-edge GAT attention (the JAX `_attention`) over the sources'
         edges, concatenated when there are several. Scores decompose into a
         per-edge source scalar and a per-node destination scalar gathered
@@ -959,10 +1023,14 @@ class GnnModel(nn.Module):
           * `reference`: `_reference_weights`;
         and the weighted messages summed per destination: kernel A for one
         source with row pointers, else the library's unsorted sum (the JAX
-        package's XLA sum, in the input dtype)."""
+        package's XLA sum, in the input dtype). Under `edge_axis` the row
+        pointers are off: one sorted source's sum is the id-keyed kernel
+        over this rank's block, the softmax's max and denominator and the
+        sum are all-reduced."""
         single = len(sources) == 1
         s0 = sources[0]
-        row_ptr = batch.get(f"row_ptr_{s0.adj}") if single else None
+        sorted_single = single and f"row_ptr_{s0.adj}" in batch
+        row_ptr = batch[f"row_ptr_{s0.adj}"] if sorted_single and edge_axis is None else None
         if single:
             messages, dst_idx, mask = s0.messages, s0.dst_idx, s0.mask
         else:
@@ -980,16 +1048,20 @@ class GnnModel(nn.Module):
         scores = F.leaky_relu(s_src + s_dst, 0.2)
         if mp.aggregation.attention_softmax == "reference":
             weights = self._reference_weights(
-                scores, sources, dst_idx, mask, batch, meta, mp.destination, n_dst
+                scores, sources, dst_idx, mask, batch, meta, mp.destination, n_dst, edge_axis
             )
         elif row_ptr is not None:
             return seg.sorted_softmax_aggregate(messages, scores, dst_idx, n_dst, mask, row_ptr)
         else:
-            weights = seg.segment_softmax(scores, dst_idx, n_dst, mask)
-        return seg.segment_sum(messages * weights[:, None], dst_idx, n_dst, row_ptr=row_ptr)
+            weights = seg.segment_softmax(scores, dst_idx, n_dst, mask, group=edge_axis)
+        return seg.segment_sum(
+            messages * weights[:, None], dst_idx, n_dst, row_ptr=row_ptr,
+            indices_are_sorted=sorted_single, group=edge_axis,
+        )
 
     @staticmethod
-    def _reference_weights(scores, sources, dst_idx, mask, batch, meta, dst, n_dst):
+    def _reference_weights(scores, sources, dst_idx, mask, batch, meta, dst, n_dst,
+                           edge_axis=None):
         """The `reference` softmax (the reference's axis-0 softmax of its
         scattered [n_dst, max_len, 1] scores, per graph): the masked scores
         scattered into each destination's sequence slots (a source's slots
@@ -997,8 +1069,9 @@ class GnnModel(nn.Module):
         destination axis per graph and slot, empty slots counting as exp(0)
         and padding destinations excluded, and each edge's coefficient
         picked back. The per-graph max is detached: the softmax does not
-        depend on it."""
-        lens = _lens(sources, batch, n_dst)
+        depend on it. Under `edge_axis` the scattered scores are all-reduced
+        (each rank's slots are its own edges')."""
+        lens = _lens(sources, batch, n_dst, edge_axis)
         seqs = []
         offset = torch.zeros(n_dst, dtype=torch.float32, device=scores.device)
         for s, l in zip(sources, lens):
@@ -1007,7 +1080,7 @@ class GnnModel(nn.Module):
         seq = torch.cat(seqs, 0).to(torch.int64)
         max_len = sum(meta.maxlen(s.adj) for s in sources)
         scattered = seg.scatter_to_sequences(
-            (scores * mask)[:, None], dst_idx, seq, n_dst, max_len
+            (scores * mask)[:, None], dst_idx, seq, n_dst, max_len, group=edge_axis
         )[:, :, 0]
         real = (batch[f"node_mask_{dst}"] > 0)[:, None]
         graph_id = batch[f"graph_id_{dst}"]
@@ -1022,7 +1095,7 @@ class GnnModel(nn.Module):
         picked = coeff.reshape(n_dst * max_len)[dst_idx.to(torch.int64) * max_len + seq]
         return picked * mask
 
-    def _convolution(self, cp, agg, sources, dst_states, batch, n_dst, cache):
+    def _convolution(self, cp, agg, sources, dst_states, batch, n_dst, cache, edge_axis=None):
         """GCN-style aggregation (the JAX package's, lowerings in its order):
         the sum of each destination's messages times the pass's kernel, by
         the block-diagonal > dense incidence product of the message table @
@@ -1032,32 +1105,36 @@ class GnnModel(nn.Module):
         own state is added, the total divided by max(in-degree, 1), and the
         aggregation's activation applied. The products return the compute
         dtype and kernel A f32; the sum with the states promotes, as in the
-        JAX package, and the caller casts the result back."""
+        JAX package, and the caller casts the result back. Under `edge_axis`
+        the incidence products and the row pointers are off and the sums
+        all-reduced."""
         kernel = cp["kernel"]
         s = sources[0]
-        if len(sources) == 1 and s.table is not None and f"inc_blocks_{s.adj}" in batch:
+        table_ok = len(sources) == 1 and s.table is not None and edge_axis is None
+        if table_ok and f"inc_blocks_{s.adj}" in batch:
             table = s.table @ kernel
             blocks = self._upcast(batch, f"inc_blocks_{s.adj}", table.dtype, cache)
             nsum = seg.direct_segment_sum_blocks(table, blocks, n_dst)
-        elif len(sources) == 1 and s.table is not None and f"dense_inc_{s.adj}" in batch:
+        elif table_ok and f"dense_inc_{s.adj}" in batch:
             table = s.table @ kernel
             inc = self._upcast(batch, f"dense_inc_{s.adj}", table.dtype, cache)
             nsum = seg.direct_segment_sum_dense(table, inc)
         elif len(sources) == 1:
             nsum = seg.segment_sum(
                 s.messages @ kernel, s.dst_idx, n_dst,
-                row_ptr=batch.get(f"row_ptr_{s.adj}"), indices_are_sorted=True,
+                row_ptr=batch.get(f"row_ptr_{s.adj}") if edge_axis is None else None,
+                indices_are_sorted=True, group=edge_axis,
             )
         else:
             messages = torch.cat([t.messages for t in sources], 0)
             dst_idx = torch.cat([t.dst_idx for t in sources], 0)
-            nsum = seg.segment_sum(messages @ kernel, dst_idx, n_dst)
-        deg = sum(_lens(sources, batch, n_dst))
+            nsum = seg.segment_sum(messages @ kernel, dst_idx, n_dst, group=edge_axis)
+        deg = sum(_lens(sources, batch, n_dst, edge_axis))
         total = nsum + dst_states
         normalized = total / torch.clamp_min(deg.to(torch.float32), 1.0)[:, None]
         return activation(agg.activation)(normalized)
 
-    def _readout(self, params, batch, meta, states, training, generator):
+    def _readout(self, params, batch, meta, states, training, generator, edge_axis=None):
         """The readout pipeline (the JAX `_readout`). Intermediates live in
         `ro`, each tagged with its domain (`infer_readout_domains`), so that
         a graph-level tensor broadcasts onto entity rows where it meets one.
@@ -1125,10 +1202,11 @@ class GnnModel(nn.Module):
                 # each edge's source and destination rows; both backwards are
                 # kernel A over real edges only (a padding edge's cotangent is
                 # zero under the masked loss), where the JAX package's plain
-                # indexing also sums the padding edges' zeros
+                # indexing also sums the padding edges' zeros; under
+                # `edge_axis` plain indexing of this rank's edges, as there
                 a = op.adj_name
-                ro[op.output_names[0]] = _gather_src(batch, a, fetch(op.inputs[0]))
-                ro[op.output_names[1]] = _gather_dst(batch, a, fetch(op.inputs[1]))
+                ro[op.output_names[0]] = _gather_src(batch, a, fetch(op.inputs[0]), edge_axis)
+                ro[op.output_names[1]] = _gather_dst(batch, a, fetch(op.inputs[1]), edge_axis)
         return result
 
 

@@ -17,6 +17,15 @@ matrix-materializing forms (`_dense_masked_softmax_matmul`,
 `_blocks_masked_softmax_matmul`) are the JAX package's library routes, kept
 as references that no aggregation calls. Per-edge attention
 (`sorted_softmax_aggregate`) is two sorted sums through kernel A.
+
+Sharded forms (the JAX `axis_name` argument): `segment_sum`,
+`segment_softmax`, `segment_count` and `scatter_to_sequences` take a
+process `group` over which the edges are split (the mesh's model axis,
+`parallel/steps.py`). Each rank computes its partial over its own block of
+edges by the branch it would take alone (sorted ids reach the id-keyed
+kernel), and the partial is all-reduced (`_collectives.psum`, which sums
+the cotangent in the backward). The builder never hands these functions
+row pointers under edge sharding: they describe the whole edge array.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ._collectives import pmax, psum
 from .cuda.attention_kernels import flash_gat_backward, flash_gat_forward
 from .cuda.segment_kernels import (
     sorted_segment_sum_csr,
@@ -142,13 +152,13 @@ def gather_rows(
 
 
 def segment_count(
-    segment_ids: torch.Tensor, num_segments: int, mask: torch.Tensor
+    segment_ids: torch.Tensor, num_segments: int, mask: torch.Tensor, group=None
 ) -> torch.Tensor:
     """Number of real edges per segment (the sum of `mask` by segment), in
     `mask`'s dtype: the in-degrees of a batch made without its `lens_*`
-    companions."""
+    companions. With `group`, over every rank's edges."""
     out = torch.zeros(num_segments, dtype=mask.dtype, device=mask.device)
-    return out.index_add_(0, segment_ids, mask)
+    return psum(out.index_add_(0, segment_ids, mask), group)
 
 
 def scatter_to_sequences(
@@ -157,15 +167,18 @@ def scatter_to_sequences(
     seq: torch.Tensor,  # [E] position within the destination
     num_dst: int,
     max_len: int,
+    group=None,
 ) -> torch.Tensor:
     """The padded per-destination sequences [num_dst, max_len, D] of the
     generic sequence path. An additive scatter over the flat slot index:
     real (dst, seq) slots are unique and padding edges carry zero messages,
-    so adding is setting. Its backward is autograd's gather."""
+    so adding is setting. Its backward is autograd's gather. With `group`,
+    each rank scatters its edges' slots and the padded blocks are summed
+    (the slots are disjoint: the sum is their union)."""
     d = messages.shape[-1]
     flat = dst_idx * max_len + seq
     out = torch.zeros((num_dst * max_len, d), dtype=messages.dtype, device=messages.device)
-    return out.index_add(0, flat, messages).reshape(num_dst, max_len, d)
+    return psum(out.index_add(0, flat, messages), group).reshape(num_dst, max_len, d)
 
 
 def segment_sum(
@@ -174,8 +187,10 @@ def segment_sum(
     num_segments: int,
     row_ptr: Optional[torch.Tensor] = None,
     indices_are_sorted: bool = False,
+    group=None,
 ) -> torch.Tensor:
-    """Sum rows of `data` into `num_segments` buckets.
+    """Sum rows of `data` into `num_segments` buckets (with `group`, the
+    rows of every rank's block: each rank's sum, all-reduced).
 
     With `row_ptr` (destination-sorted edges, CSR pointers over real edges)
     and a width that divides 128 this is kernel A: padding edges are never
@@ -187,6 +202,11 @@ def segment_sum(
     (`sorted_segment_sum_csr` there). Unsorted ids keep the input dtype
     (XLA's segment sum in the JAX package; `index_add_` here), padding rows
     zero as well."""
+    return psum(_local_segment_sum(data, segment_ids, num_segments, row_ptr,
+                                   indices_are_sorted), group)
+
+
+def _local_segment_sum(data, segment_ids, num_segments, row_ptr, indices_are_sorted):
     if row_ptr is not None:
         if row_ptr.shape[0] != num_segments + 1:
             raise ValueError(
@@ -221,19 +241,21 @@ def segment_softmax(
     segment_ids: torch.Tensor,  # [E]
     num_segments: int,
     mask: torch.Tensor,  # [E], 1 on real edges
+    group=None,
 ) -> torch.Tensor:
     """Per-segment softmax of edge scores over unsorted ids (the JAX
-    `segment_softmax` without its sharded form): stabilized by each
-    segment's max over its real edges, detached as JAX's `stop_gradient`
-    does; masked edges get weight 0 and an empty segment all-zero weights.
-    In scores' dtype."""
+    `segment_softmax`): stabilized by each segment's max over its real
+    edges, detached as JAX's `stop_gradient` does; masked edges get weight 0
+    and an empty segment all-zero weights. In scores' dtype. With `group`,
+    the max and the denominator span every rank's edges, while the weights
+    stay those of this rank's."""
     scores = scores.reshape(-1)
     on = mask > 0
     masked = torch.where(on, scores, torch.full_like(scores, torch.finfo(scores.dtype).min))
-    seg_max = segment_max(masked.detach(), segment_ids, num_segments)
+    seg_max = pmax(segment_max(masked.detach(), segment_ids, num_segments), group)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros_like(seg_max))
     exp = torch.where(on, torch.exp(masked - seg_max[segment_ids]), torch.zeros_like(scores))
-    denom = segment_sum(exp, segment_ids, num_segments)
+    denom = segment_sum(exp, segment_ids, num_segments, group=group)
     denom = torch.where(denom > 0, denom, torch.ones_like(denom))
     return exp / denom[segment_ids]
 

@@ -1,15 +1,50 @@
-"""Batch classification and stacking (counterpart of
-`ignnition_tpu/parallel/steps.py:60-98`, of which these two functions are a
-copy: numpy over the port's own `merge_metas` / `repad_to_meta`). The
-sharded steps of that module are not ported yet."""
+"""Batch stacking and the data- and edge-parallel steps over a ('data',
+'model') mesh (counterpart of `ignnition_tpu/parallel/steps.py`;
+`edge_array_keys` and `stack_batches` are a copy, numpy over the port's own
+`merge_metas` / `repad_to_meta`).
+
+Two strategies compose on the mesh of `parallel/mesh.py`:
+
+  * **graph-batch data parallelism** ('data' axis): the step takes the
+    stacked batch (one merged, identically padded batch per data row, on a
+    leading axis) and each rank runs the full model on its row;
+  * **edge-partitioned model parallelism** ('model' axis, v1 "replicated"):
+    each adjacency's edge arrays are split into contiguous blocks over the
+    ranks of a data row while node tables stay replicated, and every
+    aggregation all-reduces its partial over the row (`GnnModel.apply`'s
+    `edge_axis`).
+
+A rank's inputs are the block that the JAX package's shard_map gives the
+same device under `batch_partition_specs`: its data row, and its block of
+every edge array (the labels too, for edge-domain models).
+
+Gradients, exactly the JAX step's: every rank scales its loss by
+1/(n_data * n_model) (1/n_model for sum-reduction losses) and the L2 term
+by 1/(n_data * n_model); each all-reduce inside the model sums its
+cotangent in the backward (`ops/_collectives.psum`); one all-reduce over
+the mesh then sums every parameter gradient, and with it the loss that
+the step reports. Every rank applies the same update to its replica.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
-from ..data.graph import BatchMeta, merge_metas, repad_to_meta
+from ..batch import resolve_device, to_device
+from ..data.graph import BatchMeta, infer_label_domain, merge_metas, repad_to_meta
+from ..model.builder import GnnModel, flatten_params, with_leaves
+from ..ops._collectives import all_gather, psum
+from ..training.losses import loss_reduction
+from .mesh import Mesh
+
+
+# the profiler's name for a step's gradient all-reduce (the model axis's
+# all-reduces show as `_AllReduceSum` and `_AllReduceSumBackward`)
+GRADIENT_ALL_REDUCE = "parallel.all_reduce_gradients"
 
 
 def edge_array_keys(model_ir) -> set:
@@ -48,3 +83,206 @@ def stack_batches(
         k: np.stack([b[k] for b, _ in batches], axis=0) for k in batches[0][0]
     }
     return arrays, batches[0][1]
+
+
+# --------------------------------------------------------------------------
+# sharded steps
+# --------------------------------------------------------------------------
+
+
+def batch_partition_specs(
+    model_ir,
+    sample_batch: Dict[str, Any],
+    data_axis: Optional[str] = "data",
+    model_axis: Optional[str] = "model",
+) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The mesh axis of each dimension of each stacked batch array (the JAX
+    package's PartitionSpec, as a tuple): the leading stacked axis ->
+    data_axis; edge arrays additionally split their edge dimension over
+    model_axis. Labels of edge-domain models (readouts through
+    extend_adjacencies) lie on the edge axis too, so they split with it."""
+    ekeys = set(edge_array_keys(model_ir))
+    if infer_label_domain(model_ir)[0] == "edge":
+        ekeys.update(("label", "label_mask", "label_perm"))
+    specs = {}
+    for k, v in sample_batch.items():
+        dims: List[Optional[str]] = [data_axis]
+        if k in ekeys:
+            dims.append(model_axis)
+        nd = np.ndim(v)
+        while len(dims) < nd:
+            dims.append(None)
+        specs[k] = tuple(dims[:nd])
+    return specs
+
+
+def _model_axis(mesh: Mesh, model_axis: Optional[str]) -> Optional[str]:
+    return model_axis if (model_axis and mesh.shape.get(model_axis, 1) > 1) else None
+
+
+def _shape_key(stacked: Dict[str, Any]) -> Tuple:
+    return tuple(sorted((k, tuple(np.shape(v))) for k, v in stacked.items()))
+
+
+def _local_batch(stacked: Dict[str, Any], specs, mesh: Mesh, device) -> Dict[str, torch.Tensor]:
+    """This rank's part of a stacked batch on `device`: its data row of
+    every array and, where the spec names the model axis, its contiguous
+    block of the edge dimension. An edge count that does not divide by the
+    model axis raises, as the JAX package's sharding does."""
+    d, m = mesh.require_member()
+    n_model = mesh.shape["model"]
+    out = {}
+    for k, v in stacked.items():
+        if np.shape(v)[0] != mesh.shape["data"]:
+            raise ValueError(
+                f"stacked batch array '{k}' has {np.shape(v)[0]} rows on its leading "
+                f"axis; the mesh's data axis is {mesh.shape['data']}"
+            )
+        x = v[d]
+        if len(specs[k]) > 1 and specs[k][1] is not None:
+            e = np.shape(x)[0]
+            if e % n_model:
+                raise ValueError(
+                    f"'{k}' has {e} padded edges, which do not divide into "
+                    f"{n_model} blocks of the mesh's model axis (pad edges to a "
+                    f"multiple of it: PaddingConfig(mode='multiple'))"
+                )
+            b = e // n_model
+            x = x[m * b:(m + 1) * b]
+        out[k] = x
+    return to_device(out, device)
+
+
+def _check_agreement(key, mesh: Mesh) -> None:
+    """Raise on every rank unless all ranks of the mesh step with the same
+    batch shapes: a rank whose padded meta differs would issue other
+    collectives than the rest, and the mesh would hang."""
+    keys = [None] * mesh.size
+    dist.all_gather_object(keys, repr(key), group=mesh.group)
+    if len(set(keys)) != 1:
+        raise ValueError(
+            "the ranks of the mesh hold batches of different padded shapes "
+            f"(rank {dist.get_rank()} of {len(set(keys))} distinct shapes): every "
+            "rank must step with the same BatchMeta (a fixed padding bucket, "
+            "PaddingConfig(mode='multiple', min_size=...), and the same stream)"
+        )
+
+
+def make_parallel_train_step(
+    model: GnnModel,
+    optimizer,
+    loss_fn: Callable,
+    meta: BatchMeta,
+    mesh: Mesh,
+    data_axis: str = "data",
+    model_axis: Optional[str] = "model",
+    compute_dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> Callable:
+    """`train_step(params, opt_state, stacked_batch, generator=None) ->
+    (params, opt_state, loss)` over `mesh`.
+
+    `stacked_batch` is the whole stacked batch (numpy arrays or host
+    tensors, leading dimension = the data axis), the same on every rank of
+    the mesh; each rank copies its part to `device` (by default the current
+    CUDA device) and runs the full model on it with the model axis's
+    collectives inside each aggregation. `params` (leaves that require
+    grad) and `opt_state` are each rank's replica and are updated in place;
+    the returned loss is the mean over the data rows (the sum for
+    sum-reduction losses), the same on every rank. `generator` feeds the
+    readout's random layers: each rank passes its own, seeded alike and
+    advanced in step, so that the replicas draw one mask (the JAX package's
+    one replicated key). The L2 term is not in the loss, as in the JAX
+    step. compute_dtype: as `GnnModel.apply`'s (the JAX step takes none)."""
+    device = resolve_device(device)
+    n_data = mesh.shape[data_axis]
+    n_model = mesh.shape.get(model_axis, 1) if model_axis else 1
+    use_model_axis = _model_axis(mesh, model_axis)
+    edge_labels = infer_label_domain(model.ir)[0] == "edge"
+    reduction = loss_reduction(loss_fn)
+    checked = set()
+
+    def train_step(params, opt_state, stacked_batch, generator=None):
+        mesh.require_member()
+        key = _shape_key(stacked_batch)
+        if key not in checked:
+            _check_agreement((key, repr(meta)), mesh)
+            checked.add(key)
+        specs = batch_partition_specs(model.ir, stacked_batch, data_axis,
+                                      model_axis if use_model_axis else None)
+        batch = _local_batch(stacked_batch, specs, mesh, device)
+        edge_group = mesh.model_group if use_model_axis else None
+        preds = model.apply(params, batch, meta, compute_dtype=compute_dtype, training=True,
+                            generator=generator, edge_axis=edge_group)
+        if getattr(loss_fn, "takes_groups", False):
+            # hinge-family: the all-binary label test spans the effective batch
+            loss = loss_fn(batch["label"], preds, batch["label_mask"],
+                           groups=(mesh.data_group, edge_group))
+        else:
+            loss = loss_fn(batch["label"], preds, batch["label_mask"])
+        if edge_group is not None and edge_labels:
+            # edge-domain predictions and labels follow the edge blocks: the
+            # partial losses combine into the data row's (a mask-weighted mean
+            # of means, or the plain sum for sum-reduction losses)
+            if reduction == "sum":
+                loss = psum(loss, edge_group)
+            else:
+                cnt = torch.sum(batch["label_mask"])
+                loss = psum(loss * cnt, edge_group) / torch.clamp_min(
+                    psum(cnt, edge_group), 1.0)
+        reg = model.regularization_loss(params)
+        scale = 1.0 if reduction == "sum" else 1.0 / n_data
+        objective = (loss * scale + reg / n_data) / n_model
+        leaves = list(flatten_params(params).values())
+        grads = torch.autograd.grad(objective, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        # one all-reduce over the mesh: every gradient, and the loss report
+        report = loss.detach().to(torch.float32).reshape(1) * (scale / n_model)
+        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads] + [report])
+        with torch.profiler.record_function(GRADIENT_ALL_REDUCE):
+            dist.all_reduce(flat, group=mesh.group)
+        sizes = [g.numel() for g in grads]
+        parts = torch.split(flat[:-1], sizes)
+        grads = [p.reshape(g.shape).to(g.dtype) for p, g in zip(parts, grads)]
+        optimizer.step(params, with_leaves(params, grads), opt_state)
+        return params, opt_state, flat[-1]
+
+    return train_step
+
+
+def make_parallel_apply(
+    model: GnnModel,
+    meta: BatchMeta,
+    mesh: Mesh,
+    data_axis: str = "data",
+    model_axis: Optional[str] = "model",
+    compute_dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> Callable:
+    """Sharded forward: `apply_fn(params, stacked_batch)` -> the stacked
+    predictions [n_data, rows, ...], float32, on every rank of the mesh.
+    Edge-domain predictions are gathered from the model axis's blocks back
+    into the global edge order."""
+    device = resolve_device(device)
+    use_model_axis = _model_axis(mesh, model_axis)
+    edge_labels = infer_label_domain(model.ir)[0] == "edge"
+    checked = set()
+
+    def apply_fn(params, stacked_batch):
+        mesh.require_member()
+        key = _shape_key(stacked_batch)
+        if key not in checked:
+            _check_agreement((key, repr(meta)), mesh)
+            checked.add(key)
+        specs = batch_partition_specs(model.ir, stacked_batch, data_axis,
+                                      model_axis if use_model_axis else None)
+        batch = _local_batch(stacked_batch, specs, mesh, device)
+        edge_group = mesh.model_group if use_model_axis else None
+        with torch.no_grad():
+            preds = model.apply(params, batch, meta, compute_dtype=compute_dtype,
+                                edge_axis=edge_group)
+            if edge_group is not None and edge_labels:
+                preds = all_gather(preds, edge_group, dim=0)
+            return all_gather(preds[None], mesh.data_group, dim=0)
+
+    return apply_fn

@@ -13,6 +13,8 @@ from typing import Callable, Dict
 
 import torch
 
+from ..ops._collectives import all_true
+
 
 def _masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.sum(err * mask) / torch.clamp_min(torch.sum(mask), 1.0)
@@ -81,23 +83,34 @@ def kl_divergence(labels, preds, mask):
 kl_divergence.reduction = "sum"
 
 
-def _hinge_labels(labels, mask):
+def _hinge_labels(labels, mask, groups=()):
     # keras converts {0,1} labels to {-1,1} only when all labels are binary;
-    # the predicate runs over real rows only (padding zeros must not sway it)
+    # the predicate runs over real rows only (padding zeros must not sway it).
+    # Under a sharded step it must span the whole effective batch: the step
+    # passes its mesh groups and the local predicate is AND-combined over
+    # each (the JAX package's pmin over its axis names)
     real = mask > 0
     binary = (labels == 0.0) | (labels == 1.0)
     is_binary = torch.all(torch.where(real, binary, torch.ones_like(binary)))
+    if groups:
+        is_binary = all_true(is_binary, groups)
     return torch.where(is_binary, 2.0 * labels - 1.0, labels)
 
 
-def hinge(labels, preds, mask):
-    y = _hinge_labels(labels, mask)
+def hinge(labels, preds, mask, groups=()):
+    y = _hinge_labels(labels, mask, groups)
     return _masked_mean(torch.clamp_min(1.0 - y * preds, 0.0), mask)
 
 
-def squared_hinge(labels, preds, mask):
-    y = _hinge_labels(labels, mask)
+def squared_hinge(labels, preds, mask, groups=()):
+    y = _hinge_labels(labels, mask, groups)
     return _masked_mean(torch.clamp_min(1.0 - y * preds, 0.0) ** 2, mask)
+
+
+# the sharded step passes its mesh groups, so that the all-binary check is
+# global (see _hinge_labels)
+hinge.takes_groups = True
+squared_hinge.takes_groups = True
 
 
 LOSSES: Dict[str, Callable] = {

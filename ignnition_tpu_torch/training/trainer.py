@@ -24,9 +24,13 @@ the trainer's own generator on its device (`Trainer.generator`), which
 `train` seeds from its `seed` (42, as the JAX package's `PRNGKey(42)`); a
 step without such a layer draws nothing. Evaluation, prediction and
 serving are deterministic.
-The mesh paths of the JAX package (`mesh`, `model_strategy="dest_shard"`,
-`locality_reorder`) are not ported yet (ROADMAP item 6). Checkpoints do not
-cross between the packages (orbax there, `torch.save` here).
+Over a mesh (`train(mesh=...)`, `parallel.make_mesh`) each step runs the
+data- and edge-parallel step of `parallel/steps.py` on every rank, and only
+the mesh's first rank writes checkpoints, TensorBoard, the profile and the
+log. Destination sharding (`model_strategy="dest_shard"`) and
+`locality_reorder=True` are not ported yet (ROADMAP item 6 v2).
+Checkpoints do not cross between the packages (orbax there, `torch.save`
+here).
 """
 
 from __future__ import annotations
@@ -64,9 +68,30 @@ class TrainState:
 
 def _unported_parallel(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to ignnition_tpu_torch yet: the data- and "
-        f"edge-parallel steps are ROADMAP item 6"
+        f"{what} is not ported to ignnition_tpu_torch yet: destination "
+        f"sharding (edgeshard, locality) is ROADMAP item 6 v2"
     )
+
+
+def check_mesh(mesh, model_strategy: str, locality_reorder) -> None:
+    """Raise for a mesh that is not the port's `parallel.Mesh` and for the
+    options of destination sharding, which is not ported."""
+    from ..parallel import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be ignnition_tpu_torch.parallel.Mesh (make_mesh, "
+            f"distributed.make_pod_mesh), got {type(mesh).__name__}"
+        )
+    if model_strategy == "dest_shard":
+        raise _unported_parallel("model_strategy='dest_shard'")
+    if model_strategy != "replicated":
+        raise ValueError(
+            f"unknown model_strategy {model_strategy!r}: 'replicated' (edge "
+            f"sharding, v1) or 'dest_shard'"
+        )
+    if locality_reorder is True:
+        raise _unported_parallel("locality_reorder=True")
 
 
 def _numpy(x) -> np.ndarray:
@@ -97,6 +122,7 @@ class Trainer:
         # the training steps' draws (dropout masks, noise), on the device
         self.generator = torch.Generator(device=self.device).manual_seed(42)
         self._eval_batches: Dict[Any, list] = {}
+        self._sized: set = set()  # metas whose footprint was estimated
 
     # ------------------------------------------------------------------
 
@@ -133,8 +159,16 @@ class Trainer:
         update of `state` in place. The metrics stay on the device.
 
         layout: the packed-transfer layout (`training.packing`); the step
-        then takes the per-dtype device buffers and unpacks them to views."""
+        then takes the per-dtype device buffers and unpacks them to views.
 
+        Before a meta's first step the trainer estimates the step's device
+        memory and warns when one card likely cannot hold it
+        (`utils.memory.maybe_warn_capacity`), as the JAX trainer does."""
+        if meta not in self._sized:
+            from ..utils.memory import maybe_warn_capacity
+
+            self._sized.add(meta)
+            maybe_warn_capacity(self.ir, meta, log=log)
         grads = self.grads_fn(meta)
 
         def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -550,31 +584,66 @@ class Trainer:
         profile_dir: a torch.profiler trace of the steps in
         [profile_steps[0], profile_steps[1]), written as a chrome trace, also
         when the loop ends before the second bound.
-        mesh, model_strategy other than "replicated" and
-        locality_reorder=True raise: the parallel steps are ROADMAP item 6."""
+        mesh: a `parallel.Mesh` ('data' x 'model' ranks of the initialized
+        process group): every rank of the mesh calls `train` with the same
+        arguments, and each step consumes mesh.shape['data'] merged batches
+        (stacked, re-padded to a common bucket) through the data- and
+        edge-parallel step (`parallel.make_parallel_train_step`, in the
+        trainer's compute dtype). Every rank reads the same stream, shuffled
+        by `seed`, and builds the whole group; so input_workers must stay 1
+        (several workers build batches in no fixed order). Accumulation is
+        1 (the mesh's data axis owns batching), the state is broadcast from
+        the mesh's first rank before the first step, and only that rank
+        writes checkpoints, TensorBoard, the profile and the log; a resumed
+        run reads `checkpoint_dir` on every rank.
+        model_strategy: "replicated" (v1: edges split over the model axis,
+        node tables replicated); "dest_shard" and locality_reorder=True
+        raise: destination sharding is ROADMAP item 6 v2."""
+        check_mesh(mesh, model_strategy, locality_reorder)
+        writes = True
         if mesh is not None:
-            raise _unported_parallel("training over a mesh")
-        if model_strategy != "replicated":
-            raise _unported_parallel(f"model_strategy={model_strategy!r}")
-        if locality_reorder is True:
-            raise _unported_parallel("locality_reorder=True")
+            import torch.distributed as dist
+
+            from ..parallel import replicate
+
+            mesh.require_member()
+            writes = dist.get_rank() == 0
+            if accumulate_steps == "auto":
+                accumulate_steps = 1  # the mesh's data axis owns batching
+            elif accumulate_steps > 1:
+                raise ValueError(
+                    "accumulate_steps > 1 is not supported together with a "
+                    "mesh (the mesh's data axis owns batching) — raise "
+                    "batch_size or the data-axis size instead"
+                )
+            if input_workers > 1:
+                raise ValueError(
+                    "input_workers > 1 is not supported together with a mesh: "
+                    "every rank must read the same stream in the same order"
+                )
         if accumulate_steps == "auto":
             accumulate_steps, batch_size = self._auto_accumulate(data_dir, batch_size)
         self.generator.manual_seed(seed)
         manager = None
         if checkpoint_dir:
-            manager = _make_checkpoint_manager(checkpoint_dir, keep_max)
+            manager = (_make_checkpoint_manager(checkpoint_dir, keep_max) if writes
+                       else CheckpointManager(checkpoint_dir, keep_max, create=False))
             # resume-within-run (tf.estimator's model_dir behaviour in the
             # reference, SURVEY.md §5.4)
             latest = manager.latest_step()
             if latest is not None and latest > state.step:
-                log.info("resuming from checkpoint step %d in %s", latest, checkpoint_dir)
+                if writes:
+                    log.info("resuming from checkpoint step %d in %s", latest, checkpoint_dir)
                 state = restore_checkpoint(manager, state)
-        writer = _summary_writer(tensorboard_dir) if tensorboard_dir else None
+            if not writes:
+                manager = None
+        if mesh is not None:
+            replicate((state.params, state.opt_state), mesh)
+        writer = _summary_writer(tensorboard_dir) if tensorboard_dir and writes else None
         last_save = time.time()
         last_eval = time.time()
 
-        if cache_batches == "device" and accumulate_steps > 1:
+        if cache_batches == "device" and (mesh is not None or accumulate_steps > 1):
             # stacked steps assemble their batches host-side (np.stack):
             # device-cached batches would come back to the host every step
             log.info(
@@ -582,7 +651,12 @@ class Trainer:
                 "(stacked steps assemble batches host-side)"
             )
             cache_batches = True
-        if accumulate_steps > 1:
+        step_cache: Dict[BatchMeta, Callable] = {}
+        if mesh is not None:
+            batch_iter = self._sharded_batch_iter(
+                data_dir, batch_size, mesh, shuffle, seed, cache=cache_batches,
+            )
+        elif accumulate_steps > 1:
             batch_iter = self._stacked_batch_iter(
                 data_dir, batch_size, accumulate_steps, shuffle,
                 workers=input_workers, cache=cache_batches,
@@ -593,7 +667,8 @@ class Trainer:
                 workers=input_workers, cache=cache_batches,
             )
         layouts: Dict[BatchMeta, Any] = {}
-        on_device = cache_batches == "device"  # nothing left to copy
+        # nothing left to copy; a mesh step copies its own part of the batch
+        on_device = cache_batches == "device" or mesh is not None
         if pack_transfer and not on_device:
             pin = self.device.type == "cuda"
 
@@ -613,19 +688,36 @@ class Trainer:
             for arrays, meta in batch_iter:
                 if state.step >= max_steps:
                     break
-                if profile_dir and state.step == profile_steps[0]:
+                if profile_dir and writes and state.step == profile_steps[0]:
                     profiler = _start_profiler(self.device)
                 if profiler is not None and state.step >= profile_steps[1]:
                     _stop_profiler(profiler, profile_dir, profile_steps)
                     profiler = None
-                lay = layouts.get(meta)
-                step_fn = (
-                    self.accum_train_step_fn(meta, accumulate_steps, layout=lay)
-                    if accumulate_steps > 1
-                    else self.train_step_fn(meta, layout=lay)
-                )
-                state, logs = step_fn(state, to_device(arrays, self.device, non_blocking=True))
-                if log_every and state.step % log_every == 0:
+                if mesh is not None:
+                    if meta not in step_cache:
+                        from ..parallel import make_parallel_train_step
+
+                        step_cache[meta] = make_parallel_train_step(
+                            self.model, self.optimizer, self.loss_fn, meta, mesh,
+                            compute_dtype=self.compute_dtype, device=self.device,
+                        )
+                    _, _, loss = step_cache[meta](
+                        state.params, state.opt_state, arrays, generator=self.generator
+                    )
+                    state.step += 1
+                    # the L2 term is not in the mesh step's loss (the JAX step's)
+                    logs = {"loss": loss, "reg": 0.0, "total": loss}
+                else:
+                    lay = layouts.get(meta)
+                    step_fn = (
+                        self.accum_train_step_fn(meta, accumulate_steps, layout=lay)
+                        if accumulate_steps > 1
+                        else self.train_step_fn(meta, layout=lay)
+                    )
+                    state, logs = step_fn(
+                        state, to_device(arrays, self.device, non_blocking=True)
+                    )
+                if log_every and writes and state.step % log_every == 0:
                     loss, reg, total = (float(logs[k]) for k in ("loss", "reg", "total"))
                     log.info("step %d  loss=%.6f  reg=%.6f  total=%.6f",
                              state.step, loss, reg, total)
@@ -640,7 +732,7 @@ class Trainer:
                 if manager is not None and now - last_save >= save_secs:
                     save_checkpoint(manager, state)
                     last_save = now
-                if eval_fn is not None and now - last_eval >= eval_secs:
+                if eval_fn is not None and writes and now - last_eval >= eval_secs:
                     results = eval_fn(state)
                     log.info("eval @ step %d: %s", state.step, results)
                     last_eval = now
@@ -654,6 +746,23 @@ class Trainer:
         if writer is not None:
             writer.close()
         return state
+
+    def _sharded_batch_iter(self, data_dir, batch_size, mesh, shuffle, seed, cache=False):
+        """Group the mesh's data axis per step, stacked on the leading axis
+        (re-padded to a common bucket). Every rank reads the same stream,
+        shuffled by `seed`, and builds the whole group, so that all hold
+        the same meta; the step takes each rank's own part."""
+        from ..parallel import stack_batches
+
+        n_data = mesh.shape["data"]
+        group = []
+        for item in self.batches(
+            data_dir, batch_size, shuffle=shuffle, repeat=True, seed=seed, cache=cache,
+        ):
+            group.append(item)
+            if len(group) == n_data:
+                yield stack_batches(group, self.ir)
+                group = []
 
     def _stacked_batch_iter(self, data_dir, batch_size, n_accum, shuffle, workers=1, cache=False):
         """Group `n_accum` merged batches per optimizer step, stacked on a

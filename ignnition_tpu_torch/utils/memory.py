@@ -1,0 +1,163 @@
+"""Analytic device-memory estimate for one training step (counterpart of
+`ignnition_tpu/utils/memory.py`, copied: `estimate_train_hbm`,
+`recommended_shards`, `maybe_warn_capacity`; the capacity is the H100's
+80 GB).
+
+Answers "does this graph fit on one card, and if not, how many
+destination shards does it need?". Itemization:
+
+  * params: ~20 B/param — f32 master weights + Adam slots (m, v) + the
+    gradient tree + transient bf16 compute casts;
+  * batch: the device-resident batch arrays (pass the exact
+    `sum(v.nbytes)` when the batch exists; estimated from BatchMeta
+    otherwise);
+  * residuals: activations saved for the backward, the dominant term at
+    scale — per MP iteration each sequence update saves its [L, n_dst, D]
+    time slices (plus the scan's per-step carries), each per-edge chain its
+    [E, units] interior activations, and every entity its per-iteration
+    state table;
+  * workspace: transient scratch, ~2x the largest live edge-rate tensor.
+
+The model is deliberately simple and padded-shape based (BatchMeta), like
+the roofline. `chip_smoke.py` (phase 12) holds it against
+`torch.cuda.max_memory_allocated` of the flagship training step at three
+sizes on the card: the estimate must not fall below the measured peak.
+The usable fraction (65%) is the JAX package's, measured on a TPU; the
+card's own ceiling is not measured yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+# the H100's device memory; override for another card
+DEFAULT_HBM_GB = float(os.environ.get("IGNNITION_TPU_HBM_GB", 80.0))
+
+
+def estimate_train_hbm(
+    model_ir,
+    meta,
+    batch_bytes: Optional[float] = None,
+    dtype_bytes: int = 2,
+) -> Dict[str, float]:
+    from .roofline import _mlp_dims, _param_count
+
+    b = dtype_bytes
+    state = model_ir.state_dims()
+    iters = model_ir.num_iterations
+
+    params_bytes = 20.0 * _param_count(model_ir)
+
+    if batch_bytes is None:
+        # features + labels + per-edge index companions (~6 int32 vectors
+        # per adjacency counting src/dst/seq + CSR/slice companions)
+        batch_bytes = 0.0
+        for e in model_ir.entities:
+            n = meta.nodes(e.name)
+            batch_bytes += n * sum(f.size for f in e.features) * 4
+        for info in model_ir.adjacency_info():
+            E = meta.edges(info.name)
+            batch_bytes += 6 * E * 4
+            batch_bytes += E * (info.edge_param_dim or 0) * 4
+        batch_bytes += max(meta.label_pad, 1) * 8
+
+    residual = 0.0
+    for stage in model_ir.stages:
+        for mp in stage.passes:
+            d_dst = state[mp.destination]
+            n_d = meta.nodes(mp.destination)
+            seq_agg = mp.aggregation.kind in ("ordered", "interleave", "concat")
+            for src in mp.sources:
+                E = meta.edges(src.adj_name)
+                d_src = state[src.entity]
+                if seq_agg:
+                    # [L, n_dst, D] time slices saved for the backward +
+                    # the remat scan's per-step carry residuals (~same size)
+                    L = dict(meta.max_len).get(src.adj_name) or 1
+                    residual += 2 * L * n_d * d_dst * b * iters
+                else:
+                    # edge-rate message stream saved once per iteration
+                    residual += E * max(d_src, d_dst) * b * iters
+                # per-edge MLP interior activations
+                cur = d_src
+                for op in src.ops:
+                    if op.kind == "mlp":
+                        dims, cur = _mlp_dims(op.mlp, cur)
+                        for (_i, o) in dims[:-1]:
+                            residual += E * o * b * iters
+    for e in model_ir.entities:
+        residual += meta.nodes(e.name) * state[e.name] * b * iters
+
+    # dense incidence matrices (block or full), live per iteration's
+    # backward when the dense lowering applies
+    from ..data.graph import (
+        _DENSE_INC_MAX_ENTRIES, _DENSE_INC_MIN_EDGES, dense_agg_adjacencies,
+    )
+
+    dense_adjs = dense_agg_adjacencies(model_ir)
+    inc_blocks = dict(meta.inc_blocks)
+    dense_bytes = 0.0
+    for info in model_ir.adjacency_info():
+        if info.name not in dense_adjs:
+            continue
+        if meta.edges(info.name) < _DENSE_INC_MIN_EDGES:
+            continue
+        blk = inc_blocks.get(info.name)
+        entries = (
+            blk[0] * blk[1] * blk[2] if blk
+            else meta.nodes(info.dst) * meta.nodes(info.src)
+        )
+        if blk is None and entries > _DENSE_INC_MAX_ENTRIES:
+            continue  # the data layer never emits the matrix above the cap
+        dense_bytes += entries * b
+
+    # transient fusion scratch: ~2x the largest edge-rate tensor
+    biggest = 0.0
+    for info in model_ir.adjacency_info():
+        E = meta.edges(info.name)
+        d = max(state[info.src], state[info.dst])
+        biggest = max(biggest, E * d * b)
+    workspace = 2.0 * biggest
+
+    total = params_bytes + batch_bytes + residual + dense_bytes + workspace
+    return {
+        "params_bytes": params_bytes,
+        "batch_bytes": float(batch_bytes),
+        "residual_bytes": residual,
+        "dense_inc_bytes": dense_bytes,
+        "workspace_bytes": workspace,
+        "total_bytes": total,
+    }
+
+
+def recommended_shards(total_bytes: float, hbm_gb: float = None) -> int:
+    """Destination shards (the mesh's model axis under dest_shard) needed to
+    fit. 1 = fits on one card.
+
+    The usable fraction (65%) is the JAX package's calibration against a
+    TPU's measured single-chip boundary (allocator fragmentation and
+    compiler workspace kept the practical ceiling well under the
+    nameplate). It stays until the H100's own ceiling is measured."""
+    hbm = (hbm_gb or DEFAULT_HBM_GB) * 1e9
+    usable = 0.65 * hbm
+    m = 1
+    while total_bytes / m > usable and m < 4096:
+        m *= 2
+    return m
+
+
+def maybe_warn_capacity(model_ir, meta, batch_bytes=None, log=None) -> int:
+    """Estimate the footprint and warn when a single card likely cannot
+    hold it; returns the recommended shard count (1 = fits)."""
+    est = estimate_train_hbm(model_ir, meta, batch_bytes=batch_bytes)
+    m = recommended_shards(est["total_bytes"])
+    if m > 1 and log is not None:
+        log.warning(
+            "estimated training footprint %.1f GB exceeds the usable 65%% of "
+            "one card's memory (%.0f GB): a mesh with "
+            "model_strategy='dest_shard' over >=%d shards would split it "
+            "(not ported yet: ROADMAP item 6 v2); a smaller batch_size fits",
+            est["total_bytes"] / 1e9, DEFAULT_HBM_GB, m,
+        )
+    return m

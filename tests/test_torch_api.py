@@ -722,12 +722,18 @@ def test_unported_options_raise_naming_their_roadmap_item(data):
     model = igt.create_model(RunConfig(train_dataset=str(data / "train"), json_path=str(tmp)))
     _, _, tt, ts = _pair(_desc())
     train = str(data / "train")
-    for kw in (dict(mesh=object()), dict(model_strategy="dest_shard"),
-               dict(locality_reorder=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    # destination sharding (v2) still raises; a mesh must be the port's
+    for kw in (dict(model_strategy="dest_shard"), dict(locality_reorder=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 6 v2"):
             tt.train(ts, train, 1, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        igt.Runner(model, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6 v2"):
+        igt.Runner(model, model_strategy="dest_shard", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6 v2"):
+        tt.model.apply(ts.params, {}, None, node_axis=object())
+    for make in (lambda: tt.train(ts, train, 1, mesh=object()),
+                 lambda: igt.Runner(model, mesh=object(), device="cpu")):
+        with pytest.raises(TypeError, match=r"ignnition_tpu_torch\.parallel\.Mesh"):
+            make()
     # serving export and debug are ported: they ask for what they lack
     with pytest.raises(ValueError, match="the path of the model to export is unspecified"):
         igt.Runner(model, device="cpu").export_serving("out")

@@ -71,6 +71,9 @@ def test_port_imports_with_jax_blocked():
         "import ignnition_tpu_torch.data.kdn, ignnition_tpu_torch.data.native_loader\n"
         "import ignnition_tpu_torch.api, ignnition_tpu_torch.config\n"
         "import ignnition_tpu_torch.training.packing, ignnition_tpu_torch.parallel\n"
+        "import ignnition_tpu_torch.parallel.mesh, ignnition_tpu_torch.parallel.distributed\n"
+        "import ignnition_tpu_torch.parallel.steps, ignnition_tpu_torch.ops._collectives\n"
+        "import ignnition_tpu_torch.utils.roofline, ignnition_tpu_torch.utils.memory\n"
         "import ignnition_tpu_torch.examples.routenet, ignnition_tpu_torch.examples.qsize\n"
         "import ignnition_tpu_torch.examples.graphprop, ignnition_tpu_torch.examples.linkpred\n"
         "import ignnition_tpu_torch.examples.gat\n"
