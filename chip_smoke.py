@@ -200,7 +200,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      parameters by `tests/test_torch_train.py`'s rule, bf16 losses within
      3e-2), every rank's parameters alike, each rank's launches of B, C and
      the id-keyed kernel (edge sharding) or A (data parallel) counted; the
-     step time and the all-reduce's share of a profiled step printed.
+     step time and the all-reduce's share of a profiled step printed;
+ 13. destination sharding (`destshard_steps`): the flagship at full width on
+     one graph of 2,048 links and 16,384 paths of length 8 a data row
+     (locality latent, ids scrambled: `make_local_sample`), partitioned over
+     1x2, 1x4 and 2x2 meshes of a gloo world of 4 on the card (this script
+     run with `--destshard-rank` per rank) in the dataset's order and
+     renumbered by `parallel.locality`, 3 steps each in f32 and bf16, held
+     as (c) holds its steps, and `make_edgeshard_apply`'s f32 forward within
+     1e-5 of the single-device forward; each rank's launches of A, B and C
+     counted (A 8, B 8, C 8 a step); each adjacency's halo height and
+     boundary fraction, `comm_bytes_per_step` v2 against v1, the
+     all_to_all's share of a profiled step, the gathers' scatter-add
+     backward on the device and each rank's peak memory against the
+     single-device step's printed.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -5085,17 +5098,19 @@ def parallel_rank(job_dir: str, port: str, rank: str, world: str, backend: str) 
     dist.destroy_process_group()
 
 
-def spawn_parallel_world(world: int, backend: str, meshes, root: str) -> list:
-    """Run `world` ranks of `parallel_rank` (each a process of this script);
-    every rank's results, or a raise with every rank's output when one
-    fails or the world outlives `PARALLEL_SECONDS` (its ranks are killed)."""
+def spawn_parallel_world(world: int, backend: str, meshes, root: str, job: dict = None,
+                         flag: str = "--parallel-rank") -> list:
+    """Run `world` ranks of `parallel_rank` (each a process of this script;
+    `flag` "--destshard-rank" runs `destshard_rank` with `job`); every
+    rank's results, or a raise with every rank's output when one fails or
+    the world outlives `PARALLEL_SECONDS` (its ranks are killed)."""
     import pickle
     import socket
 
-    job_dir = os.path.join(root, f"{backend}_{world}")
+    job_dir = os.path.join(root, f"{backend}_{world}{flag.replace('-', '_')}")
     os.makedirs(job_dir, exist_ok=True)
     with open(os.path.join(job_dir, "job.pkl"), "wb") as f:
-        pickle.dump({"meshes": meshes}, f)
+        pickle.dump(dict(job or {}, meshes=meshes), f)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -5104,7 +5119,7 @@ def spawn_parallel_world(world: int, backend: str, meshes, root: str) -> list:
     for r in range(world):
         with open(logs[r], "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--parallel-rank", job_dir,
+                [sys.executable, os.path.abspath(__file__), flag, job_dir,
                  str(port), str(r), str(world), backend],
                 stdout=log, stderr=subprocess.STDOUT))
     deadline, failed = time.monotonic() + PARALLEL_SECONDS, None
@@ -5281,6 +5296,397 @@ def roofline_memory_parallel(dev, card: str, seg, gru, gru_bwd, gat) -> dict:
                 memory=memory_model(card), parallel=sharded_steps(card))
 
 
+# --------------------------------------------------------------------------
+# phase 13: destination sharding (v2)
+# --------------------------------------------------------------------------
+
+# the meshes of the gloo world of 4 on the one card: a data row is one graph
+DEST_MESHES = ((1, 2), (1, 4), (2, 2))
+DEST_STEPS = 3
+DEST_ORDERS = ("naive", "reordered")
+DEST_PAD = dict(mode="multiple", multiple=256, min_size=256)
+
+
+def make_local_sample(rng, n_links, n_paths, path_len, window=64):
+    """One flagship-scale graph in the "local_recovered" regime of
+    `tools/project_scaling.make_flagship_sample` (that module imports the
+    JAX package): each path draws its links from a window of +-`window`
+    around an anchor, then link and path ids are scrambled, so that the
+    dataset's order carries no locality and the partitioner must recover
+    it."""
+    from ignnition_tpu_torch.data.dataset import AdjacencyArrays, GraphSample
+
+    anchors = np.sort(rng.integers(0, n_links, n_paths))
+    offs = rng.integers(-window, window + 1, (n_paths, path_len))
+    links = (anchors[:, None] + offs) % n_links
+    links = rng.permutation(n_links)[links]
+    links = links[rng.permutation(n_paths)]
+    src_lp = links.reshape(-1).astype(np.int32)
+    dst_lp = np.repeat(np.arange(n_paths, dtype=np.int32), path_len)
+    seq_lp = np.tile(np.arange(path_len, dtype=np.int32), n_paths)
+    src_pl, dst_pl, seq_pl = _reverse(src_lp, dst_lp, n_links)
+    return GraphSample(
+        num_nodes={"link": n_links, "path": n_paths},
+        features={"link_capacity": rng.uniform(20, 40, (n_links, 1)).astype(np.float32),
+                  "traffic": rng.uniform(0.2, 0.8, (n_paths, 1)).astype(np.float32)},
+        adjacencies={"adj_links_paths": AdjacencyArrays(src_lp, dst_lp, seq_lp),
+                     "adj_paths_links": AdjacencyArrays(src_pl, dst_pl, seq_pl)},
+        label=rng.uniform(0.1, 1.0, n_paths).astype(np.float32),
+    )
+
+
+def destshard_inputs(ir, graphs) -> dict:
+    """For each mesh and order: the data rows' merged batches (one graph a
+    row, re-padded to one meta), their partitions stacked to [n_data,
+    n_model, ...] with one local meta, the renumbering's orders, and the
+    halo accounting (each adjacency's H and boundary fraction,
+    `comm_bytes_per_step` v2 against v1 in f32)."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.data.graph import merge_metas, repad_to_meta
+    from ignnition_tpu_torch.parallel import (comm_bytes_per_step, halo_fractions,
+                                              locality_order, partition_batch,
+                                              partition_dims, reorder_sample)
+
+    padding = igt.PaddingConfig(**DEST_PAD)
+    out = {}
+    for shape in DEST_MESHES:
+        n_data, m = shape
+        for order in DEST_ORDERS:
+            t0 = time.perf_counter()
+            rows, orders = [], []
+            for g in graphs[:n_data]:
+                if order == "reordered":
+                    pad = {e: padding.pad_size(n) for e, n in g.num_nodes.items()}
+                    o = locality_order(g, ir, n_model=m, node_pad=pad)
+                    g = reorder_sample(g, ir, orders=o)[0]
+                    orders.append(o)
+                rows.append(igt.build_batch([g], ir, padding, training=True))
+            t_order = time.perf_counter() - t0
+            target = merge_metas([mt for _, mt in rows], ir)
+            rows = [(repad_to_meta(a, mt, target, ir), target) for a, mt in rows]
+            parts = [partition_batch(a, mt, ir, m) for a, mt in rows]
+            dims = [partition_dims(p[0]) for p in parts]
+            grown = {k: {a: max(d[k].get(a, 0) for d in dims)
+                         for a in set().union(*(d[k] for d in dims))} for k in dims[0]}
+            parts = [partition_batch(a, mt, ir, m, pad_to=grown) for a, mt in rows]
+            stacked = {k: np.stack([p[0][k] for p in parts]) for k in parts[0][0]}
+            comm = comm_bytes_per_step(ir, target, parts[0][0], m)
+            frac = halo_fractions(parts[0][0], ir)
+            out[(shape, order)] = dict(rows=rows, stacked=stacked, meta=parts[0][1],
+                                       orders=orders, dims=partition_dims(parts[0][0]),
+                                       comm=comm, frac=frac, seconds=time.perf_counter() - t0,
+                                       order_seconds=t_order)
+            halo = ", ".join(
+                f"{a}: H {out[(shape, order)]['dims']['halo'].get(a, 0)}, boundary "
+                f"{frac[a]['boundary_frac']:.1%}, v2 {comm[a]['v2_halo_bytes'] / 1e6:.2f} MB "
+                f"vs v1 {comm[a]['v1_full_psum_bytes'] / 1e6:.2f} MB a step"
+                for a in sorted(frac))
+            print(f"[dest_shard] {n_data}x{m} {order}: {halo} (data row 0; partition "
+                  f"{time.perf_counter() - t0:.1f} s on the host, of which renumbering and "
+                  f"build_batch {t_order:.1f} s)")
+    return out
+
+
+def destshard_reference(ir, rows, dtype) -> dict:
+    """The single-device steps on the card that a mesh of len(rows) data rows
+    must match (each step the mean of the rows' gradients, one update): the
+    losses, the parameters after every step, the first step's gradients,
+    the f32 forward of each row at the initial weights and the peak memory
+    of a step."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import flatten_params, with_leaves
+
+    trainer = igt.Trainer(igt.build(ir), igt.PaddingConfig(**DEST_PAD), compute_dtype=dtype)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED + 13))
+    meta = rows[0][1]
+    batches = [to_device(a, trainer.device) for a, _ in rows]
+    forward = [trainer.model.apply(state.params, b, meta).detach().float().cpu()
+               for b in batches] if dtype == torch.float32 else None
+    grads = trainer.grads_fn(meta)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, params, first = [], [], None
+    for _ in range(DEST_STEPS):
+        total, loss = None, 0.0
+        for b in batches:
+            g, m = grads(state.params, b)
+            g = list(flatten_params(g).values())
+            total = g if total is None else [x + y for x, y in zip(total, g)]
+            loss += float(m["loss"])
+        mean = [t / len(batches) for t in total]
+        first = first or {k: v.float().cpu() for k, v in zip(flatten_params(state.params), mean)}
+        trainer.optimizer.step(state.params, with_leaves(state.params, mean), state.opt_state)
+        losses.append(loss / len(batches))
+        params.append({k: v.detach().to("cpu", torch.float32, copy=True) for k, v in
+                       flatten_params(state.params).items()})
+    peak = torch.cuda.max_memory_allocated()
+    return dict(losses=losses, params=params, first_grads=first, forward=forward, peak=peak)
+
+
+def destshard_rank(job_dir: str, port: str, rank: str, world: str, backend: str) -> None:
+    """One rank of the destination-sharded world (this script run with
+    `--destshard-rank`): joins the world and, per mesh, order and dtype,
+    steps the flagship `DEST_STEPS` times from the reference's weights and
+    writes its losses, parameters, kernel launches, step times, peak
+    memory, the all_to_all's share of a profiled step and, in f32 over the
+    naive order, `make_edgeshard_apply`'s forward at the initial weights."""
+    import pickle
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.model.builder import flatten_params
+    from ignnition_tpu_torch.parallel import (distributed, make_edgeshard_apply,
+                                              make_edgeshard_train_step, make_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(rank), int(world)
+    with open(os.path.join(job_dir, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    distributed.initialize(f"localhost:{port}", world, rank, backend=backend)
+    ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    counts = Counts()
+    out = {"backend": dist.get_backend()}
+    for shape in job["meshes"]:
+        mesh = make_mesh(*shape)
+        for order in DEST_ORDERS:
+            for dtype in (torch.float32, torch.bfloat16):
+                if mesh.coords is None:
+                    dist.barrier()
+                    continue
+                stacked, meta = job["inputs"][(shape, order)]
+                trainer = igt.Trainer(igt.build(ir), igt.PaddingConfig(**DEST_PAD),
+                                      compute_dtype=dtype)
+                state = trainer.init_state(torch.Generator().manual_seed(SEED + 13))
+                res = dict(coords=mesh.coords)
+                if dtype == torch.float32 and order == "naive":
+                    apply = make_edgeshard_apply(trainer.model, meta, mesh)
+                    counts.reset()
+                    res["forward"] = apply(state.params, stacked).float().cpu()
+                    res["forward_launches"] = counts.read()
+                step = make_edgeshard_train_step(trainer.model, trainer.optimizer,
+                                                 trainer.loss_fn, meta, mesh,
+                                                 compute_dtype=dtype)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                losses, params, times = [], [], []
+                counts.reset()
+                for _ in range(DEST_STEPS):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    _, _, loss = step(state.params, state.opt_state, stacked,
+                                      generator=trainer.generator)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times.append(start.elapsed_time(end))
+                    losses.append(float(loss))
+                    params.append({k: v.detach().to("cpu", torch.float32, copy=True)
+                                   for k, v in flatten_params(state.params).items()})
+                res["launches"] = counts.read()
+                res["peak"] = torch.cuda.max_memory_allocated()
+                # one more step under the profiler: the exchange's share (its
+                # autograd Functions' host time, forward and backward: each
+                # waits for its collective) and the gathers' scatter-add
+                # backward on the device
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    step(state.params, state.opt_state, stacked, generator=trainer.generator)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                host = {}
+                for e in prof.key_averages():
+                    if e.device_type == DeviceType.CPU and (
+                            e.key.startswith("_AllToAll") or e.key.startswith("_AllReduce")
+                            or e.key == "parallel.all_reduce_gradients"):
+                        host[e.key] = host.get(e.key, 0.0) + e.cpu_time_total / 1e3
+                device, busy = {}, 0.0
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        ms = e.time_range.elapsed_us() / 1e3
+                        device[e.name] = device.get(e.name, 0.0) + ms
+                        busy += ms
+                res.update(losses=losses, step_ms=times, profiled_step_ms=wall, host_ms=host,
+                           device_busy_ms=busy,
+                           scatter_add_ms=sum(v for k, v in device.items()
+                                              if "index" in k and ("put" in k or "backward" in k)),
+                           top_device=sorted(device.items(), key=lambda kv: -kv[1])[:5],
+                           params=params if (rank == 0 and dtype == torch.float32) else None,
+                           checksum=[float(sum(float(v.double().sum()) for v in p.values()))
+                                     for p in params])
+                out[(shape, order, str(dtype))] = res
+                del state, step, trainer
+                dist.barrier()
+    with open(os.path.join(job_dir, f"out_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _hold_f32_params(what, got_params, ref, lr=1e-3) -> str:
+    """`tests/test_torch_train.py`'s rule for two implementations, step by
+    step: the elements whose first gradient is above 1e-3 of the leaf's
+    largest at rtol 5e-4 / atol 5e-6, every element within 2 lr a step."""
+    firm = {k: g.abs() >= 1e-3 * g.abs().max() for k, g in ref["first_grads"].items()}
+    worst_firm = worst_any = 0.0
+    for i in range(DEST_STEPS):
+        for k, want in ref["params"][i].items():
+            err = (got_params[i][k] - want).abs()
+            if not bool((err[firm[k]] <= 5e-6 + 5e-4 * want.abs()[firm[k]]).all()):
+                raise AssertionError(f"{what}: step {i} {k} beyond the limits")
+            if float(err.max()) > 2 * lr * (i + 1):
+                raise AssertionError(f"{what}: step {i} {k} moved past 2 lr a step")
+            if firm[k].any():
+                worst_firm = max(worst_firm, float(err[firm[k]].max()))
+            worst_any = max(worst_any, float(err.max()))
+    return f"parameters: firm elements max |diff| {worst_firm:.3e}, any {worst_any:.3e}"
+
+
+def destshard_steps(card: str) -> dict:
+    """Phase 13: the flagship at full width (hs 32, 8 iterations) on one
+    graph of 2,048 links and 16,384 paths of length 8 (131,072 edges a
+    direction, locality latent and ids scrambled: `make_local_sample`) a
+    data row, destination-sharded over 1x2, 1x4 and 2x2 meshes (two graphs)
+    of a gloo world of 4 on the card, in the dataset's order and
+    renumbered by `parallel.locality`, 3 steps each in f32 and bf16, held
+    to the single-device steps on the card: f32 losses at rtol 1e-5 and
+    parameters by `tests/test_torch_train.py`'s rule, bf16 losses within
+    3e-2, `make_edgeshard_apply`'s f32 forward within 1e-5; every rank of a
+    mesh ends with the same parameters; each rank's launches of A, B, C,
+    the id-keyed kernel, D and E counted; the halo, the exchange's share of
+    a profiled step and each rank's peak memory printed."""
+    import tempfile
+
+    import ignnition_tpu_torch as igt
+
+    t0 = time.perf_counter()
+    ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    graphs = [make_local_sample(np.random.default_rng(SEED + 13 + g), **FLAGSHIP)
+              for g in range(2)]
+    inputs = destshard_inputs(ir, graphs)
+    refs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_data in (1, 2):
+            refs[(dtype, n_data)] = destshard_reference(
+                ir, inputs[((n_data, 2), "naive")]["rows"], dtype)
+    t_ref = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="chip_smoke_destshard_")
+    job = {"inputs": {k: (v["stacked"], v["meta"]) for k, v in inputs.items()}}
+    t1 = time.perf_counter()
+    ranks = spawn_parallel_world(4, "gloo", DEST_MESHES, root, job=job,
+                                 flag="--destshard-rank")
+    print(f"[dest_shard] inputs and single-device references {t_ref:.1f} s; the world of 4 "
+          f"(gloo, one card) {time.perf_counter() - t1:.1f} s")
+    total = {k: 0 for k in Counts().read()}
+    out = {}
+    for shape in DEST_MESHES:
+        n_data, m = shape
+        for order in DEST_ORDERS:
+            for dtype in (torch.float32, torch.bfloat16):
+                key = (shape, order, str(dtype))
+                got = [r[key] for r in ranks if key in r]
+                if len(got) != n_data * m:
+                    raise AssertionError(f"dest_shard {shape} {order}: {len(got)} ranks")
+                ref = refs[(dtype, n_data)]
+                what = f"dest_shard {n_data}x{m} {order} {str(dtype)[6:]}"
+                if len({tuple(g["checksum"]) for g in got}) != 1:
+                    raise AssertionError(f"{what}: the ranks' parameters differ")
+                lead = got[0]
+                if dtype == torch.float32:
+                    np.testing.assert_allclose(lead["losses"], ref["losses"], rtol=1e-5,
+                                               err_msg=what)
+                    held = (f"losses {lead['losses']} against {ref['losses']} (rtol 1e-5); "
+                            + _hold_f32_params(what, lead["params"], ref))
+                else:
+                    diffs = [abs(a - b) for a, b in zip(lead["losses"], ref["losses"])]
+                    if max(diffs) > BF16_STEP_ATOL:
+                        raise AssertionError(f"{what}: a step's loss {max(diffs):.3e} from the "
+                                             f"single-device step's")
+                    held = (f"losses {lead['losses']} against {ref['losses']} (max |diff| "
+                            f"{max(diffs):.3e}, atol {BF16_STEP_ATOL})")
+                if "forward" in lead:
+                    worst = 0.0
+                    for d in range(n_data):
+                        mask = inputs[(shape, order)]["rows"][d][0]["node_mask_path"] > 0
+                        have = lead["forward"][d][:mask.size][torch.from_numpy(mask)]
+                        want = ref["forward"][d][torch.from_numpy(mask)]
+                        torch.testing.assert_close(have, want, rtol=1e-5, atol=1e-5,
+                                                   msg=lambda e: f"{what} forward: {e}")
+                        worst = max(worst, float((have - want).abs().max()))
+                    held += f"; make_edgeshard_apply forward max |diff| {worst:.3e}"
+                    for g in got:
+                        expect_counts(f"{what} forward rank {g['coords']}",
+                                      g["forward_launches"], csr_segment_sum=ITERATIONS,
+                                      masked_gru_scan=ITERATIONS)
+                s, it = DEST_STEPS, ITERATIONS
+                for g in got:
+                    expect_counts(f"{what} rank {g['coords']}", g["launches"],
+                                  csr_segment_sum=it * s, masked_gru_scan=it * s,
+                                  masked_gru_scan_bwd=it * s)
+                    for k, v in g["launches"].items():
+                        total[k] += v
+                step_ms = float(np.median(lead["step_ms"][1:]))
+                exchange = sum(v for k, v in lead["host_ms"].items() if k.startswith("_AllToAll"))
+                if not exchange > 0:
+                    raise AssertionError(f"{what}: the profile shows no all_to_all")
+                share = exchange / lead["profiled_step_ms"]
+                peaks = [g["peak"] / 2**20 for g in got]
+                print(f"[dest_shard] {what}: {held}; step {step_ms:.1f} ms (median of steps "
+                      f"2-{DEST_STEPS}, CUDA events, rank {lead['coords']}); profiled step "
+                      f"{lead['profiled_step_ms']:.1f} ms: all_to_all {exchange:.1f} ms "
+                      f"({share:.1%}, host time of "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in sorted(lead["host_ms"].items()))
+                      + f"), device busy {lead['device_busy_ms']:.1f} ms, the gathers' "
+                      f"scatter-add backward {lead['scatter_add_ms']:.2f} ms on the device; top "
+                      "device kernels " + ", ".join(f"{k[:40]} {v:.2f}" for k, v in
+                                                    lead["top_device"][:3])
+                      + f"; peak memory a rank {min(peaks):.0f}-{max(peaks):.0f} MiB against "
+                      f"{ref['peak'] / 2**20:.0f} MiB single-device; on {card}")
+                out[what] = dict(losses=lead["losses"], reference_losses=ref["losses"],
+                                 step_ms=step_ms, all_to_all_share=share,
+                                 peak_mib_per_rank=peaks,
+                                 single_device_peak_mib=ref["peak"] / 2**20,
+                                 launches_per_rank=[g["launches"] for g in got])
+        for order in DEST_ORDERS:
+            inp = inputs[(shape, order)]
+            out[f"halo {n_data}x{m} {order}"] = dict(
+                halo_rows=inp["dims"]["halo"],
+                boundary_frac={a: r["boundary_frac"] for a, r in inp["frac"].items()},
+                v2_halo_bytes={a: r["v2_halo_bytes"] for a, r in inp["comm"].items()},
+                v1_full_psum_bytes={a: r["v1_full_psum_bytes"] for a, r in inp["comm"].items()})
+    print("[dest_shard] launch counts, every rank of every mesh: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    print(f"[time] phase 13 (destination sharding) {time.perf_counter() - t0:.1f} s")
+    return dict(launches=total, meshes=out)
+
+
+def phase13_alone() -> None:
+    """Phase 13 without the other phases (the kernels built first):
+    `python3 -c "import chip_smoke as c; c.phase13_alone()"`."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ignnition_tpu_torch.ops.cuda import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"[time] build {time.perf_counter() - t0:.1f} s")
+    out = destshard_steps(card)
+    print(json.dumps({"launches": out["launches"], "card": card}))
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -5423,6 +5829,10 @@ def main() -> None:
     # ---- phase 12: the roofline, the memory model and the sharded step ----
     meshed = roofline_memory_parallel(dev, card, seg, gru, gru_bwd, gat)
     seconds["roofline, memory, mesh"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 13: destination sharding ----
+    dest = destshard_steps(card)
+    seconds["dest_shard"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -5458,9 +5868,10 @@ def main() -> None:
         on_language = language["launches"][name]
         on_export = artifacts["launches"][name]
         on_parallel = meshed["parallel"]["launches"][name]
+        on_dest = dest["launches"][name]
         launches = (on_serving + on_training + on_attention + on_qsize + on_mlp
                     + on_homogeneous + on_item1 + on_api + on_language + on_export
-                    + on_parallel)
+                    + on_parallel + on_dest)
         if launches == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
@@ -5471,6 +5882,7 @@ def main() -> None:
             launches_blocks_g4_and_x8=on_item1, launches_api=on_api,
             launches_description_language=on_language,
             launches_serving_export=on_export, launches_parallel=on_parallel,
+            launches_dest_shard=on_dest,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -5522,6 +5934,7 @@ def main() -> None:
                           "parallel": {k: {f: v[f] for f in ("losses", "step_ms",
                                                             "allreduce_share")}
                                        for k, v in meshed["parallel"]["meshes"].items()}},
+                      "dest_shard": dest["meshes"],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -5533,5 +5946,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         parallel_rank(*sys.argv[2:7])
+    elif sys.argv[1:2] == ["--destshard-rank"]:
+        destshard_rank(*sys.argv[2:7])
     else:
         main()

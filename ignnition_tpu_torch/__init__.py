@@ -29,8 +29,10 @@ the JAX package: `create_model(config)`, `train_and_evaluate(model)`,
 `Runner(model).evaluate(state)`, `predict(model, state)`,
 `Runner(model).export_serving(out_dir)` and `debug(model)`, with the run
 configuration of `config.RunConfig` (`train_options.ini`). The entry points
-run on the current CUDA device unless `device="cpu"` is passed; the mesh
-options are not ported (ROADMAP item 6). The hand-written Hopper
+run on the current CUDA device unless `device="cpu"` is passed. Over a
+mesh of ranks (`parallel`: `distributed.initialize`, `make_mesh`) training
+runs data-parallel, edge-partitioned (v1) or destination-sharded with a
+halo exchange (v2, `model_strategy="dest_shard"`). The hand-written Hopper
 kernels (CSR and id-keyed segment sums, masked GRU scan forward and
 backward, flash-GAT forward and backward) are in `csrc/`, their wrappers in
 `ops/cuda/`; `build_batch` runs on the port's native C++ helpers

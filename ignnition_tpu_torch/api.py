@@ -9,9 +9,8 @@ Every entry point runs on the current CUDA device unless `device="cpu"` is
 passed (`Runner(..., device="cpu")`, or `device=` through the module verbs'
 keywords). `Runner.export_serving` freezes the forward into a serving
 artifact (`serving.export_serving`). `Runner(mesh=...)` trains over a
-`parallel.Mesh` of ranks (data- and edge-parallel, v1); destination
-sharding (`model_strategy="dest_shard"`) is not ported yet (ROADMAP item 6
-v2).
+`parallel.Mesh` of ranks: data- and edge-parallel (v1), or destination
+sharding with `model_strategy="dest_shard"` (v2).
 """
 
 from __future__ import annotations
@@ -100,9 +99,9 @@ class Runner:
         train_and_evaluate then runs the data- and edge-parallel step on
         every rank of it, consuming mesh.shape['data'] merged batches a step
         (`Trainer.train`'s mesh). model_strategy: 'replicated' (v1, edges
-        split over the model axis); 'dest_shard' raises: destination
-        sharding is ROADMAP item 6 v2."""
-        check_mesh(mesh, model_strategy, None)
+        split over the model axis) or 'dest_shard' (v2, node state sharded
+        by destination with a halo exchange), passed to `Trainer.train`."""
+        check_mesh(mesh, model_strategy)
         self.model = model
         _note_compilation_cache(model.config)  # the programmatic-config path
         self.gnn = build(model.ir)

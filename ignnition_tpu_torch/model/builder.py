@@ -81,6 +81,19 @@ so every aggregation takes its generic branch over the rank's edges (a
 sorted sum is the id-keyed kernel, a sequence the padded scatter into
 kernel B) and all-reduces the partial over the group.
 
+Under destination sharding (`apply(node_axis=group)`, v2,
+`parallel/edgeshard.py`) the batch is this rank's local batch: its block of
+every entity's rows and the edges whose destinations it owns, with local
+row pointers and in-degrees and no slice map, incidence or source sort (a
+halo slot is not a zero row, and those would read it). Every aggregation
+and update is local, on the single-device branches that these companions
+allow (a sum with row pointers is kernel A, the ordered update
+`RNN.masked_update_from_edges`, kernels B and C). Every gather of source
+rows reads through the halo (`_halo_gather`: the interior edges from the
+local block while the boundary rows travel, one `all_to_all` per gather),
+and only the per-graph reductions cross ranks: pooling and the `reference`
+softmax's max and denominator.
+
 `apply(params, batch, meta)` is a function of a parameter tree, which the
 trainer differentiates (its leaves require grad; the batch's training
 companions route each backward through the hand-written transposes of
@@ -114,6 +127,7 @@ from ..nn import mlp as MLP
 from ..nn import rnn as RNN
 from ..nn.layers import SUPPORTED_LAYERS, activation, glorot_uniform
 from ..ops import segment as seg
+from ..ops._collectives import all_to_all_wait, pmax, psum
 
 
 class BuildError(ValueError):
@@ -267,12 +281,58 @@ def _lens(sources, batch, n_dst, edge_axis=None):
     ]
 
 
-def _gather_src(batch, a, table, edge_axis=None):
+def _halo_src_table(batch, a, table, node_axis):
+    """A local source-row table extended with the halo rows the peers own
+    (`seg.halo_extend` through the batch's `halo_send_*`), the JAX
+    `_halo_src_table`; the table itself when not destination-sharded or
+    when the adjacency has no halo."""
+    send = batch.get(f"halo_send_{a}")
+    if node_axis is None or send is None:
+        return table
+    return seg.halo_extend(table, send, node_axis)
+
+
+def _halo_gather(batch, a, table, node_axis):
+    """Each edge's source row under destination sharding, overlapped with
+    the halo exchange (the JAX `_halo_gather`): the exchange is issued, the
+    interior edges (source owned here, remapped index < B) gather from the
+    local block while it travels, then the boundary edges gather from the
+    received rows, and the two masked passes add. Equal to
+    `halo_extend(table)[src]` on real edges, zero on padding edges. Without
+    the batch's interior mask, the synchronous extend-then-gather; without a
+    halo, the local gather. The gathers index plainly: their backward is
+    autograd's scatter-add. An edge that a pass masks out reads row
+    (edge % rows) there, not one clamped row: the scatter-add's sorted
+    backward walks a run of equal indices one at a time: a run of every
+    boundary (or interior) edge cost 0.35-0.93 s of device time a flagship
+    step on an H100 (`chip_smoke.py` phase 13)."""
+    src_idx = batch[f"src_{a}"]
+    send = batch.get(f"halo_send_{a}")
+    if send is None:
+        return table[src_idx]
+    imask = batch.get(f"interior_emask_{a}")
+    if imask is None:
+        return seg.halo_extend(table, send, node_axis)[src_idx]
+    bmask = batch[f"boundary_emask_{a}"]
+    b = table.shape[0]
+    pending = seg.halo_recv(table, send, node_axis, wait=False)
+    spread = torch.arange(src_idx.shape[0], device=src_idx.device)
+    interior = table[torch.where(imask > 0, src_idx, spread % b)]
+    interior = interior * imask[:, None].to(table.dtype)
+    recv = all_to_all_wait(pending)
+    boundary = recv[torch.where(bmask > 0, src_idx - b, spread % recv.shape[0])]
+    return interior + boundary * bmask[:, None].to(table.dtype)
+
+
+def _gather_src(batch, a, table, edge_axis=None, node_axis=None):
     """Each edge's source row of `table`; with the batch's source sort
     (`src_perm_*`, `src_row_ptr_*`) the backward is kernel A, where
     autograd's scatter-add into a table of many rows takes hundreds of
     milliseconds on the card (PERF.md §5). Under `edge_axis` plain indexing:
-    the sort describes the whole edge array, not this rank's block."""
+    the sort describes the whole edge array, not this rank's block. Under
+    `node_axis` through the halo (`_halo_gather`)."""
+    if node_axis is not None:
+        return _halo_gather(batch, a, table, node_axis)
     if edge_axis is not None:
         return table[batch[f"src_{a}"]]
     return seg.gather_rows(
@@ -300,14 +360,14 @@ class _Source:
     made by `make` at first use (the slot routes never read them)."""
 
     def __init__(self, batch, src, table=None, pkey=None, post=None, make=None,
-                 edge_axis=None):
+                 edge_axis=None, node_axis=None):
         a = src.adj_name
         self.spec, self.adj, self.entity, self.pkey = src, a, src.entity, pkey
         self.dst_idx, self.seq = batch[f"dst_{a}"], batch[f"seq_{a}"]
         self.mask = batch[f"edge_mask_{a}"]
         self.table, self.post = table, post
         self._make = make if make is not None else (
-            lambda: _gather_src(batch, a, table, edge_axis))
+            lambda: _gather_src(batch, a, table, edge_axis, node_axis))
         self._messages = None
 
     @property
@@ -515,10 +575,12 @@ class GnnModel(nn.Module):
         meta: BatchMeta,
         compute_dtype: Optional[torch.dtype] = None,
         edge_axis=None,
+        node_axis=None,
     ) -> torch.Tensor:
         """`apply` with the module's own parameters."""
         return self.apply(
-            self.param_tree(), batch, meta, compute_dtype=compute_dtype, edge_axis=edge_axis
+            self.param_tree(), batch, meta, compute_dtype=compute_dtype, edge_axis=edge_axis,
+            node_axis=node_axis,
         )
 
     def apply(
@@ -557,12 +619,16 @@ class GnnModel(nn.Module):
         of the gathers, the dense and block incidence, the slice maps, the
         slot-rate sum and the fused per-edge softmax.
 
-        node_axis: destination sharding (v2) is not ported yet and raises."""
-        if node_axis is not None:
-            raise NotImplementedError(
-                "node_axis (destination sharding, v2) is not ported to "
-                "ignnition_tpu_torch yet: ROADMAP item 6 v2"
-            )
+        node_axis: destination sharding (v2, `parallel/edgeshard.py`): the
+        model axis's process group, `batch` this rank's local batch
+        (`partition_batch`: its block of every entity's rows and the edges
+        whose destinations it owns, source indices into the halo-extended
+        table) and `meta` the local meta. Aggregations and updates are local;
+        source rows come through one `all_to_all` halo per gather, and only
+        pooling and the `reference` softmax's per-graph statistics combine
+        over the group. Exclusive of edge_axis."""
+        if edge_axis is not None and node_axis is not None:
+            raise BuildError("edge_axis and node_axis are mutually exclusive")
         ir = self.ir
         if compute_dtype is not None:
             params = map_params(lambda v: v.to(compute_dtype), params)
@@ -592,15 +658,17 @@ class GnnModel(nn.Module):
         cache: Dict[Any, torch.Tensor] = {}
         for _ in range(ir.num_iterations):
             states = self._message_passing_iteration(
-                params, batch, meta, states, cache, edge_axis
+                params, batch, meta, states, cache, edge_axis, node_axis
             )
 
-        preds = self._readout(params, batch, meta, states, training, generator, edge_axis)
+        preds = self._readout(params, batch, meta, states, training, generator, edge_axis,
+                              node_axis)
         if compute_dtype is not None:
             preds = preds.to(torch.float32)
         return preds
 
-    def _message_passing_iteration(self, params, batch, meta, states, cache, edge_axis=None):
+    def _message_passing_iteration(self, params, batch, meta, states, cache, edge_axis=None,
+                                   node_axis=None):
         new_states = dict(states)
         edge_vars: Dict[str, torch.Tensor] = {}  # output_name -> per-edge values
         for si, stage in enumerate(self.ir.stages):
@@ -610,7 +678,7 @@ class GnnModel(nn.Module):
                 dst_states = new_states[dst]
                 sources = self._sources(
                     params["message"], si, mi, mp, batch, new_states, dst_states, edge_vars,
-                    edge_axis,
+                    edge_axis, node_axis,
                 )
                 up = params["update"][self._update_key(mp)]
                 kind = mp.aggregation.kind
@@ -640,7 +708,7 @@ class GnnModel(nn.Module):
                     elif kind == "attention":
                         part = self._attention_aggregate(
                             params["aggregation"][f"s{si}/m{mi}"], mp, sources,
-                            dst_states, batch, meta, n_dst, edge_axis,
+                            dst_states, batch, meta, n_dst, edge_axis, node_axis,
                         )
                     else:
                         part = self._convolution(
@@ -663,7 +731,7 @@ class GnnModel(nn.Module):
     # ------------------------------------------------------------------
 
     def _sources(self, mparams, si, mi, mp, batch, states, dst_states, edge_vars,
-                 edge_axis=None):
+                 edge_axis=None, node_axis=None):
         """One `_Source` per source of a message passing (the JAX message
         creation): a direct or source-local chain becomes a per-node message
         table; any other chain per-edge messages, made at first use."""
@@ -679,10 +747,11 @@ class GnnModel(nn.Module):
                     else:
                         x = torch.cat([states[src.entity]] * len(op.inputs), dim=1)
                         table = MLP.apply(op.mlp, keys(oi), x)
-                out.append(_Source(batch, src, table=table, edge_axis=edge_axis))
+                out.append(_Source(batch, src, table=table, edge_axis=edge_axis,
+                                   node_axis=node_axis))
                 continue
             s = self._per_edge_source(
-                mp, src, keys, batch, states, dst_states, edge_vars, edge_axis
+                mp, src, keys, batch, states, dst_states, edge_vars, edge_axis, node_axis
             )
             if any(op.output_name for op in src.ops):
                 s.messages  # publishes its named outputs in the JAX order
@@ -690,13 +759,15 @@ class GnnModel(nn.Module):
         return out
 
     def _per_edge_source(self, mp, src, keys, batch, states, dst_states, edge_vars,
-                         edge_axis=None):
+                         edge_axis=None, node_axis=None):
         """A chain over per-edge inputs. A network whose first layer is Dense
         over {hs_source, hs_dest, edge_params} runs that layer as per-part
         matmuls at node rate, and the parts meet per edge (split first);
         any other network concatenates its inputs per edge. Under a sum, a
         last network ending in a linear Dense layer stops before it: that
-        layer is `post`, applied after the sum (factor last)."""
+        layer is `post`, applied after the sum (factor last). Under
+        `node_axis` the split first layer's source part is multiplied on the
+        local block and its `units`-wide rows travel through the halo."""
         a = src.adj_name
         ops = src.ops
         last = len(ops) - 1
@@ -711,7 +782,7 @@ class GnnModel(nn.Module):
         edge_params = batch.get(f"params_{a}")
 
         def by_src(table):
-            return _gather_src(batch, a, table, edge_axis)
+            return _gather_src(batch, a, table, edge_axis, node_axis)
 
         def by_dst(table):
             return _gather_dst(batch, a, table, edge_axis)
@@ -983,7 +1054,7 @@ class GnnModel(nn.Module):
         )
 
     def _attention_aggregate(self, ap, mp, sources, dst_states, batch, meta, n_dst,
-                             edge_axis=None):
+                             edge_axis=None, node_axis=None):
         """GAT attention by the best lowering the batch and the messages
         allow, in the JAX package's order: in the `per_destination` mode
         over one message table, block-diagonal attention > dense attention
@@ -1008,9 +1079,11 @@ class GnnModel(nn.Module):
                     table, dst_states, batch[f"dense_inc_{a}"],
                     ap["kernel1"], ap["kernel2"], ap["attn_kernel"],
                 )
-        return self._attention(ap, mp, sources, dst_states, batch, meta, n_dst, edge_axis)
+        return self._attention(ap, mp, sources, dst_states, batch, meta, n_dst, edge_axis,
+                               node_axis)
 
-    def _attention(self, ap, mp, sources, dst_states, batch, meta, n_dst, edge_axis=None):
+    def _attention(self, ap, mp, sources, dst_states, batch, meta, n_dst, edge_axis=None,
+                   node_axis=None):
         """Per-edge GAT attention (the JAX `_attention`) over the sources'
         edges, concatenated when there are several. Scores decompose into a
         per-edge source scalar and a per-node destination scalar gathered
@@ -1048,7 +1121,8 @@ class GnnModel(nn.Module):
         scores = F.leaky_relu(s_src + s_dst, 0.2)
         if mp.aggregation.attention_softmax == "reference":
             weights = self._reference_weights(
-                scores, sources, dst_idx, mask, batch, meta, mp.destination, n_dst, edge_axis
+                scores, sources, dst_idx, mask, batch, meta, mp.destination, n_dst, edge_axis,
+                node_axis,
             )
         elif row_ptr is not None:
             return seg.sorted_softmax_aggregate(messages, scores, dst_idx, n_dst, mask, row_ptr)
@@ -1061,7 +1135,7 @@ class GnnModel(nn.Module):
 
     @staticmethod
     def _reference_weights(scores, sources, dst_idx, mask, batch, meta, dst, n_dst,
-                           edge_axis=None):
+                           edge_axis=None, node_axis=None):
         """The `reference` softmax (the reference's axis-0 softmax of its
         scattered [n_dst, max_len, 1] scores, per graph): the masked scores
         scattered into each destination's sequence slots (a source's slots
@@ -1070,7 +1144,9 @@ class GnnModel(nn.Module):
         and padding destinations excluded, and each edge's coefficient
         picked back. The per-graph max is detached: the softmax does not
         depend on it. Under `edge_axis` the scattered scores are all-reduced
-        (each rank's slots are its own edges')."""
+        (each rank's slots are its own edges'). Under `node_axis` a graph's
+        destinations may lie on several ranks: its max (detached) and its
+        denominator combine over the group."""
         lens = _lens(sources, batch, n_dst, edge_axis)
         seqs = []
         offset = torch.zeros(n_dst, dtype=torch.float32, device=scores.device)
@@ -1085,12 +1161,12 @@ class GnnModel(nn.Module):
         real = (batch[f"node_mask_{dst}"] > 0)[:, None]
         graph_id = batch[f"graph_id_{dst}"]
         ng = meta.num_graphs
-        gmax = seg.segment_max(
+        gmax = pmax(seg.segment_max(
             torch.where(real, scattered, torch.full_like(scattered, -1e30)).detach(),
             graph_id, ng,
-        )
+        ), node_axis)
         ex = torch.exp(scattered - gmax[graph_id]) * real
-        den = seg.segment_sum(ex, graph_id, ng)
+        den = psum(seg.segment_sum(ex, graph_id, ng), node_axis)
         coeff = ex / torch.where(den > 0, den, torch.ones_like(den))[graph_id]
         picked = coeff.reshape(n_dst * max_len)[dst_idx.to(torch.int64) * max_len + seq]
         return picked * mask
@@ -1134,7 +1210,8 @@ class GnnModel(nn.Module):
         normalized = total / torch.clamp_min(deg.to(torch.float32), 1.0)[:, None]
         return activation(agg.activation)(normalized)
 
-    def _readout(self, params, batch, meta, states, training, generator, edge_axis=None):
+    def _readout(self, params, batch, meta, states, training, generator, edge_axis=None,
+                 node_axis=None):
         """The readout pipeline (the JAX `_readout`). Intermediates live in
         `ro`, each tagged with its domain (`infer_readout_domains`), so that
         a graph-level tensor broadcasts onto entity rows where it meets one.
@@ -1185,7 +1262,7 @@ class GnnModel(nn.Module):
                     )
                 ro[op.output_name] = seg.graph_pool(
                     fetch(name), batch[f"graph_id_{dom[1]}"], meta.num_graphs,
-                    batch[f"node_mask_{dom[1]}"], op.pooling,
+                    batch[f"node_mask_{dom[1]}"], op.pooling, group=node_axis,
                 )
             elif op.kind == "product":
                 d1, d2 = domain_of(op.inputs[0]), domain_of(op.inputs[1])
@@ -1203,9 +1280,15 @@ class GnnModel(nn.Module):
                 # kernel A over real edges only (a padding edge's cotangent is
                 # zero under the masked loss), where the JAX package's plain
                 # indexing also sums the padding edges' zeros; under
-                # `edge_axis` plain indexing of this rank's edges, as there
+                # `edge_axis` plain indexing of this rank's edges, as there;
+                # under `node_axis` the final states go through one more halo
                 a = op.adj_name
-                ro[op.output_names[0]] = _gather_src(batch, a, fetch(op.inputs[0]), edge_axis)
+                if node_axis is not None:
+                    table = _halo_src_table(batch, a, fetch(op.inputs[0]), node_axis)
+                    ro[op.output_names[0]] = table[batch[f"src_{a}"]]
+                else:
+                    ro[op.output_names[0]] = _gather_src(batch, a, fetch(op.inputs[0]),
+                                                         edge_axis)
                 ro[op.output_names[1]] = _gather_dst(batch, a, fetch(op.inputs[1]), edge_axis)
         return result
 

@@ -26,6 +26,11 @@ edges by the branch it would take alone (sorted ids reach the id-keyed
 kernel), and the partial is all-reduced (`_collectives.psum`, which sums
 the cotangent in the backward). The builder never hands these functions
 row pointers under edge sharding: they describe the whole edge array.
+
+Destination sharding (v2, `parallel/edgeshard.py`): `halo_extend` and
+`halo_recv` trade the boundary rows of a node block with the ranks of the
+model axis (one `_collectives.all_to_all`), and `graph_pool(group=)`
+combines each rank's per-graph partials.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ._collectives import pmax, psum
+from ._collectives import all_to_all, all_to_all_start, pmax, psum
 from .cuda.attention_kernels import flash_gat_backward, flash_gat_forward
 from .cuda.segment_kernels import (
     sorted_segment_sum_csr,
@@ -280,10 +285,11 @@ def graph_pool(
     num_graphs: int,
     node_mask: torch.Tensor,  # [N]
     kind: str,
+    group=None,
 ) -> torch.Tensor:
     """Per-graph pooling (sum | mean | max) over node rows, the JAX
-    `graph_pool` without its sharded form. Rows are masked first, and the
-    masked product takes JAX's dtype (bf16 rows times the f32 mask: f32).
+    `graph_pool`. Rows are masked first, and the masked product takes JAX's
+    dtype (bf16 rows times the f32 mask: f32).
 
     `sum` and `mean` are one launch of the id-keyed kernel (mean carries the
     mask as one more column, whose sums are the real-row counts); the JAX
@@ -296,14 +302,24 @@ def graph_pool(
     never read. `max` is the library's `scatter_reduce` over rows filled
     with the dtype's lowest value where masked, its backward splitting the
     cotangent among tied rows as JAX's `segment_max` does; graphs that are
-    empty or all masked give 0."""
+    empty or all masked give 0.
+
+    group: the model axis of destination sharding (the JAX `axis_name`):
+    `x` holds this rank's block of rows, and the per-graph partials combine
+    over the group. Sum and mean all-reduce the sums (mean its sums and its
+    counts, so it stays exact). Max takes the detached largest over the
+    ranks, then adds a zero-valued residual that routes the cotangent to the
+    rows holding it: each rank's local maximum less its detached self,
+    weighted by the rank's share of the rows that tie with the global max,
+    and all-reduced (cross-rank ties split the cotangent as the serial
+    `segment_max` does)."""
     xm = x * node_mask[:, None]
     if kind in ("sum", "mean"):
         ids = _pool_ids(graph_ids, num_graphs, node_mask)
         if kind == "sum":
-            return sorted_segment_sum_ids(xm, ids, num_graphs).to(xm.dtype)
+            return psum(sorted_segment_sum_ids(xm, ids, num_graphs).to(xm.dtype), group)
         cols = torch.cat([xm, node_mask[:, None].to(xm.dtype)], dim=1)
-        sums = sorted_segment_sum_ids(cols, ids, num_graphs).to(xm.dtype)
+        sums = psum(sorted_segment_sum_ids(cols, ids, num_graphs).to(xm.dtype), group)
         return sums[:, :-1] / torch.clamp_min(sums[:, -1:], 1.0)
     if kind == "max":
         low = torch.finfo(x.dtype).min
@@ -312,9 +328,46 @@ def graph_pool(
         index = graph_ids.to(torch.int64)[:, None].expand_as(x)
         out = torch.full((num_graphs, x.shape[1]), low, dtype=x.dtype, device=x.device)
         m = out.scatter_reduce(0, index, xmasked, "amax", include_self=False)
-        count = segment_count(graph_ids, num_graphs, node_mask)
+        if group is not None:
+            g = pmax(m, group)
+            ties = (on & (xmasked >= g[graph_ids.to(torch.int64)])).to(torch.float32)
+            t_loc = segment_sum(ties, graph_ids.to(torch.int64), num_graphs)
+            w = t_loc / torch.clamp_min(psum(t_loc, group), 1.0)
+            residual = torch.where(m >= g, m - m.detach(), torch.zeros_like(m)) * w
+            m = g + psum(residual, group)
+        count = segment_count(graph_ids, num_graphs, node_mask, group=group)
         return torch.where(torch.isfinite(m) & (count[:, None] > 0), m, torch.zeros_like(m))
     raise ValueError(f"unknown pooling kind '{kind}'")
+
+
+def halo_extend(table: torch.Tensor, send_idx: torch.Tensor, group) -> torch.Tensor:
+    """The destination-sharded boundary exchange (the JAX `halo_extend`):
+    `table` is this rank's block [B, D] of a node table, `send_idx`
+    [n_ranks, H] the rows it sends to each rank of `group` (the host-built
+    `halo_send_*`; padding slots read row 0). The rows each peer needs are
+    gathered, traded with one `all_to_all`, and appended:
+    concat([table, halo]) [B + n_ranks * H, D], so that a remapped source
+    index reads a received row at B + owner * H + slot. In the backward the
+    cotangent of a received row goes back to its owner and is added into
+    its row (autograd's gather backward accumulates: a row sent to several
+    peers receives the sum of their cotangents)."""
+    return torch.cat([table, halo_recv(table, send_idx, group)], 0)
+
+
+def halo_recv(table: torch.Tensor, send_idx: torch.Tensor, group,
+              wait: bool = True):
+    """The halo rows alone [n_ranks * H, D] (the JAX `halo_recv`), for the
+    interior/boundary overlap of the builder's `_halo_gather`. With
+    wait=False the exchange is only issued: the caller gets the pending
+    exchange (`_collectives.all_to_all_start`) and reads its rows through
+    `_collectives.all_to_all_wait`, once the work that overlaps it has been
+    issued. The send gather is `index_select`, whose backward adds with
+    atomics: the padding slots all read row 0, and a sorted scatter-add
+    would walk them one at a time."""
+    send = torch.index_select(table, 0, send_idx.to(torch.int64).reshape(-1))  # [n_ranks * H, D]
+    if wait:
+        return all_to_all(send, group)
+    return all_to_all_start(send, group)
 
 
 def _dss_impl(src_states, src_idx, row_ptr, num_dst):

@@ -24,11 +24,12 @@ the trainer's own generator on its device (`Trainer.generator`), which
 `train` seeds from its `seed` (42, as the JAX package's `PRNGKey(42)`); a
 step without such a layer draws nothing. Evaluation, prediction and
 serving are deterministic.
-Over a mesh (`train(mesh=...)`, `parallel.make_mesh`) each step runs the
-data- and edge-parallel step of `parallel/steps.py` on every rank, and only
-the mesh's first rank writes checkpoints, TensorBoard, the profile and the
-log. Destination sharding (`model_strategy="dest_shard"`) and
-`locality_reorder=True` are not ported yet (ROADMAP item 6 v2).
+Over a mesh (`train(mesh=...)`, `parallel.make_mesh`) each step runs on
+every rank the data- and edge-parallel step of `parallel/steps.py` or, with
+`model_strategy="dest_shard"`, the destination-sharded step of
+`parallel/edgeshard.py` over locality-renumbered samples
+(`parallel/locality.py`), and only the mesh's first rank writes
+checkpoints, TensorBoard, the profile and the log.
 Checkpoints do not cross between the packages (orbax there, `torch.save`
 here).
 """
@@ -66,16 +67,9 @@ class TrainState:
     step: int
 
 
-def _unported_parallel(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ignnition_tpu_torch yet: destination "
-        f"sharding (edgeshard, locality) is ROADMAP item 6 v2"
-    )
-
-
-def check_mesh(mesh, model_strategy: str, locality_reorder) -> None:
-    """Raise for a mesh that is not the port's `parallel.Mesh` and for the
-    options of destination sharding, which is not ported."""
+def check_mesh(mesh, model_strategy: str) -> None:
+    """Raise for a mesh that is not the port's `parallel.Mesh` and for an
+    unknown model strategy."""
     from ..parallel import Mesh
 
     if mesh is not None and not isinstance(mesh, Mesh):
@@ -83,15 +77,11 @@ def check_mesh(mesh, model_strategy: str, locality_reorder) -> None:
             f"mesh must be ignnition_tpu_torch.parallel.Mesh (make_mesh, "
             f"distributed.make_pod_mesh), got {type(mesh).__name__}"
         )
-    if model_strategy == "dest_shard":
-        raise _unported_parallel("model_strategy='dest_shard'")
-    if model_strategy != "replicated":
+    if model_strategy not in ("replicated", "dest_shard"):
         raise ValueError(
             f"unknown model_strategy {model_strategy!r}: 'replicated' (edge "
-            f"sharding, v1) or 'dest_shard'"
+            f"sharding, v1) or 'dest_shard' (destination sharding, v2)"
         )
-    if locality_reorder is True:
-        raise _unported_parallel("locality_reorder=True")
 
 
 def _numpy(x) -> np.ndarray:
@@ -272,6 +262,7 @@ class Trainer:
         prefetch: int = 4,
         workers: int = 1,
         cache=False,
+        sample_transform: Optional[Callable] = None,
     ) -> Iterator[Tuple[Dict[str, Any], BatchMeta]]:
         """Stream (arrays, meta) merged batches of numpy arrays, built on
         background threads (the reference prefetches 10 batches through
@@ -290,7 +281,11 @@ class Trainer:
 
         cache="device" also moves every cached batch to the trainer's device
         once (`batch.to_device`), so steady-state steps copy nothing. The
-        dataset must fit in device memory beside the model."""
+        dataset must fit in device memory beside the model.
+
+        sample_transform: a GraphSample -> GraphSample function applied to
+        every sample before its batch is built (the locality renumbering of
+        destination sharding rides it)."""
         if cache:
             if not repeat:
                 raise ValueError("cache=True requires repeat=True")
@@ -298,6 +293,7 @@ class Trainer:
                 self.batches(
                     data_dir, batch_size, shuffle=shuffle, repeat=False,
                     training=training, seed=seed, prefetch=prefetch, workers=workers,
+                    sample_transform=sample_transform,
                 )
             )
             if cache == "device":
@@ -311,6 +307,8 @@ class Trainer:
         spec = SampleSpec.from_ir(self.ir, training=training)
 
         def make(group):
+            if sample_transform is not None:
+                group = [sample_transform(s) for s in group]
             return build_batch(
                 group, self.ir, self.padding, training=training,
                 normalizations=self.normalizations,
@@ -596,10 +594,23 @@ class Trainer:
         the mesh's first rank before the first step, and only that rank
         writes checkpoints, TensorBoard, the profile and the log; a resumed
         run reads `checkpoint_dir` on every rank.
-        model_strategy: "replicated" (v1: edges split over the model axis,
-        node tables replicated); "dest_shard" and locality_reorder=True
-        raise: destination sharding is ROADMAP item 6 v2."""
-        check_mesh(mesh, model_strategy, locality_reorder)
+        model_strategy: how the mesh's model axis is used: "replicated" (v1:
+        edges split over the model axis, node tables replicated,
+        aggregations all-reduced; `parallel/steps.py`) or "dest_shard" (v2:
+        each merged batch partitioned by destination over the model axis,
+        node state sharded, an all_to_all halo per gather;
+        `parallel/edgeshard.py`: communication scales with the edge cut,
+        memory and compute with the axis). Each step then takes
+        mesh.shape['data'] merged batches partitioned and stacked to
+        [n_data, n_model, ...] (`_destshard_batch_iter`). Without a mesh, or
+        with a model axis of 1, both train on the plain path.
+        locality_reorder: renumber each sample's nodes for the model axis
+        before the partition (`parallel/locality.py`: the cut, and with it
+        the halo, is a function of row order, and the renumbering is a
+        permutation under which losses and gradients are unchanged). "auto"
+        is on exactly under dest_shard with a model axis of 2 or more;
+        True and False apply only there too."""
+        check_mesh(mesh, model_strategy)
         writes = True
         if mesh is not None:
             import torch.distributed as dist
@@ -652,7 +663,18 @@ class Trainer:
             )
             cache_batches = True
         step_cache: Dict[BatchMeta, Callable] = {}
-        if mesh is not None:
+        dest_shard = (
+            mesh is not None and model_strategy == "dest_shard"
+            and mesh.shape.get("model", 1) > 1
+        )
+        if dest_shard:
+            reorder = True if locality_reorder == "auto" else bool(locality_reorder)
+            batch_iter = self._destshard_batch_iter(
+                data_dir, batch_size, mesh, shuffle, seed, cache=cache_batches,
+                sample_transform=(self._locality_transform(mesh.shape["model"], batch_size)
+                                  if reorder else None),
+            )
+        elif mesh is not None:
             batch_iter = self._sharded_batch_iter(
                 data_dir, batch_size, mesh, shuffle, seed, cache=cache_batches,
             )
@@ -695,9 +717,10 @@ class Trainer:
                     profiler = None
                 if mesh is not None:
                     if meta not in step_cache:
-                        from ..parallel import make_parallel_train_step
+                        from ..parallel import make_edgeshard_train_step, make_parallel_train_step
 
-                        step_cache[meta] = make_parallel_train_step(
+                        make = make_edgeshard_train_step if dest_shard else make_parallel_train_step
+                        step_cache[meta] = make(
                             self.model, self.optimizer, self.loss_fn, meta, mesh,
                             compute_dtype=self.compute_dtype, device=self.device,
                         )
@@ -763,6 +786,113 @@ class Trainer:
             if len(group) == n_data:
                 yield stack_batches(group, self.ir)
                 group = []
+
+    def _locality_transform(self, n_model: int, batch_size: int) -> Callable:
+        """The per-sample locality renumbering, with a memo keyed by content:
+        epochs yield the same samples as fresh objects, and the ordering is a
+        function of (adjacencies, node counts, n_model). For single-sample
+        batches each entity's padded size is passed on, so that the block
+        refinement splits where partition_batch's padded ceil-split will;
+        merged batches pass none (their block boundaries depend on the
+        merge, and mostly fall on graph boundaries)."""
+        import hashlib
+
+        from ..parallel.locality import locality_order, reorder_sample
+
+        memo: Dict[bytes, Dict[str, np.ndarray]] = {}
+
+        def key_of(s) -> bytes:
+            h = hashlib.blake2b(digest_size=16)
+            for name in sorted(s.adjacencies):
+                arrs = s.adjacencies[name]
+                h.update(name.encode())
+                h.update(np.ascontiguousarray(arrs.src_idx).tobytes())
+                h.update(np.ascontiguousarray(arrs.dst_idx).tobytes())
+            for ent in sorted(s.num_nodes):
+                h.update(f"{ent}={s.num_nodes[ent]};".encode())
+            return h.digest()
+
+        def transform(s):
+            k = key_of(s)
+            orders = memo.get(k)
+            if orders is None:
+                node_pad = None
+                if batch_size == 1:
+                    node_pad = {ent: self.padding.pad_size(n) for ent, n in s.num_nodes.items()}
+                orders = locality_order(s, self.ir, n_model=n_model, node_pad=node_pad)
+                if len(memo) < 4096:  # bounds the host memory on huge datasets
+                    memo[k] = orders
+            return reorder_sample(s, self.ir, orders=orders)[0]
+
+        return transform
+
+    def _destshard_batch_iter(self, data_dir, batch_size, mesh, shuffle, seed=None,
+                              cache=False, sample_transform=None):
+        """Destination sharding: group the mesh's data axis, partition each
+        merged batch over the model axis (`parallel.partition_batch`) and
+        stack to [n_data, n_model, ...]. The partition's shape-defining dims
+        (halo heights, local edge pads) only grow (`pad_to`), so that a
+        stream settles on one shape. Every rank reads the same stream,
+        shuffled by `seed`, and partitions the whole group, so that all hold
+        the same meta; the step takes each rank's own cell.
+
+        With cache=True a cached batch's partition is kept, keyed by the
+        batch object and the current pad_to, so that steady-state epochs
+        partition nothing. Only cached batches, which the cache keeps alive,
+        may key it: a transient dict (a re-padded copy) may be freed and its
+        id given to another dict."""
+        from ..data.graph import merge_metas, repad_to_meta
+        from ..parallel import partition_batch, partition_dims
+
+        n_model, n_data = mesh.shape["model"], mesh.shape["data"]
+        pad_to: Dict[str, Dict[str, int]] = {"halo": {}, "edges": {}}
+        memo: Dict[int, Tuple[Any, Tuple]] = {}
+
+        def pad_key():
+            return (tuple(sorted(pad_to["halo"].items())),
+                    tuple(sorted(pad_to["edges"].items())))
+
+        def partition_item(arrays, meta, memoize=True):
+            if cache and memoize:
+                hit = memo.get(id(arrays))
+                if hit is not None and hit[0] == pad_key():
+                    return hit[1]
+            part = partition_batch(arrays, meta, self.ir, n_model, pad_to=pad_to)
+            if cache and memoize:
+                memo[id(arrays)] = (pad_key(), part)
+            return part
+
+        group: list = []
+        for item in self.batches(
+            data_dir, batch_size, shuffle=shuffle, repeat=True, seed=seed, cache=cache,
+            sample_transform=sample_transform,
+        ):
+            group.append(item)
+            if len(group) < n_data:
+                continue
+            items, group = group, []
+            memoize = True
+            if len({m for _, m in items}) > 1:
+                # grow to a common meta first: these re-padded copies are
+                # transient and stay out of the memo
+                target = merge_metas([m for _, m in items], self.ir)
+                items = [(repad_to_meta(a, m, target, self.ir), target) for a, m in items]
+                memoize = False
+            while True:
+                parts = [partition_item(a, m, memoize) for a, m in items]
+                dims = [partition_dims(p[0]) for p in parts]
+                grown = False
+                for d in dims:
+                    for grp in ("halo", "edges"):
+                        for adj, v in d[grp].items():
+                            if v > pad_to[grp].get(adj, 0):
+                                pad_to[grp][adj] = v
+                                grown = True
+                if not grown or all(d == dims[0] for d in dims):
+                    break
+            if len({p[1] for p in parts}) != 1:
+                continue  # grew mid-group; the next group is partitioned alike
+            yield {k: np.stack([p[0][k] for p in parts], 0) for k in parts[0][0]}, parts[0][1]
 
     def _stacked_batch_iter(self, data_dir, batch_size, n_accum, shuffle, workers=1, cache=False):
         """Group `n_accum` merged batches per optimizer step, stacked on a

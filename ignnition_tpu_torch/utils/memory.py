@@ -155,9 +155,10 @@ def maybe_warn_capacity(model_ir, meta, batch_bytes=None, log=None) -> int:
     if m > 1 and log is not None:
         log.warning(
             "estimated training footprint %.1f GB exceeds the usable 65%% of "
-            "one card's memory (%.0f GB): a mesh with "
-            "model_strategy='dest_shard' over >=%d shards would split it "
-            "(not ported yet: ROADMAP item 6 v2); a smaller batch_size fits",
+            "one card's memory (%.0f GB): train over a mesh with "
+            "model_strategy='dest_shard' and a model axis of >=%d "
+            "(Trainer.train(mesh=..., model_strategy='dest_shard')) to split "
+            "it, or use a smaller batch_size",
             est["total_bytes"] / 1e9, DEFAULT_HBM_GB, m,
         )
     return m

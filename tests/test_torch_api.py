@@ -718,22 +718,36 @@ def test_profile_and_tensorboard(data, tmp_path, monkeypatch):
 
 
 def test_unported_options_raise_naming_their_roadmap_item(data):
+    """What the entry points still refuse: a mesh that is not the port's
+    `parallel.Mesh` (TypeError), an unknown model strategy (ValueError),
+    `node_axis` together with `edge_axis`. Destination sharding itself is
+    ported: `model_strategy="dest_shard"` and `locality_reorder=True`
+    without a mesh (so without a model axis) train on the plain path, as
+    the JAX trainer does, to the same parameters as a run without them."""
     (tmp := data / "model_unported.json").write_text(json.dumps(_desc()))
     model = igt.create_model(RunConfig(train_dataset=str(data / "train"), json_path=str(tmp)))
     _, _, tt, ts = _pair(_desc())
     train = str(data / "train")
-    # destination sharding (v2) still raises; a mesh must be the port's
-    for kw in (dict(model_strategy="dest_shard"), dict(locality_reorder=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6 v2"):
-            tt.train(ts, train, 1, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6 v2"):
-        igt.Runner(model, model_strategy="dest_shard", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6 v2"):
-        tt.model.apply(ts.params, {}, None, node_axis=object())
     for make in (lambda: tt.train(ts, train, 1, mesh=object()),
                  lambda: igt.Runner(model, mesh=object(), device="cpu")):
         with pytest.raises(TypeError, match=r"ignnition_tpu_torch\.parallel\.Mesh"):
             make()
+    for make in (lambda: tt.train(ts, train, 1, model_strategy="sharded"),
+                 lambda: igt.Runner(model, model_strategy="sharded", device="cpu")):
+        with pytest.raises(ValueError, match="unknown model_strategy 'sharded'"):
+            make()
+    with pytest.raises(ValueError, match="edge_axis and node_axis are mutually exclusive"):
+        tt.model.apply(ts.params, {}, None, edge_axis=object(), node_axis=object())
+    plain = tt.train(tt.init_state(), train, 2, batch_size=2, shuffle=False, log_every=0)
+    for kw in (dict(model_strategy="dest_shard"), dict(locality_reorder=True),
+               dict(model_strategy="dest_shard", locality_reorder=True)):
+        state = tt.train(tt.init_state(), train, 2, batch_size=2, shuffle=False,
+                         log_every=0, **kw)
+        assert state.step == 2
+        for k, v in flatten_params(plain.params).items():
+            torch.testing.assert_close(flatten_params(state.params)[k], v, rtol=0, atol=0)
+    assert igt.Runner(model, model_strategy="dest_shard", device="cpu").model_strategy == \
+        "dest_shard"
     # serving export and debug are ported: they ask for what they lack
     with pytest.raises(ValueError, match="the path of the model to export is unspecified"):
         igt.Runner(model, device="cpu").export_serving("out")

@@ -9,7 +9,8 @@ the rest and raises with every rank's output, and a world that outlives its
 time limit is killed as well, so that a hang fails one test. The workers
 import torch and the port only: no JAX and nothing of the JAX package
 (checked at their end). `tests/test_torch_parallel.py` holds the parallel
-steps to the JAX package with this worker; the tests here need no JAX:
+steps to the JAX package with this worker, `tests/test_torch_edgeshard.py`
+the destination-sharded ones (the `es_*` cases); the tests here need no JAX:
 `distributed.initialize`, `make_pod_mesh` and `host_shard_iter` in a
 two-process run, as `tests/test_distributed.py` runs the JAX functions.
 """
@@ -249,11 +250,119 @@ def case_distributed(case, mesh):
     return out
 
 
+def case_es_apply(case, mesh):
+    """The destination-sharded forward's stacked predictions."""
+    from ignnition_tpu_torch.parallel import make_edgeshard_apply
+
+    trainer, state = _trainer(case)
+    fn = make_edgeshard_apply(trainer.model, case["meta"], mesh, device="cpu")
+    return fn(state.params, case["stacked"]).numpy()
+
+
+def case_es_step(case, mesh):
+    """`steps` destination-sharded training steps: each step's loss, the
+    parameters after the last."""
+    from ignnition_tpu_torch.parallel import make_edgeshard_train_step
+
+    trainer, state = _trainer(case)
+    step = make_edgeshard_train_step(trainer.model, trainer.optimizer, trainer.loss_fn,
+                                     case["meta"], mesh, device="cpu")
+    stacked = case["stacked_by_rank"][mesh.coords] if "stacked_by_rank" in case else (
+        case["stacked"])
+    losses = []
+    for _ in range(case.get("steps", 1)):
+        _, _, loss = step(state.params, state.opt_state, stacked,
+                          generator=trainer.generator)
+        losses.append(float(loss))
+    return {"losses": losses, "params": _flat(state.params)}
+
+
+def case_es_step_raises(case, mesh):
+    """What a destination-sharded step raises on these inputs (None if
+    nothing)."""
+    return _raised(lambda: case_es_step(case, mesh))
+
+
+def case_es_train(case, mesh):
+    """`Trainer.train(mesh, model_strategy="dest_shard")` from the given
+    weights: the evaluation loss before and after, the parameters."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(_model(case), padding=igt.PaddingConfig(**case["padding"]),
+                      device="cpu")
+    state = trainer.init_state(params=case["params"])
+    data = case["data"]
+    before = trainer.evaluate(state, data, num_batches=2, batch_size=case["batch_size"])["loss"]
+    state = trainer.train(state, data, max_steps=case["steps"], batch_size=case["batch_size"],
+                          shuffle=False, log_every=0, mesh=mesh, model_strategy="dest_shard",
+                          locality_reorder=case.get("locality_reorder", "auto"),
+                          cache_batches=case.get("cache", False))
+    after = trainer.evaluate(state, data, num_batches=2, batch_size=case["batch_size"])["loss"]
+    return {"before": before, "after": after, "step": state.step,
+            "params": _flat(state.params)}
+
+
+def case_es_gather(case, mesh):
+    """The overlapped halo gather (`model.builder._halo_gather`) and the
+    synchronous `halo_extend(table)[src]` of this rank's local batch, on a
+    seeded table: both outputs on the real edges, and both gradients of the
+    table for a seeded cotangent."""
+    import torch
+
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.model.builder import _halo_gather
+    from ignnition_tpu_torch.ops import segment as seg
+
+    d, m = mesh.coords
+    batch = to_device({k: v[d, m] for k, v in case["stacked"].items()
+                       if not k.startswith("edge_origin_")}, "cpu")
+    out = {}
+    for a, rows in case["tables"].items():
+        gen = torch.Generator().manual_seed(100 * m + len(a))
+        table = torch.randn(rows, case["width"], generator=gen, dtype=torch.float64)
+        real = batch[f"edge_mask_{a}"] > 0
+        ct = torch.randn(int(real.shape[0]), case["width"], generator=gen, dtype=torch.float64)
+        got = []
+        for fn in (lambda t: _halo_gather(batch, a, t, mesh.model_group),
+                   lambda t: seg.halo_extend(t, batch[f"halo_send_{a}"],
+                                             mesh.model_group)[batch[f"src_{a}"]]):
+            t = table.clone().requires_grad_(True)
+            y = fn(t)
+            (g,) = torch.autograd.grad((y * real[:, None] * ct).sum(), t)
+            got.append((y[real].detach().numpy(), g.numpy()))
+        out[a] = got
+    return out
+
+
+def case_es_pool_tie(case, mesh):
+    """`graph_pool(..., "max", group)` over this rank's rows of a column with
+    a maximum tied across ranks: the pooled value and the gradient for this
+    rank's rows of its sum over 1/n_model (the steps' scale: the psum's
+    backward adds every rank's cotangent)."""
+    import torch
+
+    from ignnition_tpu_torch.ops import segment as seg
+
+    m = mesh.coords[1]
+    rows = len(case["x"]) // mesh.shape["model"]
+    sl = slice(m * rows, (m + 1) * rows)
+    x = torch.tensor(case["x"][sl], dtype=torch.float32).requires_grad_(True)
+    gid = torch.zeros(rows, dtype=torch.int64)
+    mask = torch.ones(rows, dtype=torch.float32)
+    y = seg.graph_pool(x, gid, 1, mask, "max", group=mesh.model_group)
+    (g,) = torch.autograd.grad(y.sum() / mesh.shape["model"], x)
+    return {"value": y.detach().numpy(), "grad": g.numpy()}
+
+
 CASES = {
     "apply": case_apply, "step": case_step, "step_raises": case_step_raises,
     "single_step": case_single_step, "serial_step": case_serial_step,
     "train": case_train, "runner": case_runner,
     "distributed": case_distributed,
+    "es_apply": case_es_apply, "es_step": case_es_step,
+    "es_step_raises": case_es_step_raises, "es_train": case_es_train,
+    "es_gather": case_es_gather, "es_pool_tie": case_es_pool_tie,
 }
 
 

@@ -73,6 +73,7 @@ def test_port_imports_with_jax_blocked():
         "import ignnition_tpu_torch.training.packing, ignnition_tpu_torch.parallel\n"
         "import ignnition_tpu_torch.parallel.mesh, ignnition_tpu_torch.parallel.distributed\n"
         "import ignnition_tpu_torch.parallel.steps, ignnition_tpu_torch.ops._collectives\n"
+        "import ignnition_tpu_torch.parallel.edgeshard, ignnition_tpu_torch.parallel.locality\n"
         "import ignnition_tpu_torch.utils.roofline, ignnition_tpu_torch.utils.memory\n"
         "import ignnition_tpu_torch.examples.routenet, ignnition_tpu_torch.examples.qsize\n"
         "import ignnition_tpu_torch.examples.graphprop, ignnition_tpu_torch.examples.linkpred\n"

@@ -302,7 +302,9 @@ def test_capacity_warning_fires_only_when_too_big(caplog):
     with caplog.at_level(logging.WARNING, logger="test_capacity"):
         assert t_memory.maybe_warn_capacity(ir, _meta(512), log=log) > 1
     (rec,) = caplog.records
-    assert "dest_shard" in rec.getMessage() and "ROADMAP item 6 v2" in rec.getMessage()
+    assert "model_strategy='dest_shard'" in rec.getMessage()
+    assert "Trainer.train(mesh=..., model_strategy='dest_shard')" in rec.getMessage()
+    assert "not ported" not in rec.getMessage()
 
 
 def test_trainer_warns_before_a_too_big_meta_once():
