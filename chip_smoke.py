@@ -213,7 +213,37 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      boundary fraction, `comm_bytes_per_step` v2 against v1, the
      all_to_all's share of a profiled step, the gathers' scatter-add
      backward on the device and each rank's peak memory against the
-     single-device step's printed.
+     single-device step's printed;
+ 14. the compiled steps (`training/capture.py`: each step captured into a
+     CUDA graph at its second call and replayed, the first running eagerly):
+     (a) 5 bf16 training steps over 5 batches of one meta, from one initial
+     state, eagerly (`capture.eager()`) and replayed, for the flagship, x4,
+     attention, Q-size, mlp_message, graphprop CSR, graphprop blocks (1,024
+     graphs) and linkpred: held step by step (the loss and every leaf
+     within 1e-6 of its largest entry, bitwise equality printed; the
+     wrappers' counters), then each way's step time, edge-messages per
+     second, device busy and idle share, host launches a step and the port's
+     kernels by name (the replayed step's held to the eager one's), the
+     capture's seconds, graph pool and static inputs against the eager
+     step's peak; (b) phase 11's in-process and artifact forwards, two
+     requests each, the replayed predictions against the eager ones (bf16
+     2^-8, f32 1e-6 of the largest), the port's kernels by name (held as in
+     (a)) and the forward and request times both ways; (c) phase 10 (a)'s random layers: successive
+     replays draw other masks, and the replayed trajectory from one
+     generator state against the eager one; (d) the accumulation step (3
+     microbatches) and the evaluation step in f32 against eager (1e-6), and
+     phase 9 (b)'s device-cached `train()` loop eager against replayed.
+
+Phases 3-13 call the public steps and forwards, which on the card replay
+their CUDA graphs from a key's second call on (the mesh steps of phases 12
+and 13 stay eager). A wrapper's launch counter counts the launches made
+from Python (eagerly or while a capture records), and only these are the
+`launches` of the kernels line. A replay runs no wrapper: each hold of a
+call's launches reads, for a replay, the counters over its capture
+(`Counts.held`), and phase 14 holds each replayed step's and forward's
+kernels, counted by name by the profiler, to the eager call's; the other
+holds that name the profiler count device kernels by name too. The plain
+path on the card (`plain_on_card`) runs eagerly.
 
 The line before the last is one JSON object describing the kernels; the
 last line is `{"ok": true, "device": {...}}`. Needs one CUDA device and
@@ -701,13 +731,16 @@ def build_batch_ms(what: str, build, card: str, runs: int = 5, numpy_runs: int =
     return dict(build_batch_ms=native_ms, build_batch_numpy_ms=numpy_ms)
 
 
-def device_time_by_kernel(fn, runs: int = 5) -> tuple:
-    """({kernel name: device ms per call of `fn`}, kernels launched per call)
-    from torch.profiler's CUDA activity over `runs` calls. The profiler has
-    missed the first kernels of a profile now and then, and once a whole
-    profile: a short sleep kernel opens each profile (not counted), and a
-    profile without any device activity is taken again, up to 6 times a
-    second apart."""
+def profiled_events(fn, runs: int = 5, want: tuple = ()) -> list:
+    """torch.profiler's events (host and device) over `runs` calls of `fn`,
+    after one untimed call. The profiler has missed the first kernels of a
+    profile now and then, once a whole profile, and once every launch of one
+    kernel of five calls (kernel C's sweep, beside its other two kernels): a
+    short sleep kernel opens each profile, and a profile without any device
+    activity, or with fewer than `runs` device records of a kernel whose name
+    holds a part in `want` (each launched once a call), is taken again, up to
+    6 times a second apart. The last profile is returned either way: the
+    caller's hold says what is missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -722,14 +755,29 @@ def device_time_by_kernel(fn, runs: int = 5) -> tuple:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        per_name, count = {}, 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
-                per_name[e.name] = (per_name.get(e.name, 0.0)
-                                    + e.time_range.elapsed_us() / 1e3 / runs)
-                count += 1
-        if count:
+        events = list(prof.events())
+        device = [e.name for e in events
+                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+        if device and all(sum(part in n for n in device) >= runs for part in want):
             break
+        if attempt < 5:
+            print(f"    torch.profiler lost device records ({len(device)} seen over {runs} "
+                  f"calls; expected at least {runs} of each of {list(want)}): profiled again")
+    return events
+
+
+def device_time_by_kernel(fn, runs: int = 5, want: tuple = ()) -> tuple:
+    """({kernel name: device ms per call of `fn`}, kernels launched per call)
+    from torch.profiler's CUDA activity over `runs` calls (`profiled_events`,
+    which profiles again while a kernel named by a part in `want` is short of
+    a record; the sleep kernel not counted)."""
+    from torch.autograd import DeviceType
+
+    per_name, count = {}, 0
+    for e in profiled_events(fn, runs, want):
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / runs
+            count += 1
     return per_name, count / runs
 
 
@@ -973,7 +1021,9 @@ def check_segment_sum_windows(dev, rng, n_paths: int, path_len: int, n_src: int,
     the data layer's windowed slice sort (`comp`, a batch's own
     `slice_sort_row_ptr` and `slice_sort_perm`, else that of random slices),
     summed into n_src rows in one launch; against the plain windowed version
-    and the loop of one launch per window that it replaces."""
+    and the loop of one launch per window that it replaces; timed beside
+    `index_add_` over the whole ids (each row's source, whatever its window),
+    as the id-keyed rows are measured."""
     from ignnition_tpu_torch.data.graph import slice_sort_companions
     from ignnition_tpu_torch.ops import segment as seg
     from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
@@ -989,6 +1039,11 @@ def check_segment_sum_windows(dev, rng, n_paths: int, path_len: int, n_src: int,
     whole = seg._whole_sort_perm(local, windows)
     if seg._whole_sort_perm(local, windows) is not whole:
         raise AssertionError("the whole permutation is not kept on its tensor")
+    # the library's yardstick: every summed row keyed by its source
+    rp_np = comp["slice_sort_row_ptr"].astype(np.int64)
+    lo, hi = int(rp_np[0]), int(rp_np[-1])
+    lib_ids = torch.from_numpy(np.repeat(np.arange(windows * n_src) % n_src,
+                                         np.diff(rp_np))).to(dev)
 
     def per_window_loop(flat):
         total = None
@@ -1026,16 +1081,22 @@ def check_segment_sum_windows(dev, rng, n_paths: int, path_len: int, n_src: int,
             lambda: sk.sorted_segment_sum_csr_windows(flat[whole], rp, n_src))
         plain_ms = cuda_ms(lambda: sk.sorted_segment_sum_csr_windows_plain(data, rp, n_src),
                            iters=5)
+        index_add = lambda x, i: torch.zeros(  # noqa: E731
+            (n_src, d), dtype=dtype, device=dev).index_add_(0, i, x)
+        yardstick_diff(f"library index_add_ {str(dtype)[6:]} over the whole ids (sums in the "
+                       f"data's type)", index_add(data[lo:hi], lib_ids), got)
+        t_lib = device_times(index_add, rotations((data[lo:hi], lib_ids)), guarded=True,
+                             what="index_add_")
         n_bytes = n_slots * d * data.element_size() + rp.shape[0] * 4 + n_src * d * 4
         bound_ms, bound_by = bound(n_bytes, n_slots * d, torch.float32)
         print(f"    time: kernel {fmt_times(t)}, with its gather {both_ms:.4f} ms; the loop of "
               f"{windows} gathers, launches and adds it replaces {loop_ms:.4f} ms; plain "
-              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}; no single library "
-              f"call computes it")
+              f"{plain_ms:.4f} ms; index_add_ over the whole ids {fmt_times(t_lib)}; bound "
+              f"{bound_ms:.4f} ms by {bound_by}")
         out[dtype] = dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None, library_graph_ms=None,
-                          library_cold_ms=None, with_gather_ms=both_ms,
-                          per_window_loop_ms=loop_ms)
+                          bound_by=bound_by, library_ms=t_lib["ms"],
+                          library_graph_ms=t_lib["graph_ms"], library_cold_ms=t_lib["cold_ms"],
+                          with_gather_ms=both_ms, per_window_loop_ms=loop_ms)
     return out
 
 
@@ -1047,7 +1108,8 @@ def check_ids_call_is_one_launch(dev, rng) -> None:
     e, n, d = 131_072, FLAGSHIP["n_links"], 48
     ids = torch.from_numpy(np.sort(rng.integers(0, n, size=e)).astype(np.int32)).to(dev)
     data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(dev)
-    per_kernel, launches = device_time_by_kernel(lambda: sk.sorted_segment_sum_ids(data, ids, n))
+    per_kernel, launches = device_time_by_kernel(lambda: sk.sorted_segment_sum_ids(data, ids, n),
+                                                 want=("segment_sum_kernel",))
     if not per_kernel:
         print("[kernels] id-keyed call: the profiler saw no device activity; device "
               "launches per call not measured")
@@ -1124,7 +1186,8 @@ def _c_ptxas() -> str:
 def _b_ran(rk, args) -> str:
     """The instance of kernel B that served one call on `args`: the name of
     the kernel that torch.profiler saw run, in `forward_instance`'s terms."""
-    per_kernel, _ = device_time_by_kernel(lambda: rk.masked_gru_scan(*args), runs=1)
+    per_kernel, _ = device_time_by_kernel(lambda: rk.masked_gru_scan(*args), runs=1,
+                                          want=("masked_gru_scan",))
     ran = {rk.profiled_instance(k) for k in per_kernel if "masked_gru_scan" in k}
     if len(ran) != 1:
         raise AssertionError(f"the profiler saw kernel B instances {sorted(ran)} in one call "
@@ -1552,7 +1615,8 @@ def _c_ran(rk, args) -> tuple:
     """(the sweep instance of kernel C that served a call on `args`, in
     `backward_instance`'s terms, as torch.profiler named the kernel; device
     ms a call of the sweep, weight-gradient and finalize kernels, 5 calls)."""
-    per_kernel, _ = device_time_by_kernel(lambda: rk._launch_backward(*args))
+    per_kernel, _ = device_time_by_kernel(lambda: rk._launch_backward(*args),
+                                          want=tuple(key for _, key in C_PARTS))
     ran = {rk.profiled_backward_instance(k) for k in per_kernel if "gru_bwd_sweep" in k}
     if len(ran) != 1:
         raise AssertionError(f"the profiler saw kernel C sweeps {sorted(ran)} in one call "
@@ -1915,8 +1979,6 @@ def serve(dev, card: str) -> dict:
     import ignnition_tpu_torch as igt
     from ignnition_tpu_torch.batch import to_device
     from ignnition_tpu_torch.data.graph import merge_metas
-    from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
-    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
 
     ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
     params = igt.build(ir).init(torch.Generator().manual_seed(SEED))
@@ -1942,13 +2004,19 @@ def serve(dev, card: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s (host)")
 
     # ---- the main path: answer every request, counting kernel launches ----
-    sk.launch_count = 0
-    rk.launch_count = 0
+    # (the first request of a size runs eagerly, the second captures the
+    # forward, the third replays it: each request's hold reads `held()`, the
+    # counters over the capture for a replay; the main path's counts are the
+    # wrappers', `read()`)
+    counts = Counts()
+    counts.reset()
     answers = []
     for name, sample in requests:
-        a0, b0 = sk.launch_count, rk.launch_count
+        before = counts.held()
         preds = servers[name].predict_samples([sample])
-        da, db = sk.launch_count - a0, rk.launch_count - b0
+        now = counts.held()
+        da = now["csr_segment_sum"] - before["csr_segment_sum"]
+        db = now["masked_gru_scan"] - before["masked_gru_scan"]
         n_paths = sample.num_nodes["path"]
         if preds.shape != (n_paths,) or not np.all(np.isfinite(preds)):
             raise AssertionError(
@@ -1962,7 +2030,9 @@ def serve(dev, card: str) -> dict:
                 f"{name}: expected kernel A +{want_a} and kernel B +{ITERATIONS} "
                 f"launches per forward, got +{da} and +{db}")
         answers.append(preds)
-    launches = {"csr_segment_sum": sk.launch_count, "masked_gru_scan": rk.launch_count}
+    now = counts.read()
+    launches = {"csr_segment_sum": now["csr_segment_sum"],
+                "masked_gru_scan": now["masked_gru_scan"]}
     print(f"[serve] main path launch counts: kernel A {launches['csr_segment_sum']}, "
           f"kernel B {launches['masked_gru_scan']}")
     if min(launches.values()) == 0:
@@ -2037,11 +2107,14 @@ def step0_gradients_vs_plain(name, ir, padding, arrays, meta, state, batch, nois
     return init_tree, cpu_state, want
 
 
-def time_training_step(name, step, state, batch, arrays, card, edge_messages=None) -> dict:
+def time_training_step(name, step, state, batch, arrays, card, edge_messages=None,
+                       input_copies: int = 0) -> dict:
     """Median of 20 steps after 3 (CUDA events), edge-messages per second,
     peak device memory and the profile of one step by kernel.
     `edge_messages`: a step's messages, by default `ITERATIONS` times the
-    real edges of every adjacency (each read by one pass)."""
+    real edges of every adjacency (each read by one pass). `input_copies`:
+    the copies into its graph's static buffers that a replayed step begins
+    with (`CapturedStep.input_copies`), which an eager step does not make."""
     times = []
     for i in range(3 + 20):
         start = torch.cuda.Event(enable_timing=True)
@@ -2068,9 +2141,13 @@ def time_training_step(name, step, state, batch, arrays, card, edge_messages=Non
     out.update(print_profile(f"{name} training step", lambda: step(state, batch), step_ms))
     earlier = EARLIER_LAUNCHES_PER_STEP.get(name)
     if earlier and "kernels_per_call" in out:
-        print(f"    {out['kernels_per_call']:.0f} launches per step; {earlier} with one "
-              f"kernel-A launch per slice-sort window")
-        if name == "flagship_x4" and not out["kernels_per_call"] < earlier:
+        # the earlier count is an eager step's device activities: the
+        # replay's copies of its inputs into the graph's buffers are left out
+        kernels = out["kernels_per_call"] - input_copies
+        print(f"    {out['kernels_per_call']:.0f} device activities per step, "
+              f"{kernels:.0f} of them the step's own (less {input_copies} input copies of "
+              f"the replay); {earlier} with one kernel-A launch per slice-sort window")
+        if name == "flagship_x4" and not kernels < earlier:
             raise AssertionError(f"{name}: the step's launches did not fall below {earlier}")
     return out
 
@@ -2122,8 +2199,6 @@ def train(dev, card: str) -> dict:
     import ignnition_tpu_torch as igt
     from ignnition_tpu_torch.batch import to_device
     from ignnition_tpu_torch.model.builder import flatten_params, map_params
-    from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
-    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
     from ignnition_tpu_torch.training.metrics import MetricAccumulator
 
     ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
@@ -2175,12 +2250,16 @@ def train(dev, card: str) -> dict:
         # stage 2's forward and, without the slice map, its backward
         want_a = (ITERATIONS - 1) + (0 if dense else ITERATIONS * (1 if sliced else 2))
         want_w = ITERATIONS - 1 if windows > 1 else 0
-        sk.launch_count = sk.windows_launch_count = 0
-        rk.launch_count = rk.bwd_launch_count = 0
+        # steps 0 and 1 run eagerly and capture; from step 2 on each step's
+        # hold reads `held()`, the counters over the capture; the main path's
+        # counts are the wrappers', `read()`
+        counts = Counts()
+        counts.reset()
         metrics, snapshots = [], []
         for i in range(TRAIN_STEPS[name]):
-            counters = lambda: (sk.launch_count, sk.windows_launch_count, rk.launch_count,
-                                rk.bwd_launch_count)
+            counters = lambda: tuple(counts.held()[k] for k in (
+                "csr_segment_sum", "csr_segment_sum_windows", "masked_gru_scan",
+                "masked_gru_scan_bwd"))
             if name == "flagship":
                 snapshots.append(map_params(lambda v: v.detach().cpu().clone(), state.params))
             before = counters()
@@ -2192,10 +2271,9 @@ def train(dev, card: str) -> dict:
                     f"windowed), B +{ITERATIONS}, C +{ITERATIONS} launches, got {got}")
             metrics.append(m)
         torch.cuda.synchronize()
-        launches["csr_segment_sum"] += sk.launch_count
-        launches["csr_segment_sum_windows"] += sk.windows_launch_count
-        launches["masked_gru_scan"] += rk.launch_count
-        launches["masked_gru_scan_bwd"] += rk.bwd_launch_count
+        for k, v in counts.read().items():
+            if k in launches:
+                launches[k] += v
         totals = [float(m["total"]) for m in metrics]
         losses = [float(m["loss"]) for m in metrics]
         print(f"  {name}: {len(totals)} steps, loss+reg " + " ".join(f"{t:.5f}" for t in totals)
@@ -2235,7 +2313,8 @@ def train(dev, card: str) -> dict:
 
         # ---- step time ----
         result[name] = dict(losses=totals, **time_training_step(
-            name, step, state, batch, arrays, card))
+            name, step, state, batch, arrays, card,
+            input_copies=trainer.graphs.captured[("train", meta, None)].input_copies))
     print(f"[train] main path launch counts: kernel A {launches['csr_segment_sum']} "
           f"({launches['csr_segment_sum_windows']} windowed), "
           f"kernel B {launches['masked_gru_scan']}, kernel C {launches['masked_gru_scan_bwd']}")
@@ -2250,37 +2329,73 @@ def train(dev, card: str) -> dict:
 
 
 class Counts:
-    """Launch counts of every kernel wrapper: `reset()` sets them to 0,
-    `read()` returns them by kernel name."""
+    """Launch counts of every kernel by name. `reset()` sets them to 0 and
+    `read()` returns the wrappers' counters: the launches made from Python
+    since the reset (eager calls, and the launches a capture recorded).
+    These are what each phase adds up for the `kernels` line. A replay of a
+    captured step runs no wrapper, so `read()` does not see it: `replays`
+    lists, for each replay since the reset, the counters read over its
+    capture (`CapturedStep.recorded`; a graph launches what it recorded),
+    and `held()` is `read()` plus those, one call's launches whether it ran
+    eagerly, captured or replayed. The holds of a call's launches
+    (`expect_counts(what, counts, ...)`) read `held()` unless they say they
+    read the profiler; phase 14 holds each replay's kernels, counted by name
+    in a profile of the device, to the eager call's."""
+
+    active = None  # the instance whose `replays` a replay is logged in
 
     def __init__(self):
         from ignnition_tpu_torch.ops.cuda import attention_kernels as ak
         from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
         from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+        from ignnition_tpu_torch.training import capture
 
         self.ak, self.rk, self.sk = ak, rk, sk
+        self.replays = []
+        call = capture.CapturedStep.__call__
+        if not getattr(call, "logs_replays", False):
+            def logged(step, bound, inputs):
+                out = call(step, bound, inputs)
+                if step.last == "replay" and Counts.active is not None:
+                    Counts.active.replays.append(dict(step.recorded))
+                return out
+
+            logged.logs_replays = True
+            capture.CapturedStep.__call__ = logged
 
     def reset(self) -> None:
         self.sk.launch_count = self.sk.windows_launch_count = self.sk.ids_launch_count = 0
         self.rk.launch_count = self.rk.bwd_launch_count = 0
         self.ak.fwd_launch_count = self.ak.bwd_launch_count = 0
+        self.replays = []
+        Counts.active = self
 
     def read(self) -> dict:
-        return {
-            "csr_segment_sum": self.sk.launch_count,
-            "csr_segment_sum_windows": self.sk.windows_launch_count,
-            "segment_sum_ids": self.sk.ids_launch_count,
-            "masked_gru_scan": self.rk.launch_count,
-            "masked_gru_scan_bwd": self.rk.bwd_launch_count,
-            "flash_gat_fwd": self.ak.fwd_launch_count,
-            "flash_gat_bwd": self.ak.bwd_launch_count,
-        }
+        from ignnition_tpu_torch.ops.cuda import launch_counts
+
+        return launch_counts()
+
+    def held(self) -> dict:
+        got = self.read()
+        for recorded in self.replays:
+            for k, v in recorded.items():
+                got[k] += v
+        return got
 
 
-def expect_counts(what: str, got: dict, **want) -> None:
-    """Raise unless the launch counts `got` are `want` (0 where not named)."""
+def expect_counts(what: str, got, **want) -> None:
+    """Raise unless the launch counts `got` are `want` (0 where not named):
+    a dict, or a `Counts`, whose `held()` is read (the counters over the
+    capture for each replay)."""
+    note = ""
+    if isinstance(got, Counts):
+        if got.replays:
+            python = ", ".join(f"{k} {v}" for k, v in got.read().items() if v) or "none"
+            note = (f" ({len(got.replays)} replayed call(s) read over their capture; "
+                    f"launched from Python: {python})")
+        got = got.held()
     wrong = {k: (v, want.get(k, 0)) for k, v in got.items() if v != want.get(k, 0)}
-    print(f"  {what}: launches " + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+    print(f"  {what}: launches " + ", ".join(f"{k} {v}" for k, v in got.items() if v) + note)
     if wrong:
         raise AssertionError(f"{what}: launch counts (got, expected) {wrong}")
 
@@ -2359,7 +2474,7 @@ def attention(dev, card: str) -> dict:
         if preds.shape != (FLAGSHIP["n_paths"],) or not np.all(np.isfinite(preds)):
             raise AssertionError(f"attention request {i}: {preds.shape} or non-finite")
         expect_counts(f"attention request {i} ({preds.shape[0]} predictions, mean "
-                      f"{preds.mean():.5f})", got,
+                      f"{preds.mean():.5f})", counts,
                       masked_gru_scan=ITERATIONS, flash_gat_fwd=ITERATIONS)
     kernels_vs_plain_forward("attention flagship", server, ir, params, samples[0], dev,
                              (None, torch.bfloat16))
@@ -2403,7 +2518,7 @@ def attention(dev, card: str) -> dict:
         # whose link states need no gradient. Kernel E: but for the last
         # iteration, whose link states the readout (over paths) never reads,
         # so autograd has nothing to send back through that attention.
-        expect_counts(f"attention training step {i}", got,
+        expect_counts(f"attention training step {i}", counts,
                       csr_segment_sum=ITERATIONS - 1, masked_gru_scan=ITERATIONS,
                       masked_gru_scan_bwd=ITERATIONS, flash_gat_fwd=ITERATIONS,
                       flash_gat_bwd=ITERATIONS - 1)
@@ -2432,7 +2547,7 @@ def attention(dev, card: str) -> dict:
     add(got)
     if preds.shape != (FLAGSHIP_X4["n_paths"],) or not np.all(np.isfinite(preds)):
         raise AssertionError(f"attention x4: {preds.shape} or non-finite")
-    expect_counts(f"attention x4 request ({preds.shape[0]} predictions)", got,
+    expect_counts(f"attention x4 request ({preds.shape[0]} predictions)", counts,
                   csr_segment_sum=2 * ITERATIONS, masked_gru_scan=ITERATIONS)
     kernels_vs_plain_forward("attention x4 (per-edge)", server, ir, params, sample, dev,
                              (None,))
@@ -2460,7 +2575,7 @@ def attention(dev, card: str) -> dict:
         raise AssertionError(f"attention hs=48: {preds.shape} or non-finite")
     # per iteration: the numerator (width 48) through the id-keyed kernel, the
     # denominator (width 8) through kernel A
-    expect_counts(f"attention hs=48 request ({preds.shape[0]} predictions)", got,
+    expect_counts(f"attention hs=48 request ({preds.shape[0]} predictions)", counts,
                   csr_segment_sum=ITERATIONS, segment_sum_ids=ITERATIONS,
                   masked_gru_scan=ITERATIONS)
     kernels_vs_plain_forward("attention hs=48 (per-edge)", server, ir48, params48, sample,
@@ -2523,7 +2638,7 @@ def qsize(dev, card: str) -> dict:
         # kernel B: stage 1's path update, once per iteration; stage 2 is two
         # incidence products (library matmuls)
         expect_counts(f"qsize request {i} ({preds.shape[0]} predictions, mean "
-                      f"{preds.mean():.5f})", got, masked_gru_scan=ITERATIONS)
+                      f"{preds.mean():.5f})", counts, masked_gru_scan=ITERATIONS)
     kernels_vs_plain_forward("qsize", server, ir, params, samples[0], dev,
                              (None, torch.bfloat16))
     inputs = to_device({k: v for k, v in arrays.items()
@@ -2568,7 +2683,7 @@ def qsize(dev, card: str) -> dict:
         # kernel A: the interleave gather's backward over `ilv_sort_*` (its
         # windows in one launch), but for the first iteration, whose link and
         # node states come from the features alone and need no gradient
-        expect_counts(f"qsize training step {i} ({windows} slice-sort windows)", got,
+        expect_counts(f"qsize training step {i} ({windows} slice-sort windows)", counts,
                       csr_segment_sum=ITERATIONS - 1,
                       csr_segment_sum_windows=ITERATIONS - 1 if windows > 1 else 0,
                       masked_gru_scan=ITERATIONS, masked_gru_scan_bwd=ITERATIONS)
@@ -2793,7 +2908,7 @@ def mlp_message(dev, card: str) -> dict:
             raise AssertionError(f"mlp_message request {i}: {preds.shape} or non-finite")
         # kernel B once per iteration: the step loop would launch none
         expect_counts(f"mlp_message request {i} ({preds.shape[0]} predictions, mean "
-                      f"{preds.mean():.5f})", got, masked_gru_scan=ITERATIONS)
+                      f"{preds.mean():.5f})", counts, masked_gru_scan=ITERATIONS)
     arrays = server.build_batch([samples[0]])
     inputs = to_device({k: v for k, v in arrays.items()
                         if k not in ("label", "label_mask")}, dev)
@@ -2850,7 +2965,7 @@ def mlp_message(dev, card: str) -> dict:
         state, m = step(state, batch)
         got = counts.read()
         add(got)
-        expect_counts(f"mlp_message training step {i}", got, csr_segment_sum=want_a,
+        expect_counts(f"mlp_message training step {i}", counts, csr_segment_sum=want_a,
                       csr_segment_sum_windows=want_w, masked_gru_scan=ITERATIONS,
                       masked_gru_scan_bwd=ITERATIONS)
         metrics.append({k: float(v) for k, v in m.items()})
@@ -3051,7 +3166,7 @@ def serve_and_time(name, server, samples, inputs, card, counts, add, per_request
             raise AssertionError(f"{name} request {i}: predictions {preds.shape} (want "
                                  f"({want_rows},)) or non-finite")
         expect_counts(f"{name} request {i} ({want_rows} predictions, mean {preds.mean():.5f})",
-                      got, **want_counts)
+                      counts, **want_counts)
     fwd = forward_ms(server, inputs)
     e2e = []
     for i in range(4):
@@ -3139,7 +3254,7 @@ def train_and_time(name, ir, padding, arrays, meta, card, counts, add, steps, wa
         state, m = step(state, batch)
         got = counts.read()
         add(got)
-        expect_counts(f"{name} training step {i}", got, **want_counts)
+        expect_counts(f"{name} training step {i}", counts, **want_counts)
         totals.append(float(m["total"]))
     print(f"  {name} training: loss+reg " + " ".join(f"{t:.5f}" for t in totals))
     if not all(np.isfinite(totals)):
@@ -3209,7 +3324,7 @@ def homogeneous(dev, card: str) -> dict:
 
     rng, check_rng = np.random.default_rng(SEED + 4), np.random.default_rng(SEED + 6)
     padding = igt.PaddingConfig()
-    result, checked, served = {}, {}, {}
+    result, checked, served, samples = {}, {}, {}, {}
     cases = (("graphprop CSR", "graphprop", False), ("graphprop blocks", "graphprop", True),
              ("linkpred", "linkpred", False))
     for name, kind, equal in cases:
@@ -3254,6 +3369,7 @@ def homogeneous(dev, card: str) -> dict:
         result[name]["bf16_forward"] = homogeneous_vs_plain_forward(
             name, server, ir, params, requests[0], dev)
         served[name] = (ir, params, meta, requests[0])  # phase 11's artifacts
+        samples[name] = (ir, requests)  # phase 14's batches and second requests
 
         t0 = time.perf_counter()
         t_arrays, t_meta = igt.build_batch(requests[0], ir, padding, training=True)
@@ -3270,7 +3386,8 @@ def homogeneous(dev, card: str) -> dict:
             edge_messages=ir.num_iterations * passes * edges)
     print("[homogeneous] main path launch counts: "
           + ", ".join(f"{k} {v}" for k, v in total.items()))
-    return dict(launches=total, kernels_at_batch_shapes=checked, served=served, **result)
+    return dict(launches=total, kernels_at_batch_shapes=checked, served=served,
+                samples=samples, **result)
 
 
 def check_kernels_at_x8(dev, rng, arrays, meta) -> dict:
@@ -3634,7 +3751,7 @@ def api_verbs(dev, root: str, train_dir: str, eval_dir: str, counts, add) -> dic
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t1
         got = counts.read()
-        expect_counts(f"{what} ({seconds:.1f} s)", got, **want)
+        expect_counts(f"{what} ({seconds:.1f} s)", counts, **want)
         add(got)
         out[what] = dict(seconds=seconds, launches={k: v for k, v in got.items() if v})
         return result
@@ -3754,6 +3871,7 @@ def pipeline_costs(ir, train_dir: str, card: str, edges_per_graph: float,
     import ignnition_tpu_torch as igt
     from ignnition_tpu_torch.data import SampleSpec, iter_samples
     from ignnition_tpu_torch.model.builder import flatten_params
+    from ignnition_tpu_torch.training import capture
 
     samples = []
     for s in iter_samples(train_dir, SampleSpec.from_ir(ir)):
@@ -3768,6 +3886,7 @@ def pipeline_costs(ir, train_dir: str, card: str, edges_per_graph: float,
     ends = {}
     for name, kw in (("default stream", {}), ("input_workers 4", dict(input_workers=4)),
                      ('cache_batches "device"', dict(cache_batches="device")),
+                     ('cache_batches "device", eager', dict(cache_batches="device")),
                      ("device_prefetch 2, pack_transfer", dict(device_prefetch=2,
                                                                pack_transfer=True))):
         trainer = igt.Trainer(igt.build(ir), compute_dtype=torch.bfloat16)
@@ -3794,19 +3913,34 @@ def pipeline_costs(ir, train_dir: str, card: str, edges_per_graph: float,
             stamps.append(time.perf_counter())
             return {}
 
-        state = quiet_train(trainer, trainer.init_state(torch.Generator().manual_seed(SEED)),
-                            train_dir, API_TIMED_STEPS, batch_size=API_BATCH, shuffle=False,
-                            log_every=0, eval_fn=stamp, eval_secs=0, **kw)
+        # the loop's steps replay their CUDA graphs; the ", eager" run steps
+        # op by op (phase 14 (d) sets the two side by side)
+        with capture.eager() if name.endswith("eager") else contextlib.nullcontext():
+            state = quiet_train(
+                trainer, trainer.init_state(torch.Generator().manual_seed(SEED)), train_dir,
+                API_TIMED_STEPS, batch_size=API_BATCH, shuffle=False, log_every=0,
+                eval_fn=stamp, eval_secs=0, **kw)
         ends[name] = flatten_params(state.params)
         ms = float(np.median(np.diff(stamps[9:]))) * 1e3
         mean = (stamps[-1] - stamps[9]) / (len(stamps) - 10) * 1e3
+        # the batch shapes the stream produced: one training-step key each,
+        # captured at its second call, all reading the trainer's one set of
+        # static input buffers
+        keys = [c for k, c in trainer.graphs.captured.items() if k[0] == "train"]
+        captured = sum(c.last in ("capture", "replay") for c in keys)
+        static_mib = trainer.graphs.static_bytes() / 2**20
         print(f"[api] (b) {name}: step interval median {ms:.2f} ms, mean {mean:.2f} ms (steps "
               f"10-{API_TIMED_STEPS}, host clock, bf16), {messages / mean / 1e3:.1f} M "
               f"edge-messages/s at the mean; phase 4's device-resident flagship step "
               f"{flagship_step_ms:.2f} ms, build_batch of one batch "
-              f"{built['build_batch_ms']:.1f} ms; {card}")
-        out[name] = dict(step_ms=ms, mean_step_ms=mean, edge_messages_per_s=messages / mean * 1e3)
-    for name in ('cache_batches "device"', "device_prefetch 2, pack_transfer"):
+              f"{built['build_batch_ms']:.1f} ms; {len(keys)} batch shapes (step keys) in "
+              f"{API_TIMED_STEPS} steps, {captured} of them captured, static input buffers "
+              f"{static_mib:.1f} MiB; {card}")
+        out[name] = dict(step_ms=ms, mean_step_ms=mean, edge_messages_per_s=messages / mean * 1e3,
+                         batch_shapes=len(keys), captured_shapes=captured,
+                         static_inputs_mib=static_mib)
+    for name in ('cache_batches "device"', 'cache_batches "device", eager',
+                 "device_prefetch 2, pack_transfer"):
         gaps = leaf_gaps(ends[name], ends["default stream"])
         worst = max(gaps, key=gaps.get)
         print(f"[api] (b) {name} vs the default stream after {API_TIMED_STEPS} steps: worst leaf "
@@ -4076,12 +4210,16 @@ def plain_on_card():
     """The plain path on the card: every kernel wrapper that the model code
     calls swapped for its plain version (the functions the CPU runs), so
     that a run on the card draws its dropout masks from the same device
-    generator as the kernel path."""
+    generator as the kernel path. Steps run eagerly inside it
+    (`capture.eager()`): the plain versions read values back to the host,
+    which a capture cannot hold, and a graph captured from the kernel path
+    must not stand in for a plain run."""
     import ignnition_tpu_torch.nn.rnn as t_rnn
     import ignnition_tpu_torch.ops.segment as t_seg
     from ignnition_tpu_torch.ops.cuda import attention_kernels as ak
     from ignnition_tpu_torch.ops.cuda import rnn_kernels as rk
     from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+    from ignnition_tpu_torch.training import capture
 
     swaps = [(t_rnn, "masked_gru_scan", rk.masked_gru_scan_plain),
              (t_seg, "sorted_segment_sum_csr", sk.sorted_segment_sum_csr_plain),
@@ -4093,7 +4231,8 @@ def plain_on_card():
     for m, n, f in swaps:
         setattr(m, n, f)
     try:
-        yield
+        with capture.eager():
+            yield
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
@@ -4108,7 +4247,7 @@ def step_launches(what, trainer, state, batch, meta, steps, counts, add, **want)
         state, m = step(state, batch)
         got = counts.read()
         add(got)
-        expect_counts(f"{what} step {i}", got, **want)
+        expect_counts(f"{what} step {i}", counts, **want)
         rows.append(tuple(float(m[k]) for k in ("total", "loss", "reg")))
     if not np.all(np.isfinite(rows)):
         raise AssertionError(f"{what}: a loss is not finite: {rows}")
@@ -4126,7 +4265,7 @@ def serve_requests(what, server, samples, n_rows, counts, add, **want) -> None:
         if preds.shape != (n_rows,) or not np.all(np.isfinite(preds)):
             raise AssertionError(f"{what} request {i}: {preds.shape} or non-finite")
         expect_counts(f"{what} request {i} ({n_rows} predictions, mean {preds.mean():.5f})",
-                      got, **want)
+                      counts, **want)
 
 
 def serving_times(what, server, sample, card, dev) -> dict:
@@ -4197,6 +4336,20 @@ def flagship_layers(dev, card: str, counts, add) -> tuple:
             runs[name] = f32.grads_fn(meta)(state.params, batch)
         if name == "plain" and any(counts.read().values()):
             raise AssertionError(f"the plain path launched kernels: {counts.read()}")
+    # the profiler too sees none of the port's kernels on the plain path (it
+    # runs eagerly: no replayed graph stands in for it); a profile that lost
+    # every device record is taken again, up to 3 times
+    with plain_on_card():
+        for _ in range(3):
+            names = profiled_device_kernels(lambda: f32.grads_fn(meta)(state.params, batch), 1)
+            if names:
+                break
+    ours = sorted({n for n in names if any(k in n for k in ALL_PORT_KERNELS)})
+    print(f"  (a) the plain path on the card: {len(names)} device kernels a gradient call, "
+          f"{len(ours)} of them the port's (torch.profiler)")
+    if ours or not names:
+        raise AssertionError(f"(a) the plain path's profile: {len(names)} kernels, the port's "
+                             f"{ours}")
     (g_k, m_k), (g_p, m_p), (g_o, m_o) = runs.values()
     compare("(a) step-0 loss+reg, kernels vs plain (card, one generator state) f32",
             m_k["total"], m_p["total"], atol=1e-4, rtol=1e-4,
@@ -4297,9 +4450,9 @@ def optimizers(dev, counts, add, padding, arrays, meta, tree) -> dict:
             got = counts.read()
             if name == "kernels":
                 add(got)
-                expect_counts(f"(b) {case}, {OPTIMIZER_STEPS} steps", got,
+                expect_counts(f"(b) {case}, {OPTIMIZER_STEPS} steps", counts,
                               csr_segment_sum=(ITERATIONS - 1) * OPTIMIZER_STEPS,
-                              csr_segment_sum_windows=got["csr_segment_sum_windows"],
+                              csr_segment_sum_windows=counts.held()["csr_segment_sum_windows"],
                               masked_gru_scan=ITERATIONS * OPTIMIZER_STEPS,
                               masked_gru_scan_bwd=ITERATIONS * OPTIMIZER_STEPS)
             elif any(got.values()):
@@ -4461,9 +4614,9 @@ def tensorboard_run(dev, counts, add) -> dict:
                                   shuffle=False, log_every=1, tensorboard_dir=tb)
         got = counts.read()
         add(got)
-        expect_counts(f"(e) train() with tensorboard_dir, {steps} steps", got,
+        expect_counts(f"(e) train() with tensorboard_dir, {steps} steps", counts,
                       csr_segment_sum=(ITERATIONS - 1) * steps,
-                      csr_segment_sum_windows=got["csr_segment_sum_windows"],
+                      csr_segment_sum_windows=counts.held()["csr_segment_sum_windows"],
                       masked_gru_scan=ITERATIONS * steps,
                       masked_gru_scan_bwd=ITERATIONS * steps)
         events = EventAccumulator(tb)
@@ -4516,6 +4669,8 @@ def description_language(dev, card: str) -> dict:
 # --------------------------------------------------------------------------
 
 PORT_KERNELS = ("segment_sum_kernel", "masked_gru_scan", "flash_gat_fwd")
+# every `__global__` of `ignnition_tpu_torch/csrc/`, by a part of its name
+ALL_PORT_KERNELS = PORT_KERNELS + ("gru_bwd_", "flash_gat_bwd_")
 
 
 def profiled_device_kernels(fn, runs: int, warmup_step: bool = False) -> list:
@@ -4606,7 +4761,7 @@ def serving_artifact(name, ir, params, meta, request, description, dev, card, ro
     from ignnition_tpu_torch.batch import to_device
     from ignnition_tpu_torch.serving import kernel_ops
 
-    out = {}
+    out, models = {}, {}
     for compute_dtype in (torch.bfloat16, None) if f32 else (torch.bfloat16,):
         tag = "bf16" if compute_dtype else "f32"
         server = igt.ServingModel(igt.build(ir), params, meta, ir,
@@ -4624,17 +4779,17 @@ def serving_artifact(name, ir, params, meta, request, description, dev, card, ro
         size = artifact_size(path)
 
         # the main path: a request through the artifact, its launches held
+        p_in = server.predict(arrays, denormalize=False)
+        rows = len(server.trim(p_in, arrays))
         counts.reset()
         preds = loaded.predict_samples(request)
         got = counts.read()
         add(got)
-        p_in = server.predict(arrays, denormalize=False)
-        rows = len(server.trim(p_in, arrays))
         if preds.shape != (rows,) or not np.all(np.isfinite(preds)):
             raise AssertionError(f"{name} artifact ({tag}): predictions {preds.shape} "
                                  f"(want ({rows},)) or non-finite")
         expect_counts(f"{name} artifact ({tag}) request ({rows} predictions, mean "
-                      f"{preds.mean():.5f})", got, **want)
+                      f"{preds.mean():.5f})", counts, **want)
         # one forward of each, by wrapper counts and by the profiler
         batch_art = to_device(loaded._check(arrays), dev)
         batch_in = to_device({k: v for k, v in arrays.items()
@@ -4645,14 +4800,15 @@ def serving_artifact(name, ir, params, meta, request, description, dev, card, ro
             counts.reset()
             fn()
             torch.cuda.synchronize()
-            per_forward[who] = (counts.read(), *profiled_port_launches(fn))
+            per_forward[who] = (counts.held(), *profiled_port_launches(fn))
         if per_forward["artifact"][:2] != per_forward["in-process"][:2]:
             raise AssertionError(f"{name} ({tag}): the artifact's forward launched "
                                  f"{per_forward['artifact'][:2]}, the in-process forward "
                                  f"{per_forward['in-process'][:2]} (wrapper counts, "
                                  f"the port's kernels by the profiler)")
         print(f"  {name} ({tag}): one forward launches the port's kernels "
-              f"{ {k: v for k, v in per_forward['artifact'][0].items() if v} } (wrapper counts), "
+              f"{ {k: v for k, v in per_forward['artifact'][0].items() if v} } (wrapper counts, "
+              f"read over the capture for a replay), "
               f"{per_forward['artifact'][1]} (torch.profiler, by kernel name, 3 calls), in the "
               f"artifact and in process alike; {per_forward['artifact'][2]:.0f} device launches "
               f"a call in all in the artifact, {per_forward['in-process'][2]:.0f} in process; "
@@ -4672,6 +4828,7 @@ def serving_artifact(name, ir, params, meta, request, description, dev, card, ro
         entry = dict(export_s=export_s, load_s=load_s, artifact_bytes=size, max_abs_diff=diff,
                      kernel_ops=len(ops), device_launches=per_forward["artifact"][2],
                      device_launches_in_process=per_forward["in-process"][2])
+        models[tag] = (server, loaded)
         if compute_dtype is torch.bfloat16:
             fwd_art, fwd_in = forward_ms(loaded, batch_art), forward_ms(server, batch_in)
             req_art, req_in = [], []
@@ -4699,6 +4856,7 @@ def serving_artifact(name, ir, params, meta, request, description, dev, card, ro
             print(f"  {name} (f32): export {export_s:.2f} s, load {load_s:.2f} s, "
                   f"{size / 1e6:.2f} MB on disk")
         out[tag] = entry
+    out["models"] = models  # phase 14's forwards
     return out
 
 
@@ -4801,18 +4959,19 @@ def serving_artifacts(dev, card: str, homogeneous_served: dict) -> dict:
                       homogeneous_launches(kind, ir, igt.build_batch(
                           request, ir, training=False, target=meta)[0], training=False)))
     root = tempfile.mkdtemp(prefix="chip_smoke_serving_")
-    result = {}
+    result, models = {}, {}
     try:
         for name, ir, params, meta, request, description, want in cases:
             result[name] = serving_artifact(name, ir, params, meta, request, description, dev,
                                             card, root, counts, add, want,
                                             f32=name == "linkpred")
+            models[name] = (result[name].pop("models"), request)
         result["debug"] = debug_on_card(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print("[serving artifacts] main path launch counts: "
           + ", ".join(f"{k} {v}" for k, v in total.items()))
-    return dict(launches=total, **result)
+    return dict(launches=total, models=models, **result)
 
 
 # --------------------------------------------------------------------------
@@ -5687,6 +5846,537 @@ def phase13_alone() -> None:
     print(json.dumps({"launches": out["launches"], "card": card}))
 
 
+# --------------------------------------------------------------------------
+# phase 14: the compiled steps (CUDA graphs) against the eager ones
+# --------------------------------------------------------------------------
+
+COMPILED_BATCHES = 5  # batches of one meta a path, stepped eagerly and replayed
+COMPILED_RANDOM_STEPS = 3
+COMPILED_ACCUM = 3  # microbatches of the accumulation step
+# holds of a replayed step against the eager one, of each leaf's largest
+# entry (the same kernels in the same order: bitwise equality is expected; a
+# value frozen at capture, a learning rate or a bias correction, moves the
+# parameters by some 1e-2 in 5 steps)
+COMPILED_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-6}
+SERVED_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+# host calls that hand the device work, as torch.profiler names them
+HOST_LAUNCHES = {"kernel": ("cudaLaunchKernel", "cuLaunchKernel"),
+                 "graph": ("cudaGraphLaunch", "cuGraphLaunch"),
+                 "copy": ("cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")}
+
+
+def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of `runs` calls of `fn` after `warmup`, each
+    between two CUDA events."""
+    times = []
+    for i in range(warmup + runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def port_kernels_by_name(names, runs: int) -> dict:
+    """{device kernel name: launches a call} of the port's kernels
+    (`ALL_PORT_KERNELS`) among the device kernel `names` of `runs` calls."""
+    got = {}
+    for n in names:
+        if any(k in n for k in ALL_PORT_KERNELS):
+            got[n] = got.get(n, 0) + 1
+    return {k: v / runs for k, v in sorted(got.items())}
+
+
+def hold_replayed_kernels(what: str, fn, first: tuple = None) -> dict:
+    """Hold the port's kernels that a replayed call of `fn` launches,
+    counted by name in torch.profiler's device activity
+    (`port_kernels_by_name`), to those of the same call made eagerly
+    (`capture.eager()`); `first`: an (eager, replayed) pair of such counts
+    already taken. A profile now and then loses device events
+    (`profiler_losses`; one run lost 1 of an eager step's 24 kernel-B
+    launches) and never adds one, so each side keeps, by name, the most that
+    any of its profiles saw, and up to 3 more pairs of profiles
+    (`profiled_device_kernels`, one call each) are taken until the two sides
+    agree. Returns the replayed call's counts."""
+    from ignnition_tpu_torch.training import capture
+
+    seen = ({}, {})
+    pairs = [first] if first is not None else []
+    for attempt in range(4):
+        if len(pairs) <= attempt:
+            with capture.eager():
+                eager = port_kernels_by_name(profiled_device_kernels(fn, 1), 1)
+            pairs.append((eager, port_kernels_by_name(profiled_device_kernels(fn, 1), 1)))
+        for side, counts in zip(seen, pairs[attempt]):
+            for k, v in counts.items():
+                side[k] = max(side.get(k, 0), v)
+        if seen[0] and seen[0] == seen[1]:
+            if attempt:
+                print(f"    {what}: the port's kernels agreed after {attempt + 1} pairs of "
+                      f"profiles (launches a call by profile, eager / replayed: "
+                      + "; ".join(f"{sum(e.values()):g} / {sum(r.values()):g}"
+                                  for e, r in pairs) + ")")
+            return seen[1]
+    raise AssertionError(f"{what}: the replayed call launched the port's kernels {seen[1]}, "
+                         f"the eager call {seen[0]} (torch.profiler, by kernel name, the most "
+                         f"of {len(pairs)} profiles each)")
+
+
+def profiled_calls(fn, runs: int = 5) -> dict:
+    """Device busy milliseconds, device activities (kernels, copies), the
+    host calls that hand the device work (kernel launches, graph launches,
+    copies and sets) and the port's kernels by name
+    (`port_kernels_by_name`), each a call of `fn`, from torch.profiler over
+    `runs` calls (`profiled_events`; the sleep kernel and its launch not
+    counted)."""
+    from torch.autograd import DeviceType
+
+    busy, activities = 0.0, 0
+    host = dict.fromkeys(HOST_LAUNCHES, 0)
+    events = profiled_events(fn, runs)
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            if "spin_kernel" not in e.name:
+                busy += e.time_range.elapsed_us() / 1e3
+                activities += 1
+            continue
+        for kind, names in HOST_LAUNCHES.items():
+            if e.name.startswith(names):
+                host[kind] += 1
+    host["kernel"] = max(0, host["kernel"] - 1)  # the sleep kernel's launch
+    out = dict(busy_ms=busy / runs, device_activities=activities / runs,
+               port_kernels=port_kernels_by_name(
+                   [e.name for e in events if e.device_type == DeviceType.CUDA], runs))
+    out.update({f"host_{k}_launches": v / runs for k, v in host.items()})
+    return out
+
+
+def leaf_gap(got, want) -> tuple:
+    """(the worst leaf, its gap by `leaf_gaps`) between two trees of the
+    same layout."""
+    from ignnition_tpu_torch.model.builder import flatten_params
+
+    gaps = leaf_gaps(flatten_params(got), flatten_params(want))
+    worst = max(gaps, key=gaps.get)
+    return worst, gaps[worst]
+
+
+def loss_gap(got: list, want: list) -> float:
+    """The largest |difference| of two loss sequences over the largest |loss|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
+
+
+def one_meta(ir, padding, groups, training=True) -> tuple:
+    """(arrays of each group of samples, the one meta they are all padded to)."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.data.graph import merge_metas
+
+    meta = merge_metas([igt.build_batch(g, ir, padding, training=training)[1] for g in groups],
+                       ir)
+    return [igt.build_batch(g, ir, padding, training=training, target=meta)[0]
+            for g in groups], meta
+
+
+def eager_vs_replayed_steps(name, ir, padding, batches, meta, edge_messages, card, counts,
+                            add) -> dict:
+    """(a) for one path: `COMPILED_BATCHES` bf16 steps over the batches from
+    one initial state, eagerly (`capture.eager()`) and through the public
+    step (a warm-up, a capture, replays), held step by step: the losses and
+    every leaf of the parameters and the optimizer state within
+    `COMPILED_TOL`; the wrappers' counters of the warm-up and the capture
+    equal to an eager step's, and none in a replay (no wrapper runs). Then
+    each way's step time (median of 20 after 3, CUDA events), device busy
+    and idle share, device activities, host launches and the port's kernels
+    by name a step (torch.profiler): the replayed step's kernels held to
+    the eager step's (`hold_replayed_kernels`). And the capture's seconds,
+    graph pool and static input buffers against the eager step's peak."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.training import capture
+
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=torch.bfloat16)
+    tree = trainer.model.init(torch.Generator().manual_seed(SEED))
+    device_batches = [to_device(a, trainer.device) for a in batches]
+    step = trainer.train_step_fn(meta)
+    captured = trainer.graphs.captured[("train", meta, None)]
+    runs = {}
+    for way in ("eager", "replayed"):
+        state = trainer.init_state(params=tree)
+        losses, launches, seen = [], [], []
+        with capture.eager() if way == "eager" else contextlib.nullcontext():
+            for batch in device_batches:
+                counts.reset()
+                state, m = step(state, batch)
+                got = counts.read()
+                add(got)
+                launches.append(got)
+                losses.append(float(m["total"]))
+                seen.append(captured.last)
+        runs[way] = dict(state=state, losses=losses, launches=launches, seen=seen)
+    eager, replayed = runs["eager"], runs["replayed"]
+    want_seen = ["warm-up", "capture"] + ["replay"] * (COMPILED_BATCHES - 2)
+    if replayed["seen"] != want_seen or set(eager["seen"]) != {"eager"}:
+        raise AssertionError(f"(a) {name}: the calls ran as {eager['seen']} and "
+                             f"{replayed['seen']}, not eagerly and as {want_seen}")
+    # the wrappers' counters: every eager step alike and not empty, the
+    # warm-up and the capture (which records) as an eager step, a replay none
+    per_step = eager["launches"][0]
+    none = dict.fromkeys(per_step, 0)
+    want_launches = [per_step, per_step] + [none] * (COMPILED_BATCHES - 2)
+    if (not any(per_step.values()) or eager["launches"] != [per_step] * COMPILED_BATCHES
+            or replayed["launches"] != want_launches):
+        raise AssertionError(f"(a) {name}: the wrappers counted {replayed['launches']} in "
+                             f"the replayed run, {eager['launches']} in the eager run")
+    tol = COMPILED_TOL[torch.bfloat16]
+    gaps = dict(loss=loss_gap(replayed["losses"], eager["losses"]))
+    for tree_name in ("params", "opt_state"):
+        worst, gap = leaf_gap(getattr(replayed["state"], tree_name),
+                              getattr(eager["state"], tree_name))
+        gaps[tree_name] = (worst, gap)
+    bitwise = gaps["loss"] == 0.0 and all(g == 0.0 for _, g in (gaps["params"],
+                                                                 gaps["opt_state"]))
+    per_step = {k: v for k, v in per_step.items() if v}
+    print(f"[compiled] (a) {name}: {COMPILED_BATCHES} bf16 steps over {COMPILED_BATCHES} batches "
+          f"of one meta, eager and {' / '.join(replayed['seen'])}: loss+reg "
+          + " ".join(f"{v:.5f}" for v in replayed["losses"])
+          + f"; largest gap of the loss {gaps['loss']:.3e}, of a parameter leaf "
+          f"{gaps['params'][1]:.3e} ({gaps['params'][0]}), of an optimizer-state leaf "
+          f"{gaps['opt_state'][1]:.3e} ({gaps['opt_state'][0]}) of its largest entry (limit "
+          f"{tol:g}){'; bitwise equal' if bitwise else ''}; the wrappers counted "
+          f"{per_step} in each eager step, the warm-up and the capture, none in a replay")
+    worst_gap = max(gaps["loss"], gaps["params"][1], gaps["opt_state"][1])
+    if not worst_gap <= tol:
+        raise AssertionError(f"(a) {name}: the replayed steps lie {worst_gap:.3e} from the "
+                             f"eager ones (limit {tol:g})")
+
+    batch = device_batches[0]
+    out = dict(loss_gap=gaps["loss"], params_gap=gaps["params"][1],
+               opt_state_gap=gaps["opt_state"][1], bitwise=bitwise,
+               capture_s=captured.capture_seconds,
+               graph_pool_mib=captured.pool_bytes / 2**20,
+               static_inputs_mib=trainer.graphs.static_bytes() / 2**20)
+    ports = {}
+    for way in ("eager", "replayed"):
+        state = runs[way]["state"]
+        run = lambda: step(state, batch)  # noqa: E731
+        with capture.eager() if way == "eager" else contextlib.nullcontext():
+            ms = median_ms(run)
+            prof = profiled_calls(run)
+            if way == "eager":
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                run()
+                torch.cuda.synchronize()
+                out["eager_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        ports[way] = prof.pop("port_kernels")
+        out[way] = dict(step_ms=ms, edge_messages_per_s=edge_messages / ms * 1e3,
+                        device_busy_ms=prof["busy_ms"],
+                        device_idle_share=max(0.0, 1.0 - prof["busy_ms"] / ms),
+                        **{k: v for k, v in prof.items() if k != "busy_ms"})
+    kernels = hold_replayed_kernels(f"(a) {name}", lambda: step(runs["replayed"]["state"], batch),
+                                    first=(ports["eager"], ports["replayed"]))
+    if captured.last != "replay":
+        raise AssertionError(f"(a) {name}: the profiled step ran as {captured.last}")
+    out["port_kernel_launches"] = sum(kernels.values())
+    e, r = out["eager"], out["replayed"]
+    print(f"[compiled] (a) {name}: step {e['step_ms']:.3f} ms eager, {r['step_ms']:.3f} ms "
+          f"replayed (x{e['step_ms'] / r['step_ms']:.2f}; median of 20 after 3, CUDA events), "
+          f"{e['edge_messages_per_s'] / 1e6:.1f} -> {r['edge_messages_per_s'] / 1e6:.1f} M "
+          f"edge-messages/s; device busy {e['device_busy_ms']:.3f} -> "
+          f"{r['device_busy_ms']:.3f} ms, idle {e['device_idle_share']:.1%} -> "
+          f"{r['device_idle_share']:.1%}; device activities a step "
+          f"{e['device_activities']:.0f} -> {r['device_activities']:.0f}; host launches a step: "
+          f"kernels {e['host_kernel_launches']:.0f} -> {r['host_kernel_launches']:.0f}, graphs "
+          f"{e['host_graph_launches']:.0f} -> {r['host_graph_launches']:.0f}, copies "
+          f"{e['host_copy_launches']:.0f} -> {r['host_copy_launches']:.0f} (torch.profiler, 5 "
+          f"steps); the port's kernels a step by name, replayed as eager: "
+          f"{out['port_kernel_launches']:.0f} launches of {len(kernels)} kernels (torch.profiler);"
+          f" capture {out['capture_s']:.2f} s, graph pool {out['graph_pool_mib']:.0f} MiB and "
+          f"static inputs {out['static_inputs_mib']:.1f} MiB against the eager step's peak "
+          f"{out['eager_peak_mib']:.0f} MiB; on {card}")
+    return out
+
+
+def compiled_step_paths(homogeneous_samples: dict) -> dict:
+    """(a)'s paths: {name: (ir, padding, batches, meta, edge-messages a
+    step)}, each `COMPILED_BATCHES` training batches of different contents
+    padded to one meta. The RouteNet family draws new graphs at its sizes;
+    the homogeneous models take phase 8's 3 requests of 1,024 graphs each and
+    two of them with their graphs rotated."""
+    import ignnition_tpu_torch as igt
+
+    rng = np.random.default_rng(SEED + 14)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    flagship_ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    families = [
+        ("flagship", flagship_ir, lambda: make_sample(rng, **FLAGSHIP)),
+        ("flagship_x4", flagship_ir, lambda: make_sample(rng, **FLAGSHIP_X4)),
+        ("attention", igt.parse_model_description(attention_description(), FEATURE_DIMS),
+         lambda: make_sample(rng, **FLAGSHIP)),
+        ("qsize", igt.parse_model_description(qsize_description(), QSIZE_FEATURE_DIMS),
+         lambda: make_qsize_sample(rng, **QSIZE)),
+        ("mlp_message", igt.parse_model_description(mlp_message_description(), FEATURE_DIMS),
+         lambda: make_sample(rng, **FLAGSHIP)),
+    ]
+    paths = {}
+    for name, ir, make in families:
+        batches, meta = one_meta(ir, padding, [[make()] for _ in range(COMPILED_BATCHES)])
+        edges = sum(int(np.sum(v > 0)) for k, v in batches[0].items()
+                    if k.startswith("edge_mask_"))
+        paths[name] = (ir, padding, batches, meta, ITERATIONS * edges)
+    for name in ("graphprop CSR", "graphprop blocks", "linkpred"):
+        ir, requests = homogeneous_samples[name]
+        shift = HOMOGENEOUS_GRAPHS // 3
+        groups = list(requests) + [r[shift:] + r[:shift] for r in requests]
+        batches, meta = one_meta(ir, igt.PaddingConfig(), groups[:COMPILED_BATCHES])
+        edges = int(np.sum(batches[0][f"edge_mask_{NODE_ADJ}"] > 0))
+        passes = sum(len(mp.sources) for stage in ir.stages for mp in stage.passes)
+        paths[name] = (ir, igt.PaddingConfig(), batches, meta,
+                       ir.num_iterations * passes * edges)
+    return paths
+
+
+def eager_vs_replayed_forwards(served: dict, homogeneous_samples: dict, card: str) -> dict:
+    """(b): phase 11's `ServingModel` and `LoadedServingModel` of the
+    flagship, attention, x4, graphprop CSR and linkpred (bf16; linkpred also
+    f32): two requests of different contents each (phase 11's, and for the
+    RouteNet family its graph with other features, since a new graph's link
+    in-degrees would leave the served meta; for the homogeneous models phase
+    8's second request), the replayed predictions held to the eager ones
+    (`SERVED_TOL` of the largest |prediction|); the device forward (median of
+    20, CUDA events) and the whole request (median of 3, host clock), eager
+    and replayed; the replayed forward's kernels held to the eager one's
+    (`hold_replayed_kernels`)."""
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.training import capture
+
+    rng = np.random.default_rng(SEED + 15)
+    out = {}
+    for name, (models, request) in served.items():
+        if name in homogeneous_samples:
+            second = homogeneous_samples[name][1][1]
+        else:
+            second = [dataclasses.replace(s, features={
+                k: (v * rng.uniform(0.5, 1.5, v.shape)).astype(v.dtype)
+                for k, v in s.features.items()}) for s in request]
+        for tag, pair in models.items():
+            dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+            for who, model in zip(("in process", "artifact"), pair):
+                requests = [request, second]
+                arrays = [model.build_batch(r) for r in requests]
+                with capture.eager():
+                    want = [model.predict(a, denormalize=False) for a in arrays]
+                got = [model.predict(a, denormalize=False) for a in arrays]
+                ran = model.graphs.captured[model.meta].last
+                if ran != "replay":
+                    raise AssertionError(f"(b) {name} {who} ({tag}): the forward ran as {ran}")
+                scale = max(float(np.max(np.abs(w))) for w in want)
+                diff = max(float(np.max(np.abs(g - w))) for g, w in zip(got, want))
+                limit = SERVED_TOL[dtype] * scale
+                if not diff <= limit:
+                    raise AssertionError(f"(b) {name} {who} ({tag}): replayed predictions lie "
+                                         f"{diff:.3e} from the eager ones (limit {limit:.3e})")
+                inputs = to_device({k: v for k, v in model._check(arrays[0]).items()}
+                                   if who == "artifact" else
+                                   {k: v for k, v in arrays[0].items()
+                                    if k not in ("label", "label_mask", "label_perm")},
+                                   model.device)
+                entry = dict(max_abs_diff=diff, limit=limit)
+                for way in ("eager", "replayed"):
+                    with capture.eager() if way == "eager" else contextlib.nullcontext():
+                        entry[f"forward_ms_{way}"] = median_ms(
+                            lambda: model.forward_device(inputs))
+                        times = []
+                        for _ in range(4):
+                            t1 = time.perf_counter()
+                            model.predict_samples(request)
+                            times.append((time.perf_counter() - t1) * 1e3)
+                        entry[f"request_ms_{way}"] = float(np.median(times[1:]))
+                kernels = hold_replayed_kernels(f"(b) {name} {who} ({tag})",
+                                                lambda: model.forward_device(inputs))
+                ran = model.graphs.captured[model.meta].last
+                if ran != "replay":
+                    raise AssertionError(f"(b) {name} {who} ({tag}): the profiled forward ran "
+                                         f"as {ran}")
+                entry["port_kernel_launches"] = sum(kernels.values())
+                print(f"[compiled] (b) {name} {who} ({tag}): 2 requests, replayed vs eager "
+                      f"predictions max abs {diff:.3e} (limit {limit:.3e} = "
+                      f"{'2^-8' if dtype == torch.bfloat16 else '1e-6'} x max |pred| "
+                      f"{scale:.4f}){'; bitwise equal' if diff == 0.0 else ''}; forward "
+                      f"{entry['forward_ms_eager']:.3f} -> {entry['forward_ms_replayed']:.3f} ms "
+                      f"(median of 20, CUDA events), request {entry['request_ms_eager']:.1f} -> "
+                      f"{entry['request_ms_replayed']:.1f} ms (median of 3, host clock); the "
+                      f"port's kernels a forward by name, replayed as eager: "
+                      f"{entry['port_kernel_launches']:.0f} launches (torch.profiler); {card}")
+                out[f"{name} {who} ({tag})"] = entry
+    return out
+
+
+def random_layers_replayed(dev, card: str) -> dict:
+    """(c): phase 10 (a)'s model (Dropout, AlphaDropout, GaussianNoise in its
+    readout), f32. Its training loss captured alone over fixed parameters,
+    from one generator state, eagerly and replayed: the first three calls
+    alike, and two successive replays draw other masks (other losses). Then 3
+    training steps eagerly and through the public step from one generator
+    state: the replayed trajectory is held to the eager one (1e-6). The
+    graph-safe generator gives the eager sequence: each replay advances the
+    registered generator's offset by what the capture recorded."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.training import capture
+
+    igt.register_layer("ChipScale", chip_scale_init, chip_scale_apply)  # as phase 10 does
+    ir = igt.parse_model_description(layers_description(), FEATURE_DIMS)
+    rng = np.random.default_rng(SEED + 16)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    arrays, meta = igt.build_batch([make_sample(rng, **FLAGSHIP)], ir, padding, training=True)
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=None)
+    batch = to_device(arrays, dev)
+    tree = trainer.model.init(torch.Generator().manual_seed(SEED))
+    state = trainer.init_state(params=tree)
+
+    def training_loss(params, b):
+        with torch.no_grad():
+            return trainer._loss(params, b, meta)[0]
+
+    probe = trainer.graphs.step(training_loss, ("training loss", meta), "the training loss")
+    losses = {}
+    for way in ("eager", "replayed"):
+        trainer.generator.manual_seed(SEED)
+        with capture.eager() if way == "eager" else contextlib.nullcontext():
+            losses[way] = [float(probe(state.params, batch)) for _ in range(4)]
+    if probe.last != "replay":
+        raise AssertionError(f"(c) the training loss ran as {probe.last}")
+    same_sequence = losses["replayed"] == losses["eager"]
+    print(f"[compiled] (c) the training loss over fixed parameters, 4 calls from one generator "
+          f"state: eager {losses['eager']}, warm-up / capture / replay / replay "
+          f"{losses['replayed']}: {'the same sequence' if same_sequence else 'ANOTHER SEQUENCE'}")
+    if not len(set(losses["replayed"][1:])) == 3:
+        raise AssertionError(f"(c) successive replays drew the same masks: {losses['replayed']}")
+
+    runs = {}
+    step = trainer.train_step_fn(meta)
+    for way in ("eager", "replayed"):
+        s = trainer.init_state(params=tree)
+        trainer.generator.manual_seed(SEED)
+        with capture.eager() if way == "eager" else contextlib.nullcontext():
+            totals = [float(step(s, batch)[1]["total"]) for _ in range(COMPILED_RANDOM_STEPS)]
+        runs[way] = (s, totals)
+    gap = loss_gap(runs["replayed"][1], runs["eager"][1])
+    worst, leaf = leaf_gap(runs["replayed"][0].params, runs["eager"][0].params)
+    print(f"[compiled] (c) {COMPILED_RANDOM_STEPS} f32 steps from one generator state: loss+reg "
+          f"eager {runs['eager'][1]}, replayed {runs['replayed'][1]}; largest gap of the loss "
+          f"{gap:.3e}, of a parameter leaf {leaf:.3e} ({worst}) (limit 1e-6)")
+    if not (same_sequence and max(gap, leaf) <= COMPILED_TOL[torch.float32]):
+        raise AssertionError(f"(c) the replayed draws or trajectory leave the eager ones: "
+                             f"{losses}, {max(gap, leaf):.3e}")
+    return dict(losses=losses, trajectory_loss_gap=gap, trajectory_params_gap=leaf)
+
+
+def accumulation_and_evaluation(dev, card: str) -> dict:
+    """(d): the flagship in f32: `accum_train_step_fn` over `COMPILED_ACCUM`
+    microbatches, 3 steps over two stacked groups of one meta, and
+    `eval_step_fn` over two batches, eagerly and replayed; held at 1e-6 of
+    the largest entry (losses, parameters, predictions)."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.parallel import stack_batches
+    from ignnition_tpu_torch.training import capture
+
+    ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    rng = np.random.default_rng(SEED + 17)
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    batches, meta = one_meta(ir, padding, [[make_sample(rng, **FLAGSHIP)]
+                                           for _ in range(2 * COMPILED_ACCUM)])
+    trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=None)
+    tree = trainer.model.init(torch.Generator().manual_seed(SEED))
+    groups = [stack_batches([(a, meta) for a in batches[i::2]], ir) for i in range(2)]
+    stacked_meta = groups[0][1]
+    stacked = [to_device(g, dev) for g, _ in groups]
+    step = trainer.accum_train_step_fn(stacked_meta, COMPILED_ACCUM)
+    captured = trainer.graphs.captured[("accum", stacked_meta, COMPILED_ACCUM, None)]
+    runs = {}
+    for way in ("eager", "replayed"):
+        s = trainer.init_state(params=tree)
+        with capture.eager() if way == "eager" else contextlib.nullcontext():
+            totals = [float(step(s, stacked[i % 2])[1]["total"]) for i in range(3)]
+        runs[way] = (s, totals)
+    if captured.last != "replay":
+        raise AssertionError(f"(d) the accumulation step ran as {captured.last}")
+    gap = loss_gap(runs["replayed"][1], runs["eager"][1])
+    worst, leaf = leaf_gap(runs["replayed"][0].params, runs["eager"][0].params)
+    print(f"[compiled] (d) accumulation over {COMPILED_ACCUM} microbatches, 3 f32 steps over 2 "
+          f"groups: loss+reg {runs['replayed'][1]}; largest gap of the loss {gap:.3e}, of a "
+          f"parameter leaf {leaf:.3e} ({worst}) (limit 1e-6)")
+    if not max(gap, leaf) <= COMPILED_TOL[torch.float32]:
+        raise AssertionError(f"(d) the replayed accumulation lies {max(gap, leaf):.3e} from "
+                             "the eager one")
+    state = runs["replayed"][0]
+    evaluate = trainer.eval_step_fn(meta)
+    device_batches = [to_device(a, dev) for a in batches[:2]]
+    worst_eval, ran = 0.0, []
+    for i in range(4):
+        b = device_batches[i % 2]
+        preds, loss = evaluate(state.params, b)
+        ran.append(trainer.graphs.captured[("eval", meta)].last)
+        with capture.eager():
+            want_p, want_l = evaluate(state.params, b)
+        worst_eval = max(worst_eval, float((preds - want_p).abs().max())
+                         / float(want_p.abs().max()), abs(float(loss) - float(want_l))
+                         / abs(float(want_l)))
+    print(f"[compiled] (d) evaluation step, 4 calls over 2 batches ({' / '.join(ran)}): largest "
+          f"gap of the predictions and loss {worst_eval:.3e} of the largest (limit 1e-6)")
+    if ran[-1] != "replay" or not worst_eval <= COMPILED_TOL[torch.float32]:
+        raise AssertionError(f"(d) the evaluation step ran as {ran}, {worst_eval:.3e} from "
+                             "eager")
+    ms = {}
+    for way in ("eager", "replayed"):
+        with capture.eager() if way == "eager" else contextlib.nullcontext():
+            ms[way] = median_ms(lambda: step(state, stacked[0]))
+    print(f"[compiled] (d) the accumulation step ({COMPILED_ACCUM} microbatches, f32): "
+          f"{ms['eager']:.3f} ms eager, {ms['replayed']:.3f} ms replayed (median of 20 after 3, "
+          f"CUDA events); {card}")
+    return dict(accum_loss_gap=gap, accum_params_gap=leaf, eval_gap=worst_eval,
+                accum_step_ms=ms)
+
+
+def compiled_steps(dev, card: str, homogeneous_samples: dict, served: dict,
+                   pipeline: dict) -> dict:
+    """Phase 14: (a) the training steps of eight paths eager against
+    replayed, (b) the serving forwards, (c) the random layers, (d)
+    accumulation and evaluation, and the device-cached `train()` loop of
+    phase 9 (b) eager against replayed."""
+    counts = Counts()
+    total = {k: 0 for k in counts.read()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    t0 = time.perf_counter()
+    paths = compiled_step_paths(homogeneous_samples)
+    print(f"[compiled] {len(paths)} paths of {COMPILED_BATCHES} batches each made in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    steps = {name: eager_vs_replayed_steps(name, *spec, card, counts, add)
+             for name, spec in paths.items()}
+    forwards = eager_vs_replayed_forwards(served, homogeneous_samples, card)
+    random_layers = random_layers_replayed(dev, card)
+    accum = accumulation_and_evaluation(dev, card)
+    loop = {way: pipeline[key]["step_ms"] for way, key in (
+        ("eager", 'cache_batches "device", eager'), ("replayed", 'cache_batches "device"'))}
+    print(f"[compiled] (d) train(cache_batches=\"device\") (phase 9 (b)): step interval median "
+          f"{loop['eager']:.2f} ms eager, {loop['replayed']:.2f} ms replayed; {card}")
+    print("[compiled] main path launch counts: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, steps=steps, forwards=forwards, random_layers=random_layers,
+                accumulation=accum, train_device_cache_ms=loop)
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -5810,6 +6500,7 @@ def main() -> None:
     seconds["homogeneous"] = time.perf_counter() - t_start - sum(seconds.values())
     at_batch = homog.pop("kernels_at_batch_shapes")
     homog_served = homog.pop("served")
+    homog_samples = homog.pop("samples")
     item1 = item1_sizes(dev, card)
     at_x8 = item1["flagship_x8"].pop("kernels_at_its_shapes")
     seconds["blocks_g4 and x8"] = time.perf_counter() - t_start - sum(seconds.values())
@@ -5824,6 +6515,7 @@ def main() -> None:
 
     # ---- phase 11: serving artifacts and the debug verb ----
     artifacts = serving_artifacts(dev, card, homog_served)
+    served_models = artifacts.pop("models")
     seconds["serving artifacts"] = time.perf_counter() - t_start - sum(seconds.values())
 
     # ---- phase 12: the roofline, the memory model and the sharded step ----
@@ -5833,6 +6525,10 @@ def main() -> None:
     # ---- phase 13: destination sharding ----
     dest = destshard_steps(card)
     seconds["dest_shard"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 14: the compiled steps against the eager ones ----
+    compiled = compiled_steps(dev, card, homog_samples, served_models, api["pipeline"])
+    seconds["compiled steps"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -5869,9 +6565,10 @@ def main() -> None:
         on_export = artifacts["launches"][name]
         on_parallel = meshed["parallel"]["launches"][name]
         on_dest = dest["launches"][name]
+        on_compiled = compiled["launches"][name]
         launches = (on_serving + on_training + on_attention + on_qsize + on_mlp
                     + on_homogeneous + on_item1 + on_api + on_language + on_export
-                    + on_parallel + on_dest)
+                    + on_parallel + on_dest + on_compiled)
         if launches == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
@@ -5882,7 +6579,7 @@ def main() -> None:
             launches_blocks_g4_and_x8=on_item1, launches_api=on_api,
             launches_description_language=on_language,
             launches_serving_export=on_export, launches_parallel=on_parallel,
-            launches_dest_shard=on_dest,
+            launches_dest_shard=on_dest, launches_compiled_steps=on_compiled,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -5935,6 +6632,7 @@ def main() -> None:
                                                             "allreduce_share")}
                                        for k, v in meshed["parallel"]["meshes"].items()}},
                       "dest_shard": dest["meshes"],
+                      "compiled_steps": {k: v for k, v in compiled.items() if k != "launches"},
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

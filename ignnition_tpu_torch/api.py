@@ -55,15 +55,16 @@ _cache_noted = False
 
 def _note_compilation_cache(cfg: RunConfig) -> None:
     """`compilation_cache_dir` is accepted so that the JAX package's ini
-    files load; the port compiles nothing per batch shape, so it has no
-    effect. Said once per process when it is set."""
+    files load; the port keeps no compiled program on disk (its CUDA graphs,
+    one per batch shape, live in the process), so it has no effect. Said
+    once per process when it is set."""
     global _cache_noted
     if getattr(cfg, "compilation_cache_dir", None) and not _cache_noted:
         _cache_noted = True
         log.info(
             "compilation_cache_dir (%s) has no effect in ignnition_tpu_torch: "
-            "it compiles nothing per batch shape (its CUDA kernels are built "
-            "once, at first use, into ignnition_tpu_torch/_build/)",
+            "its steps' CUDA graphs live in the process (its CUDA kernels are "
+            "built once, at first use, into ignnition_tpu_torch/_build/)",
             cfg.compilation_cache_dir,
         )
 

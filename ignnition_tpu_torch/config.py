@@ -34,7 +34,7 @@ class RunConfig:
     debug_dir: str = "./debug_model"
     warm_start_path: Optional[str] = None
     # accepted so that the JAX package's ini files load; no effect here: the
-    # port compiles nothing per batch shape (its kernels are built once, at
+    # port's CUDA graphs live in the process (its kernels are built once, at
     # first use), and `api` logs that once when it is set
     compilation_cache_dir: Optional[str] = None
     # [TRAINING_OPTIONS]

@@ -55,8 +55,10 @@ import torch
 
 from . import _build
 
-fwd_launch_count = 0  # launches of kernel D in this process
-bwd_launch_count = 0  # launches of kernel E in this process
+# launches made from Python in this process, eager or recorded into a CUDA
+# graph; a graph's replays launch again uncounted (`ops.cuda`)
+fwd_launch_count = 0  # launches of kernel D
+bwd_launch_count = 0  # launches of kernel E
 
 _SLOPE = 0.2  # LeakyReLU negative slope of the GAT scores
 _DEN_FLOOR = 1e-30

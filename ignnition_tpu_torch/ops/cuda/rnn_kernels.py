@@ -38,8 +38,10 @@ import torch
 
 from . import _build
 
-launch_count = 0  # launches of kernel B (forward) in this process
-bwd_launch_count = 0  # launches of kernel C (backward) in this process
+# launches made from Python in this process, eager or recorded into a CUDA
+# graph; a graph's replays launch again uncounted (`ops.cuda`)
+launch_count = 0  # launches of kernel B (forward)
+bwd_launch_count = 0  # launches of kernel C (backward)
 
 _HOPPER_BLOCK_SMEM = 232448  # bytes of shared memory one block can use
 _SWEEP_MMA_WARPS = 4  # warps a block of C's tensor-core sweep (kSweepMmaWarps)

@@ -46,7 +46,9 @@ import torch
 
 from . import _build
 
-launch_count = 0  # launches of kernel A in this process
+# launches made from Python in this process, eager or recorded into a CUDA
+# graph; a graph's replays launch again uncounted (`ops.cuda`)
+launch_count = 0  # launches of kernel A
 windows_launch_count = 0  # those of them over more than one window
 ids_launch_count = 0  # launches of the id-keyed kernel
 

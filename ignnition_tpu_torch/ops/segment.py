@@ -54,7 +54,9 @@ def _whole_sort_perm(sort_perm: torch.Tensor, n_windows: int) -> torch.Tensor:
     slot table: the data layer sorts the slots within ~equal windows and
     emits indices local to each window. Made once per permutation tensor and
     kept on it (a batch keeps its tensors over iterations and steps), so a
-    step pays one gather, not this arithmetic."""
+    step pays one gather, not this arithmetic. A captured step reads its
+    graph's own input buffers, on which no eager call made a cache, and each
+    replay recomputes what its capture cached there (`training.capture`)."""
     cached = getattr(sort_perm, "_whole_sort_perm", None)
     if cached is not None and cached[0] == (n_windows, sort_perm._version):
         return cached[1]

@@ -6,7 +6,11 @@ the counterpart of the JAX package's `ignnition_tpu/serving.py`.
 `BatchMeta` its shapes are pinned to. `build_batch` pads raw samples to that
 meta, `predict` runs the forward and applies the registered
 denormalization, `trim` drops padding rows. The forward runs under
-`torch.inference_mode` and records no graph.
+`torch.inference_mode` and records no autograd graph. On the card both
+serving models' forwards are one CUDA graph for their meta
+(`training.capture`: the first request runs eagerly, the second captures,
+every later one replays; `capture.eager()` runs each op by op); on the CPU
+they run eagerly.
 
 `export_serving` freezes `GnnModel.apply` at one meta's shapes with
 `torch.export` (non-strict, under `torch.no_grad`): the parameters and the
@@ -45,6 +49,7 @@ import torch
 from .batch import resolve_device, to_device
 from .data.graph import BatchMeta, infer_label_domain
 from .data.graph import build_batch as _build_batch
+from .training.capture import Graphs
 
 FORMAT_VERSION = 1
 FORWARD_FILE = "forward.pt2"
@@ -125,12 +130,18 @@ class ServingModel(_Served):
         self.label_name, _, denorm = ir.output_info()
         self.label_domain = tuple(infer_label_domain(ir))
         self._denorm = _resolve_denorm(denorm)
+        self.graphs = Graphs(self.device)
+        self._forward = self.graphs.step(
+            lambda params, batch: self.model.apply(
+                params, batch, self.meta, compute_dtype=self.compute_dtype),
+            meta, "the served forward")
 
     def forward_device(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """The forward on a batch already on `self.device`; returns the
-        float32 predictions on the device, without synchronizing."""
+        """The forward on a batch already on `self.device` (the replayed graph
+        of this meta on the card); returns the float32 predictions on the
+        device, without synchronizing."""
         with torch.inference_mode():
-            return self.model(batch, self.meta, compute_dtype=self.compute_dtype)
+            return self._forward(self.model.param_tree(), batch)
 
     def predict(
         self, arrays: Mapping[str, np.ndarray], denormalize: bool = True
@@ -368,8 +379,9 @@ class LoadedServingModel(_Served):
     ):
         self.device = _device_for(manifest, device)
         self.program = program
-        self._forward = program.module()
         self.params = params
+        self.graphs = Graphs(self.device)
+        self._forward = self.graphs.step(program.module(), meta, "the artifact's forward")
         self.meta = meta
         self.manifest = dict(manifest)
         self.label_name = manifest["label_name"]
@@ -414,8 +426,9 @@ class LoadedServingModel(_Served):
 
     def forward_device(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The program on a batch already on `self.device` (the exported
-        inputs, in the manifest's order); returns the float32 predictions on
-        the device, without synchronizing."""
+        inputs, in the manifest's order; the replayed graph of this meta on
+        the card); returns the float32 predictions on the device, without
+        synchronizing."""
         with torch.inference_mode():
             return self._forward(self.params, batch)
 

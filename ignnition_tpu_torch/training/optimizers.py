@@ -2,9 +2,16 @@
 (counterpart of `ignnition_tpu/training/optimizers.py`, which maps the same
 names and kwargs onto optax).
 
-A schedule is a closed form of the step count, evaluated on the host in
-Python floats: the step reads it at the count *before* the update, as
-optax does, and no device value is read back.
+Every number that changes from step to step lives on the parameters'
+device, as optax keeps its count there: the state's `count` is a 0-d int32
+tensor, Nadam's `u_prod` a 0-d float32 tensor, a schedule is a closed form
+of the count tensor (f64 tensor arithmetic), and the step sizes and bias
+corrections are 0-d tensors fed to the `Tensor` overloads of
+`torch._foreach_*`. So a step reads nothing back to the host and can be
+captured in a CUDA graph (`training.capture`) and replayed: a Python number
+would be frozen at the capture. The step reads the schedule at the count
+*before* the update, as optax does. Constants (the betas, epsilon, a fixed
+learning rate, the clip values) stay Python numbers.
 
 Every optimizer of the JAX package, with its arithmetic: Adam (Keras epsilon
 1e-7, added outside the root of the bias-corrected second moment; with
@@ -14,10 +21,12 @@ SGD (momentum, nesterov), RMSprop (optax's: epsilon inside the root, the
 centered variant, momentum over the learning-rate-scaled update), Adagrad
 (initial accumulator 0.1), Adadelta, Adamax and Nadam (the Keras form with
 its momentum-schedule product `u_prod`), each after the three clip options.
-The state is a dict in the parameter tree's layout: `count` (int), then the
+The state is a dict in the parameter tree's layout: `count`, then the
 kind's trees (`mu`, `nu`, `vhat`, `trace`, `sum_of_squares`, `e_g`, `e_x`)
-and for Nadam the float `u_prod`, so that `torch.save` checkpoints carry it
-as it is.
+and for Nadam `u_prod`, so that `torch.save` checkpoints carry it as it is.
+A state whose `count` is a Python int and `u_prod` a float (a checkpoint
+written before these were tensors) is taken: the trainer copies such
+values into the live tensors, and `Optimizer.step` makes tensors of them.
 
 `Optimizer.step` updates the parameters and the state **in place** (the JAX
 package returns new trees; here the float32 masters and the moments are
@@ -36,7 +45,8 @@ import torch
 from ..frontend.ir import OptimizerSpec, ScheduleSpec
 from ..model.builder import flatten_params, map_params
 
-Schedule = Callable[[int], float]
+Number = Union[float, torch.Tensor]
+Schedule = Callable[[Union[int, torch.Tensor]], torch.Tensor]
 
 
 def _to_bool(v) -> bool:
@@ -45,8 +55,17 @@ def _to_bool(v) -> bool:
     return bool(v)
 
 
+def _f64(step) -> torch.Tensor:
+    """A step count (an int, or a tensor on any device) as a 0-d f64 tensor
+    on its device."""
+    if isinstance(step, torch.Tensor):
+        return step.to(torch.float64)
+    return torch.tensor(float(step), dtype=torch.float64)
+
+
 def build_schedule(spec: ScheduleSpec) -> Schedule:
-    """step count -> learning rate, the Keras schedule of that name."""
+    """step count -> learning rate, the Keras schedule of that name, as a 0-d
+    f64 tensor on the count's device (the CPU for an int count)."""
     p = dict(spec.params)
     kind = spec.kind
     if kind == "ExponentialDecay":
@@ -55,13 +74,14 @@ def build_schedule(spec: ScheduleSpec) -> Schedule:
         rate = float(p["decay_rate"])
         staircase = _to_bool(p.get("staircase", False))
         if steps <= 0 or rate == 0:
-            return lambda step: init
+            return lambda step: torch.full_like(_f64(step), init)
 
         def exponential(step):
-            t = step / steps
+            s = _f64(step)
+            t = s / steps
             if staircase:
-                t = math.floor(t)
-            return init if step <= 0 else init * rate**t
+                t = torch.floor(t)
+            return torch.where(s <= 0, init, init * torch.pow(rate, t))
 
         return exponential
     if kind == "InverseTimeDecay":
@@ -72,7 +92,9 @@ def build_schedule(spec: ScheduleSpec) -> Schedule:
         staircase = _to_bool(p.get("staircase", False))
 
         def inverse_time(step):
-            t = step // steps if staircase else step / steps
+            t = _f64(step) / steps
+            if staircase:
+                t = torch.floor(t)
             return init / (1.0 + rate * t)
 
         return inverse_time
@@ -82,10 +104,10 @@ def build_schedule(spec: ScheduleSpec) -> Schedule:
         power = float(p.get("power", 1.0))
         steps = int(p["decay_steps"])
         if steps <= 0:
-            return lambda step: init
+            return lambda step: torch.full_like(_f64(step), init)
 
         def polynomial(step):
-            frac = 1 - min(max(step, 0), steps) / steps
+            frac = 1 - _f64(step).clamp(0, steps) / steps
             return (init - end) * frac**power + end
 
         return polynomial
@@ -96,7 +118,12 @@ def build_schedule(spec: ScheduleSpec) -> Schedule:
         values = [float(v) for v in p["values"]]
 
         def piecewise(step):
-            return values[sum(step > b for b in boundaries)]
+            s = _f64(step)
+            passed = sum((s > b).to(torch.int64) for b in boundaries)
+            out = torch.full_like(s, values[0])
+            for i in range(1, len(values)):
+                out = torch.where(passed == i, values[i], out)
+            return out
 
         return piecewise
     if kind == "CosineDecay":
@@ -107,7 +134,7 @@ def build_schedule(spec: ScheduleSpec) -> Schedule:
             raise ValueError(f"CosineDecay requires positive decay_steps, got {steps}")
 
         def cosine(step):
-            c = 0.5 * (1 + math.cos(math.pi * min(step, steps) / steps))
+            c = 0.5 * (1 + torch.cos(math.pi * _f64(step).clamp_max(steps) / steps))
             return init * ((1 - alpha) * c + alpha)
 
         return cosine
@@ -121,16 +148,16 @@ def build_schedule(spec: ScheduleSpec) -> Schedule:
         alpha = float(p.get("alpha", 0.0))
 
         def restarts(step):
-            cf = step / t0
+            cf = _f64(step) / t0
             if t_mul == 1.0:
-                i_restart = math.floor(cf)
+                i_restart = torch.floor(cf)
                 frac = cf - i_restart
             else:
-                i_restart = math.floor(math.log1p(-cf * (1.0 - t_mul)) / math.log(t_mul))
-                sum_r = (1.0 - t_mul**i_restart) / (1.0 - t_mul)
-                frac = (cf - sum_r) / t_mul**i_restart
-            m_fac = m_mul**i_restart
-            c = 0.5 * (1.0 + math.cos(math.pi * frac))
+                i_restart = torch.floor(torch.log1p(-cf * (1.0 - t_mul)) / math.log(t_mul))
+                sum_r = (1.0 - torch.pow(t_mul, i_restart)) / (1.0 - t_mul)
+                frac = (cf - sum_r) / torch.pow(t_mul, i_restart)
+            m_fac = torch.pow(m_mul, i_restart)
+            c = 0.5 * (1.0 + torch.cos(math.pi * frac))
             return init * ((1.0 - alpha) * m_fac * c + alpha)
 
         return restarts
@@ -170,6 +197,15 @@ _STATE_TREES = {
 }
 
 
+def _add_scaled_(p: List[torch.Tensor], u: List[torch.Tensor], s: Number) -> None:
+    """p <- p + s u in place. A Python number rides `alpha`; a 0-d tensor
+    cannot (`alpha` would read it back to the host), so u is scaled first."""
+    if isinstance(s, torch.Tensor):
+        torch._foreach_add_(p, torch._foreach_mul(u, s))
+    else:
+        torch._foreach_add_(p, u, alpha=s)
+
+
 class Optimizer:
     """One Keras optimizer: `init(params)` makes its state, `step(params,
     grads, state)` applies one update in place."""
@@ -186,13 +222,17 @@ class Optimizer:
         self.clip = clip  # (option name, value) or None
         self.hyper = hyper
 
-    def lr(self, count: int) -> float:
+    def lr(self, count) -> Number:
+        """The learning rate at `count`: a Python float when it is constant,
+        else the schedule's 0-d f64 tensor on the count's device."""
         lr = self.learning_rate
-        return float(lr(count)) if callable(lr) else float(lr)
+        return lr(count) if callable(lr) else float(lr)
 
     def init(self, params) -> Dict[str, Any]:
         h = self.hyper
-        state: Dict[str, Any] = {"count": 0}
+        leaves = _leaves(params)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        state: Dict[str, Any] = {"count": torch.zeros((), dtype=torch.int32, device=device)}
         trees = list(_STATE_TREES.get(self.kind, ()))
         if self.kind == "Adam" and h["amsgrad"]:
             trees.append("vhat")
@@ -207,7 +247,7 @@ class Optimizer:
                 lambda v: torch.full_like(v, h["initial_accumulator_value"]), params
             )
         if self.kind == "Nadam":
-            state["u_prod"] = 1.0
+            state["u_prod"] = torch.ones((), dtype=torch.float32, device=device)
         return state
 
     def _clipped(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -230,14 +270,20 @@ class Optimizer:
     def step(self, params, grads, state: Dict[str, Any]) -> None:
         """params <- params + update(grads), in place; `grads` is a tree of
         the same layout. The learning rate is the schedule at the count
-        before this update."""
+        before this update. Nothing is read back to the host."""
         p = _leaves(params)
         g = self._clipped(_leaves(grads))
+        device = p[0].device if p else torch.device("cpu")
+        for name, dtype in (("count", torch.int32), ("u_prod", torch.float32)):
+            v = state.get(name)
+            if v is not None and not (isinstance(v, torch.Tensor) and v.device == device):
+                state[name] = torch.as_tensor(v, dtype=dtype).to(device)
         lr = self.lr(state["count"])
-        state["count"] += 1
-        t = state["count"]
+        state["count"].add_(1)
+        t = state["count"].to(torch.float64)
         trees = {k: _leaves(v) for k, v in state.items() if isinstance(v, Mapping)}
-        getattr(self, f"_{self.kind.lower()}")(p, g, lr, t, state, **trees)
+        dtype = p[0].dtype if p else torch.float32
+        getattr(self, f"_{self.kind.lower()}")(p, g, lr, t, dtype, state, **trees)
 
     @staticmethod
     def _moments(g, mu, nu, b1, b2) -> None:
@@ -247,7 +293,15 @@ class Optimizer:
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, g, g, value=1 - b2)
 
-    def _adam(self, p, g, lr, t, state, mu, nu, vhat=None) -> None:
+    @staticmethod
+    def _corrected_root(nu, b2, t, eps, dtype) -> List[torch.Tensor]:
+        """sqrt(nu / (1 - b2^t)) + eps: the bias-corrected second moment's root."""
+        denom = torch._foreach_div(nu, (1 - torch.pow(b2, t)).to(dtype))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        return denom
+
+    def _adam(self, p, g, lr, t, dtype, state, mu, nu, vhat=None) -> None:
         b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
         self._moments(g, mu, nu, b1, b2)
         if vhat is not None:
@@ -256,27 +310,25 @@ class Optimizer:
             torch._foreach_maximum_(vhat, nu)
             denom = torch._foreach_sqrt(vhat)
             torch._foreach_add_(denom, eps)
-            alpha = lr * math.sqrt(1 - b2**t) / (1 - b1**t)
-            torch._foreach_addcdiv_(p, mu, denom, value=-alpha)
-            return
-        denom = torch._foreach_div(nu, 1 - b2**t)  # bias-corrected nu
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        torch._foreach_addcdiv_(p, mu, denom, value=-lr / (1 - b1**t))
+            alpha = lr * torch.sqrt(1 - torch.pow(b2, t)) / (1 - torch.pow(b1, t))
+        else:
+            denom = self._corrected_root(nu, b2, t, eps, dtype)
+            alpha = lr / (1 - torch.pow(b1, t))
+        update = torch._foreach_div(mu, denom)
+        torch._foreach_mul_(update, (-alpha).to(dtype))
+        torch._foreach_add_(p, update)
 
-    def _adamw(self, p, g, lr, t, state, mu, nu) -> None:
+    def _adamw(self, p, g, lr, t, dtype, state, mu, nu) -> None:
         """optax.adamw: the Adam direction plus weight_decay * p, times -lr."""
         b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
         self._moments(g, mu, nu, b1, b2)
-        denom = torch._foreach_div(nu, 1 - b2**t)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
+        denom = self._corrected_root(nu, b2, t, eps, dtype)
         update = torch._foreach_div(mu, denom)
-        torch._foreach_mul_(update, 1 / (1 - b1**t))
+        torch._foreach_mul_(update, (1 / (1 - torch.pow(b1, t))).to(dtype))
         torch._foreach_add_(update, p, alpha=self.hyper["weight_decay"])
-        torch._foreach_add_(p, update, alpha=-lr)
+        _add_scaled_(p, update, _cast(-lr, dtype))
 
-    def _sgd(self, p, g, lr, t, state, trace=None) -> None:
+    def _sgd(self, p, g, lr, t, dtype, state, trace=None) -> None:
         if trace is not None:
             torch._foreach_mul_(trace, self.hyper["momentum"])
             torch._foreach_add_(trace, g)
@@ -284,9 +336,9 @@ class Optimizer:
                 g = torch._foreach_add(g, trace, alpha=self.hyper["momentum"])
             else:
                 g = trace
-        torch._foreach_add_(p, g, alpha=-lr)
+        _add_scaled_(p, g, _cast(-lr, dtype))
 
-    def _rmsprop(self, p, g, lr, t, state, nu, mu=None, trace=None) -> None:
+    def _rmsprop(self, p, g, lr, t, dtype, state, nu, mu=None, trace=None) -> None:
         """optax.rmsprop: g / sqrt(nu + eps) (centered: nu - mu^2 + eps),
         scaled by -lr, then the momentum trace of the scaled updates."""
         rho, eps = self.hyper["rho"], self.hyper["eps"]
@@ -300,22 +352,24 @@ class Optimizer:
         var = torch._foreach_add(var, eps)
         torch._foreach_rsqrt_(var)
         update = torch._foreach_mul(var, g)
-        torch._foreach_mul_(update, -lr)
+        torch._foreach_mul_(update, _cast(-lr, dtype))
         if trace is not None:
             torch._foreach_mul_(trace, self.hyper["momentum"])
             torch._foreach_add_(trace, update)
             update = trace
         torch._foreach_add_(p, update)
 
-    def _adagrad(self, p, g, lr, t, state, sum_of_squares) -> None:
+    def _adagrad(self, p, g, lr, t, dtype, state, sum_of_squares) -> None:
         """optax.adagrad: g / sqrt(sum of squares + eps), 0 where the sum is 0."""
         torch._foreach_addcmul_(sum_of_squares, g, g)
         eps = self.hyper["eps"]
-        for pi, gi, si in zip(p, g, sum_of_squares):
-            scale = torch.where(si > 0, torch.rsqrt(si + eps), torch.zeros_like(si))
-            pi.add_(scale * gi, alpha=-lr)
+        scaled = [
+            torch.where(si > 0, torch.rsqrt(si + eps), torch.zeros_like(si)) * gi
+            for gi, si in zip(g, sum_of_squares)
+        ]
+        _add_scaled_(p, scaled, _cast(-lr, dtype))
 
-    def _adadelta(self, p, g, lr, t, state, e_g, e_x) -> None:
+    def _adadelta(self, p, g, lr, t, dtype, state, e_g, e_x) -> None:
         """optax.adadelta: g * sqrt(e_x + eps) / sqrt(e_g + eps), then e_x
         takes the update's square."""
         rho, eps = self.hyper["rho"], self.hyper["eps"]
@@ -329,9 +383,9 @@ class Optimizer:
         torch._foreach_mul_(update, g)
         torch._foreach_mul_(e_x, rho)
         torch._foreach_addcmul_(e_x, update, update, value=1 - rho)
-        torch._foreach_add_(p, update, alpha=-lr)
+        _add_scaled_(p, update, _cast(-lr, dtype))
 
-    def _adamax(self, p, g, lr, t, state, mu, nu) -> None:
+    def _adamax(self, p, g, lr, t, dtype, state, mu, nu) -> None:
         """optax.adamax: nu <- max(|g| + eps, b2 nu); the bias-corrected mu
         over nu."""
         b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
@@ -341,24 +395,33 @@ class Optimizer:
         a = torch._foreach_abs(g)
         torch._foreach_add_(a, eps)
         torch._foreach_maximum_(nu, a)
-        torch._foreach_addcdiv_(p, mu, nu, value=-lr / (1 - b1**t))
+        update = torch._foreach_div(mu, nu)
+        torch._foreach_mul_(update, (-lr / (1 - torch.pow(b1, t))).to(dtype))
+        torch._foreach_add_(p, update)
 
-    def _nadam(self, p, g, lr, t, state, mu, nu) -> None:
+    def _nadam(self, p, g, lr, t, dtype, state, mu, nu) -> None:
         """Keras Nadam (keras/src/optimizers/nadam.py) with the momentum
-        schedule u_t = b1 (1 - 0.5 * 0.96^t) and its running product."""
+        schedule u_t = b1 (1 - 0.5 * 0.96^t) and its running product, kept in
+        float32 as the JAX package keeps it (this step's coefficients take
+        the product before it is rounded)."""
         b1, b2, eps = self.hyper["b1"], self.hyper["b2"], self.hyper["eps"]
-        u_t = b1 * (1.0 - 0.5 * 0.96**t)
-        u_t1 = b1 * (1.0 - 0.5 * 0.96 ** (t + 1))
-        u_prod = state["u_prod"] * u_t
+        u_t = b1 * (1.0 - 0.5 * torch.pow(0.96, t))
+        u_t1 = b1 * (1.0 - 0.5 * torch.pow(0.96, t + 1))
+        u_prod = state["u_prod"].to(torch.float64) * u_t
         u_prod1 = u_prod * u_t1
-        state["u_prod"] = u_prod
+        state["u_prod"].copy_(u_prod)
         self._moments(g, mu, nu, b1, b2)
-        m_hat = torch._foreach_mul(mu, u_t1 / (1 - u_prod1))
-        torch._foreach_add_(m_hat, g, alpha=(1 - u_t) / (1 - u_prod))
-        denom = torch._foreach_div(nu, 1 - b2**t)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        torch._foreach_addcdiv_(p, m_hat, denom, value=-lr)
+        m_hat = torch._foreach_mul(mu, (u_t1 / (1 - u_prod1)).to(dtype))
+        torch._foreach_add_(m_hat, torch._foreach_mul(g, ((1 - u_t) / (1 - u_prod)).to(dtype)))
+        denom = self._corrected_root(nu, b2, t, eps, dtype)
+        update = torch._foreach_div(m_hat, denom)
+        _add_scaled_(p, update, _cast(-lr, dtype))
+
+
+def _cast(s: Number, dtype: torch.dtype) -> Number:
+    """A step size in the parameters' dtype: a 0-d tensor cast, a Python
+    number as it is (the kernels round it)."""
+    return s.to(dtype) if isinstance(s, torch.Tensor) else s
 
 
 def build_optimizer(spec: OptimizerSpec) -> Optimizer:

@@ -16,9 +16,13 @@
   * evaluation with the reference metric set and optional label
     denormalization, and prediction.
 
-A step runs eagerly; `train_step_fn(meta)` exists so callers are written as
-against the JAX package, where it returns the function jitted for that
-batch shape. Unlike there, a step updates `state` in place and returns it.
+`train_step_fn(meta, layout)`, `accum_train_step_fn(meta, n_accum,
+layout)` and `eval_step_fn(meta)` return one cached step per key, as the JAX
+package returns the function jitted for that batch shape; on the card each
+is captured into a CUDA graph at its second call and replayed from then on
+(`training.capture`: the first call is the eager warm-up; `capture.eager()`
+runs every call op by op). On the CPU the steps run eagerly. Unlike in the
+JAX package, a step updates `state` in place and returns it.
 The readout's random layers (Dropout, AlphaDropout, GaussianNoise) draw from
 the trainer's own generator on its device (`Trainer.generator`), which
 `train` seeds from its `seed` (42, as the JAX package's `PRNGKey(42)`); a
@@ -52,6 +56,7 @@ from ..batch import resolve_device, to_device
 from ..data import SampleSpec, build_batch, iter_samples
 from ..data.graph import BatchMeta, PaddingConfig
 from ..model.builder import GnnModel, flatten_params, map_params, with_leaves
+from .capture import Graphs
 from .losses import get_loss, loss_reduction
 from .metrics import MetricAccumulator
 from .optimizers import build_optimizer
@@ -111,6 +116,12 @@ class Trainer:
         self.optimizer = build_optimizer(self.ir.learning.optimizer)
         # the training steps' draws (dropout masks, noise), on the device
         self.generator = torch.Generator(device=self.device).manual_seed(42)
+        # the steps' CUDA graphs: one pool and side stream, and the generator
+        # registered with every graph
+        self.graphs = Graphs(self.device, generators=(self.generator,))
+        self._train_steps: Dict[Any, Callable] = {}
+        self._accum_steps: Dict[Any, Callable] = {}
+        self._eval_steps: Dict[Any, Callable] = {}
         self._eval_batches: Dict[Any, list] = {}
         self._sized: set = set()  # metas whose footprint was estimated
 
@@ -146,7 +157,9 @@ class Trainer:
     def train_step_fn(self, meta: BatchMeta, layout=None) -> Callable:
         """`step(state, batch) -> (state, {"loss", "reg", "total"})` for
         device batches of shape `meta`: forward, backward and one optimizer
-        update of `state` in place. The metrics stay on the device.
+        update of `state` in place. The metrics stay on the device. One step
+        per `(meta, layout)`, captured and replayed on the card
+        (`training.capture`).
 
         layout: the packed-transfer layout (`training.packing`); the step
         then takes the per-dtype device buffers and unpacks them to views.
@@ -154,22 +167,26 @@ class Trainer:
         Before a meta's first step the trainer estimates the step's device
         memory and warns when one card likely cannot hold it
         (`utils.memory.maybe_warn_capacity`), as the JAX trainer does."""
-        if meta not in self._sized:
-            from ..utils.memory import maybe_warn_capacity
+        key = (meta, layout)
+        if key not in self._train_steps:
+            if meta not in self._sized:
+                from ..utils.memory import maybe_warn_capacity
 
-            self._sized.add(meta)
-            maybe_warn_capacity(self.ir, meta, log=log)
-        grads = self.grads_fn(meta)
+                self._sized.add(meta)
+                maybe_warn_capacity(self.ir, meta, log=log, captured=self.graphs.on_card)
+            grads = self.grads_fn(meta)
 
-        def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-            if layout is not None:
-                batch = unpack_arrays(batch, layout)
-            grad_tree, metrics = grads(state.params, batch)
-            self.optimizer.step(state.params, grad_tree, state.opt_state)
-            state.step += 1
-            return state, metrics
+            def update(bound, batch) -> Dict[str, torch.Tensor]:
+                params, opt_state = bound
+                if layout is not None:
+                    batch = unpack_arrays(batch, layout)
+                grad_tree, metrics = grads(params, batch)
+                self.optimizer.step(params, grad_tree, opt_state)
+                return metrics
 
-        return step
+            self._train_steps[key] = _state_step(
+                self.graphs.step(update, ("train",) + key, "the training step"))
+        return self._train_steps[key]
 
     def accum_train_step_fn(self, meta: BatchMeta, n_accum: int, layout=None) -> Callable:
         """One optimizer step over `n_accum` microbatches stacked on a
@@ -182,39 +199,45 @@ class Trainer:
           * sum-reduction losses (Keras KLDivergence): the big-batch loss is
             the sum of the microbatch sums, so the gradient sum stays, less
             the (n_accum - 1) extra copies of the L2 term's gradient that
-            entered every microbatch."""
-        grads = self.grads_fn(meta)
-        is_sum = loss_reduction(self.loss_fn) == "sum"
+            entered every microbatch.
+        One step per `(meta, n_accum, layout)`, captured and replayed on the
+        card."""
+        key = (meta, n_accum, layout)
+        if key not in self._accum_steps:
+            grads = self.grads_fn(meta)
+            is_sum = loss_reduction(self.loss_fn) == "sum"
 
-        def step(state: TrainState, stacked) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-            if layout is not None:
-                stacked = unpack_arrays(stacked, layout)
-            gsum = lsum = rsum = None
-            for i in range(n_accum):
-                g, m = grads(state.params, {k: v[i] for k, v in stacked.items()})
-                g = list(flatten_params(g).values())
-                if gsum is None:
-                    gsum, lsum, rsum = g, m["loss"], m["reg"]
+            def update(bound, stacked) -> Dict[str, torch.Tensor]:
+                params, opt_state = bound
+                if layout is not None:
+                    stacked = unpack_arrays(stacked, layout)
+                gsum = lsum = rsum = None
+                for i in range(n_accum):
+                    g, m = grads(params, {k: v[i] for k, v in stacked.items()})
+                    g = list(flatten_params(g).values())
+                    if gsum is None:
+                        gsum, lsum, rsum = g, m["loss"], m["reg"]
+                    else:
+                        torch._foreach_add_(gsum, g)
+                        lsum, rsum = lsum + m["loss"], rsum + m["reg"]
+                if is_sum:
+                    reg_total = self.model.regularization_loss(params)
+                    if reg_total.requires_grad:
+                        reg_grads = torch.autograd.grad(
+                            reg_total, list(flatten_params(params).values()),
+                            allow_unused=True, materialize_grads=True)
+                        torch._foreach_add_(gsum, reg_grads, alpha=-(n_accum - 1))
+                    loss = lsum
                 else:
-                    torch._foreach_add_(gsum, g)
-                    lsum, rsum = lsum + m["loss"], rsum + m["reg"]
-            if is_sum:
-                reg_total = self.model.regularization_loss(state.params)
-                if reg_total.requires_grad:
-                    reg_grads = torch.autograd.grad(
-                        reg_total, list(flatten_params(state.params).values()),
-                        allow_unused=True, materialize_grads=True)
-                    torch._foreach_add_(gsum, reg_grads, alpha=-(n_accum - 1))
-                loss = lsum
-            else:
-                torch._foreach_div_(gsum, n_accum)
-                loss = lsum / n_accum
-            reg = rsum / n_accum
-            self.optimizer.step(state.params, with_leaves(state.params, gsum), state.opt_state)
-            state.step += 1
-            return state, {"loss": loss, "reg": reg, "total": loss + reg}
+                    torch._foreach_div_(gsum, n_accum)
+                    loss = lsum / n_accum
+                reg = rsum / n_accum
+                self.optimizer.step(params, with_leaves(params, gsum), opt_state)
+                return {"loss": loss, "reg": reg, "total": loss + reg}
 
-        return step
+            self._accum_steps[key] = _state_step(
+                self.graphs.step(update, ("accum",) + key, "the accumulation step"))
+        return self._accum_steps[key]
 
     def grads_fn(self, meta: BatchMeta) -> Callable:
         """`grads(params, batch) -> (gradient tree, {"loss", "reg", "total"})`:
@@ -237,15 +260,19 @@ class Trainer:
 
     def eval_step_fn(self, meta: BatchMeta) -> Callable:
         """`step(params, batch) -> (predictions, loss)`, float32 compute and no
-        graph, as the JAX package's evaluation step."""
+        graph, as the JAX package's evaluation step. One step per meta,
+        captured and replayed on the card."""
+        if meta not in self._eval_steps:
 
-        def step(params, batch):
-            with torch.no_grad():
-                preds = self.model.apply(params, batch, meta)
-                loss = self.loss_fn(batch["label"], preds, batch["label_mask"])
-            return preds, loss
+            def evaluate(params, batch):
+                with torch.no_grad():
+                    preds = self.model.apply(params, batch, meta)
+                    loss = self.loss_fn(batch["label"], preds, batch["label_mask"])
+                return preds, loss
 
-        return step
+            self._eval_steps[meta] = self.graphs.step(evaluate, ("eval", meta),
+                                                      "the evaluation step")
+        return self._eval_steps[meta]
 
     # ------------------------------------------------------------------
     # input pipeline
@@ -410,9 +437,10 @@ class Trainer:
         copied with `non_blocking` on a side CUDA stream; an event recorded
         after the copies is what the consuming stream waits on, and each
         tensor is marked as used by that stream so that the allocator does
-        not hand its memory out again while a step still reads it. The
-        device-side half of the reference's tf.data prefetch
-        (generate_model.py:188-198)."""
+        not hand its memory out again while a step still reads it. A
+        replayed step copies the staged arrays into its graph's buffers on
+        the consuming stream, so after that wait. The device-side half of
+        the reference's tf.data prefetch (generate_model.py:188-198)."""
         device = self.device
         stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         q: queue.Queue = queue.Queue(maxsize=size)
@@ -996,11 +1024,29 @@ class Trainer:
             yield preds, arrays
 
     def _predict_fn(self, meta: BatchMeta) -> Callable:
-        def predict(params, batch):
-            with torch.no_grad():
-                return self.model.apply(params, batch, meta)
+        key = ("predict", meta)
+        if key not in self._eval_steps:
 
-        return predict
+            def predict(params, batch):
+                with torch.no_grad():
+                    return self.model.apply(params, batch, meta)
+
+            self._eval_steps[key] = self.graphs.step(predict, key, "the prediction step")
+        return self._eval_steps[key]
+
+
+def _state_step(update: Callable) -> Callable:
+    """`step(state, batch) -> (state, metrics)` over `update((params,
+    opt_state), batch) -> metrics`, a captured step that updates the state's
+    tensors in place; the host-side step count is kept here, since a replay
+    runs no Python of the update."""
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        metrics = update((state.params, state.opt_state), batch)
+        state.step += 1
+        return state, metrics
+
+    return step
 
 
 def _summary_writer(directory: str):
@@ -1094,8 +1140,8 @@ def _flat_cpu(tree) -> Dict[str, Any]:
 
 def _copied_into(tree, saved: Mapping[str, Any], what: str, where: str):
     """`tree` with the saved values: tensor leaves copied into in place
-    (keeping their device, dtype and requires_grad), other leaves (the
-    optimizer's count) taken as saved."""
+    (keeping their device, dtype and requires_grad, so that a captured step
+    stays bound to them), other leaves taken as saved."""
     live = flatten_params(tree)
     if set(live) != set(saved):
         raise ValueError(
@@ -1107,12 +1153,15 @@ def _copied_into(tree, saved: Mapping[str, Any], what: str, where: str):
     with torch.no_grad():
         for k, v in live.items():
             if isinstance(v, torch.Tensor):
-                if tuple(v.shape) != tuple(saved[k].shape):
+                # a checkpoint written before the count and Nadam's product
+                # were tensors holds them as Python numbers
+                value = torch.as_tensor(saved[k])
+                if tuple(v.shape) != tuple(value.shape):
                     raise ValueError(
                         f"the checkpoint {where} holds {what} '{k}' of shape "
-                        f"{tuple(saved[k].shape)}, this model {tuple(v.shape)}"
+                        f"{tuple(value.shape)}, this model {tuple(v.shape)}"
                     )
-                v.copy_(saved[k])
+                v.copy_(value)
                 leaves.append(v)
             else:
                 leaves.append(saved[k])

@@ -147,11 +147,14 @@ def recommended_shards(total_bytes: float, hbm_gb: float = None) -> int:
     return m
 
 
-def maybe_warn_capacity(model_ir, meta, batch_bytes=None, log=None) -> int:
+def maybe_warn_capacity(model_ir, meta, batch_bytes=None, log=None, captured=False) -> int:
     """Estimate the footprint and warn when a single card likely cannot
-    hold it; returns the recommended shard count (1 = fits)."""
+    hold it; returns the recommended shard count (1 = fits). `captured`:
+    the step replays a CUDA graph, whose static input buffers hold one more
+    copy of the batch (`training.capture`)."""
     est = estimate_train_hbm(model_ir, meta, batch_bytes=batch_bytes)
-    m = recommended_shards(est["total_bytes"])
+    total = est["total_bytes"] + (est["batch_bytes"] if captured else 0.0)
+    m = recommended_shards(total)
     if m > 1 and log is not None:
         log.warning(
             "estimated training footprint %.1f GB exceeds the usable 65%% of "
@@ -159,6 +162,6 @@ def maybe_warn_capacity(model_ir, meta, batch_bytes=None, log=None) -> int:
             "model_strategy='dest_shard' and a model axis of >=%d "
             "(Trainer.train(mesh=..., model_strategy='dest_shard')) to split "
             "it, or use a smaller batch_size",
-            est["total_bytes"] / 1e9, DEFAULT_HBM_GB, m,
+            total / 1e9, DEFAULT_HBM_GB, m,
         )
     return m
