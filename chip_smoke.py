@@ -4068,6 +4068,149 @@ def convergence(root: str, card: str) -> dict:
     return out
 
 
+# (g): docs/ab_convergence_qsize.json's configuration
+QSIZE_RECORD = dict(steps=3000, batch=4, n_train=300, n_eval=100, per_archive=25,
+                    sample=dict(n_links=14, n_paths=18, max_path_len=5), seed=0)
+
+
+def qsize_record_description() -> dict:
+    """The model of docs/ab_convergence_qsize.json (`tests/helpers.py`'s
+    `qsize_description(4, 16)`): Q-size's interleave of link and node states
+    into each path's sequence and its sums into links and nodes, features as
+    they are, the log of the delay as the label, a 64-unit selu readout and
+    Adam at 1e-3 under the examples' slow ExponentialDecay."""
+    d = qsize_description(num_iterations=4, hs=16)
+    for entity in d["entities"]:
+        for feature in entity["features"]:
+            feature.pop("normalization")
+    d["readout"][0].update(label_normalization="log", nn_name="readout_model")
+    dense = lambda units, act, reg: {"type_layer": "Dense", "units": units,  # noqa: E731
+                                     "activation": act, "kernel_regularizer": reg}
+    d["neural_networks"] = [
+        {"nn_name": "readout_model", "nn_type": "feed_forward",
+         "nn_architecture": [dense(64, "selu", 0.1), dense(1, "None", 0.01)]},
+        {"nn_name": "state_update", "nn_type": "recurrent_neural_network",
+         "recurrent_type": "GRU"}]
+    for stage in d["message_passing"]["stages"]:
+        for mp in stage["stage_mp"]:
+            mp["update"]["nn_name"] = "state_update"
+    d["learning_options"]["optimizer"]["schedule"] = {
+        "type": "ExponentialDecay", "initial_learning_rate": 0.001, "decay_steps": 80000,
+        "decay_rate": 0.6}
+    return d
+
+
+def qsize_record(root: str, card: str, seed: int = SEED, hold: bool = True) -> dict:
+    """(g): the interleave against a record of the TF reference.
+    docs/ab_convergence_qsize.json holds the reference's Q-size run (hs 16,
+    4 iterations, 3,000 steps of batch 4 over 300 graphs of 14 links and 18
+    paths with nodes, Adam 1e-3): R² and the mean loss+reg of its last 50
+    steps. The same configuration through the port's `Trainer.train` in f32
+    (the data from the port's copy of `write_dataset` with the record's
+    seeds; batches cached on the device, so that the graphs replay), then
+    `Trainer.evaluate` over the 100 eval graphs denormalized with exp.
+    `seed` draws the initial weights and shuffles the batch stream, so that
+    a run repeats (`qsize_record_spread` reads the spread over seeds). The
+    initial weights and the batch order are not the A/B's: held (`hold`)
+    are R² at least the reference's less 0.03 and the last-50 mean within
+    10% of the reference's."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.data import find_dataset_dimensions
+    from ignnition_tpu_torch.data.synthetic import write_dataset
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                           "ab_convergence_qsize.json")) as f:
+        record = json.load(f)
+    c = QSIZE_RECORD
+    want = {k: record["config"][k] for k in ("steps", "batch", "n_train", "n_eval", "seed")}
+    if want != {k: c[k] for k in want} or record["config"]["hs"] != 16 or \
+            record["config"]["iters"] != 4:
+        raise AssertionError(f"(g) docs/ab_convergence_qsize.json's configuration "
+                             f"{record['config']} is not the one run here")
+    train_dir, eval_dir = os.path.join(root, "qsize_train"), os.path.join(root, "qsize_eval")
+    write_dataset(train_dir, c["n_train"] // c["per_archive"], c["per_archive"], seed=c["seed"],
+                  with_nodes=True, **c["sample"])
+    write_dataset(eval_dir, c["n_eval"] // c["per_archive"], c["per_archive"],
+                  seed=c["seed"] + 1000, with_nodes=True, **c["sample"])
+    ir = igt.parse_model_description(qsize_record_description(),
+                                     find_dataset_dimensions(train_dir))
+    trainer = igt.Trainer(igt.build(ir))
+    t0 = time.perf_counter()
+    with StepLosses() as losses:
+        state = trainer.train(trainer.init_state(torch.Generator().manual_seed(seed)), train_dir,
+                              c["steps"], batch_size=c["batch"], shuffle=True, log_every=1,
+                              cache_batches="device", seed=seed)
+    train_s = time.perf_counter() - t0
+    m = trainer.evaluate(state, eval_dir, num_batches=c["n_eval"] // c["batch"],
+                         batch_size=c["batch"], denormalization=igt.get_normalization("exp"),
+                         label_name="delay")
+    totals = [row[2] for row in losses.rows]
+    last50 = float(np.mean(totals[-50:]))
+    ref = record["reference"]
+    ref_r2, ref_last50 = ref["metrics"]["r2"], ref["final_loss_mean_last50"]
+    gap = abs(last50 - ref_last50) / ref_last50
+    keys = len({k for k in trainer.graphs.captured if k[0] == "train"})
+    print(f"[api] (g) Q-size, docs/ab_convergence_qsize.json's configuration, f32, seed "
+          f"{seed}: R² "
+          f"{m['r-squared']:.5f}, MAE {m['mae']:.6f}, MRE {m['mre']:.5f}, mean loss+reg of the "
+          f"last 50 steps {last50:.6f} ({len(totals)} steps in {train_s:.1f} s, {keys} batch "
+          f"shapes captured); the TF reference R² {ref_r2:.5f}, last-50 {ref_last50:.6f}; the "
+          f"JAX package R² {record['repo']['metrics']['r2']:.5f}, last-50 "
+          f"{record['repo']['final_loss_mean_last50']:.6f}; held: R² >= {ref_r2 - 0.03:.5f}, "
+          f"last-50 within 10% of the reference's ({gap:.1%}); {card}")
+    result = dict(r2=m["r-squared"], mae=m["mae"], mre=m["mre"], last50_loss=last50,
+                  train_seconds=train_s, reference_r2=ref_r2, reference_last50=ref_last50,
+                  last50_gap=gap, losses=totals)
+    if not hold:
+        return result
+    if len(totals) != c["steps"]:
+        raise AssertionError(f"(g) {len(totals)} steps logged, not {c['steps']}")
+    if not m["r-squared"] >= ref_r2 - 0.03:
+        raise AssertionError(f"(g) R² {m['r-squared']:.5f} below {ref_r2 - 0.03:.5f}")
+    if not gap <= 0.10:
+        raise AssertionError(f"(g) the last-50 loss lies {gap:.1%} from the reference's")
+    return {k: v for k, v in result.items() if k != "losses"}
+
+
+def qsize_record_spread(seeds: int = 10) -> None:
+    """Phase 9 (g)'s run at seeds 0 .. seeds-1 and at seed 0 once more,
+    without the other phases and without its holds: the spread of R² and
+    of the last-50 gap over seeds, each run's margin to the holds, and
+    whether a seed repeats its losses bitwise:
+    `python3 -c "import chip_smoke as c; c.qsize_record_spread(10)"`."""
+    import shutil
+    import tempfile
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ignnition_tpu_torch.ops.cuda import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    _build.library()
+    root = tempfile.mkdtemp(prefix="chip_smoke_qsize_")
+    try:
+        runs = [qsize_record(os.path.join(root, str(i)), card, seed=seed, hold=False)
+                for i, seed in enumerate(list(range(seeds)) + [0])]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gaps, r2 = [r["last50_gap"] for r in runs[:-1]], [r["r2"] for r in runs[:-1]]
+    floor = runs[0]["reference_r2"] - 0.03
+    print(f"[api] (g) over seeds 0-{seeds - 1}: last-50 gap {min(gaps):.2%} - {max(gaps):.2%} "
+          f"(mean {np.mean(gaps):.2%}, sd {np.std(gaps, ddof=1):.2%}; held within 10%, "
+          f"{sum(g > 0.10 for g in gaps)} past it); R² {min(r2):.5f} - {max(r2):.5f} (held "
+          f">= {floor:.5f}, {sum(v < floor for v in r2)} below); seed 0 again: gap "
+          f"{runs[-1]['last50_gap']:.2%}, losses bitwise equal to its first run: "
+          f"{runs[-1]['losses'] == runs[0]['losses']}; {card}")
+    print(json.dumps({"gaps": gaps, "r2": r2, "seed0_again": {
+        "gap": runs[-1]["last50_gap"], "r2": runs[-1]["r2"],
+        "bitwise": runs[-1]["losses"] == runs[0]["losses"]}, "card": card}))
+
+
 def entry_points(dev, card: str, flagship_step_ms: float) -> dict:
     """Phase 9: the user's entry points on the examples' RouteNet
     (`examples/routenet/model_description.yaml`: hs=32, 8 iterations,
@@ -4076,7 +4219,7 @@ def entry_points(dev, card: str, flagship_step_ms: float) -> dict:
     kernel path against the plain path over `train()`'s first steps, (f) the
     launch counts of every verb and the profile of a step, (b) what the input
     pipeline costs, (c) accumulation against merging, (d) convergence in
-    bf16 and f32."""
+    bf16 and f32, (g) Q-size's interleave against the TF reference's record."""
     import shutil
     import tempfile
 
@@ -4135,6 +4278,7 @@ def entry_points(dev, card: str, flagship_step_ms: float) -> dict:
                                             flagship_step_ms)
         result["accumulation"] = accumulation_vs_merging(ir, train_dir, card, edges)
         result["convergence"] = convergence(root, card)
+        result["qsize_record"] = qsize_record(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print("[api] main path launch counts: " + ", ".join(f"{k} {v}" for k, v in total.items()))
@@ -4499,6 +4643,90 @@ def optimizers(dev, counts, add, padding, arrays, meta, tree) -> dict:
     return out
 
 
+# (b)'s leaves where the kernel path's step-0 gradients lay furthest from f64
+GAP_LEAVES = ("layers/3/kernel", "layers/1/gamma")
+
+
+def gradient_gap_by_kernel(dev, card: str, padding, arrays, meta, tree) -> dict:
+    """(b): which kernel's summation order puts the kernel path's f32
+    step-0 gradients of (a)'s model further from f64 than the plain path's.
+    The gradients on the card from one generator state (the same masks), with
+    kernel B, kernel C, both, or kernel A swapped for its plain version in
+    f32, and B or C for its plain version computed in f64
+    (`_gru_scan_swapped`), each set beside the kernel path and the plain
+    path: of each leaf's largest entry, its distance from the plain path in
+    f64 on the card at `GAP_LEAVES` and at its worst leaf, and how far the
+    path states that reach the readout lie from the f64 run's. A swap
+    accounts for the share (kernels - swap) / (kernels - plain) of the gap
+    at a leaf. Printed, not held."""
+    import ignnition_tpu_torch as igt
+    import ignnition_tpu_torch.nn.rnn as t_rnn
+    import ignnition_tpu_torch.ops.segment as t_seg
+    from ignnition_tpu_torch.model.builder import GnnModel
+    from ignnition_tpu_torch.ops.cuda import segment_kernels as sk
+
+    ir = igt.parse_model_description(layers_description(), FEATURE_DIMS)
+    swaps = {
+        "kernels (as run)": {},
+        "plain path": None,
+        "B plain (f32)": dict(scan=_gru_scan_swapped(True, False)),
+        "C plain (f32)": dict(scan=_gru_scan_swapped(False, True)),
+        "B plain in f64": dict(scan=_gru_scan_swapped(True, False, f64=True)),
+        "C plain in f64": dict(scan=_gru_scan_swapped(False, True, f64=True)),
+        "B and C plain (f32)": dict(scan=_gru_scan_swapped(True, True)),
+        "A plain (f32)": dict(sums=(sk.sorted_segment_sum_csr_plain,
+                                    sk.sorted_segment_sum_csr_windows_plain)),
+    }
+    orig = (t_rnn.masked_gru_scan, t_seg.sorted_segment_sum_csr,
+            t_seg.sorted_segment_sum_csr_windows, GnnModel._readout)
+    seen = {}
+
+    def spy(self, params, batch, meta, states, *rest, **kw):
+        seen["path"] = states["path"].detach().to("cpu", torch.float64, copy=True)
+        return orig[3](self, params, batch, meta, states, *rest, **kw)
+
+    def run(swap, compute_dtype=None):
+        """The gradients and the path states at the readout under `swap`."""
+        GnnModel._readout = spy
+        try:
+            if swap is None:
+                with plain_on_card():
+                    g = _grads(ir, tree, arrays, meta, padding, dev, compute_dtype)
+            else:
+                t_rnn.masked_gru_scan = swap.get("scan", orig[0])
+                t_seg.sorted_segment_sum_csr, t_seg.sorted_segment_sum_csr_windows = swap.get(
+                    "sums", orig[1:3])
+                g = _grads(ir, tree, arrays, meta, padding, dev, compute_dtype)
+        finally:
+            (t_rnn.masked_gru_scan, t_seg.sorted_segment_sum_csr,
+             t_seg.sorted_segment_sum_csr_windows, GnnModel._readout) = orig
+        return g, seen.pop("path")
+
+    ref, ref_states = run(None, torch.float64)
+    leaves = {want: next(k for k in ref if k.endswith("/" + want)) for want in GAP_LEAVES}
+    out = {}
+    for name, swap in swaps.items():
+        g, states = run(swap)
+        gaps = {k: float((g[k] - v).abs().max() / max(float(v.abs().max()), 1e-30))
+                for k, v in ref.items()}
+        worst = max(gaps, key=gaps.get)
+        out[name] = dict(leaves={w: gaps[k] for w, k in leaves.items()}, worst_leaf=worst,
+                         worst=gaps[worst], states=float(
+                             (states - ref_states).abs().max() / ref_states.abs().max()))
+    kern, plain = out["kernels (as run)"]["leaves"], out["plain path"]["leaves"]
+    for name, r in out.items():
+        share = {w: (kern[w] - r["leaves"][w]) / (kern[w] - plain[w])
+                 if kern[w] != plain[w] else float("nan") for w in GAP_LEAVES}
+        r["share_of_gap"] = share
+        print(f"  (b) step-0 f32 gradients, {name}: from the plain path in f64 (card) "
+              + ", ".join(f"{w} {r['leaves'][w]:.3e} ({share[w]:.0%} of the gap)"
+                          for w in GAP_LEAVES)
+              + f"; worst leaf {r['worst_leaf']} {r['worst']:.3e}; the path states at the "
+              f"readout {r['states']:.3e} from the f64 run's")
+    print(f"[language] (b) the gradient gap by kernel: kernels {kern}, plain {plain}; {card}")
+    return out
+
+
 def attention_reference(dev, card: str, counts, add) -> dict:
     """(c): phase 5's attention flagship with `attention_softmax: reference`
     (the reference's softmax over each graph's destinations): the per-edge
@@ -4640,8 +4868,10 @@ def tensorboard_run(dev, counts, add) -> dict:
 
 def description_language(dev, card: str) -> dict:
     """Phase 10: (a) the flagship with every built-in layer and a registered
-    one in its readout, (b) every optimizer, (c) the reference attention
-    softmax, (d) attention over Q-size's two sources, (e) TensorBoard."""
+    one in its readout, (b) every optimizer and which kernel's order puts
+    the kernel path's f32 gradients further from f64, (c) the reference
+    attention softmax, (d) attention over Q-size's two sources, (e)
+    TensorBoard."""
     import ignnition_tpu_torch as igt
 
     counts = Counts()
@@ -4656,6 +4886,8 @@ def description_language(dev, card: str) -> dict:
     result["flagship_layers"], (padding, arrays, meta, tree) = flagship_layers(
         dev, card, counts, add)
     result["optimizers"] = optimizers(dev, counts, add, padding, arrays, meta, tree)
+    result["gradient_gap_by_kernel"] = gradient_gap_by_kernel(dev, card, padding, arrays, meta,
+                                                              tree)
     result["attention_reference"] = attention_reference(dev, card, counts, add)
     result["qsize_attention"] = qsize_attention(dev, card, counts, add)
     result["tensorboard"] = tensorboard_run(dev, counts, add)
@@ -5132,7 +5364,98 @@ def memory_model(card: str) -> dict:
         del state, batch, step, trainer
         if ratio < 1.0:
             raise AssertionError(f"{name}: the memory estimate falls below the measured peak")
+    out["usable_fraction"] = usable_fraction(card)
     return out
+
+
+def usable_fraction(card: str) -> dict:
+    """The share of the card's memory a training step can use, measured on
+    the flagship_x8 bf16 step in this process as the earlier phases left it
+    (their kernels built, their graphs captured). What the CUDA context,
+    the libraries and the kernels take (the card's total less what is free
+    and what PyTorch holds, `mem_get_info`) leaves the rest to PyTorch's
+    allocator, which reserves more than the step allocates. Its overhead is
+    read on two paths, each from a fresh trainer's state and batch:
+      eager: 2 steps under `capture.eager()`;
+      replayed: the path a user's training runs on the card, 5 steps
+        through the trainer's graphs (a warm-up on its side stream, a
+        capture into its pool with static copies of the inputs, 3 replays).
+    The overhead is the allocator's peak reserved over the path, above what
+    it held before the state was made, over what the estimate stands for:
+    the eager path's peak allocated above the same point, plus, replayed,
+    the static copies (`maybe_warn_capacity(captured=True)` adds them).
+    Before each path the allocator's cache is emptied, so that no block that
+    earlier work freed is taken again unseen, which would read the reserve
+    low (a capture empties it too). usable = (total - outside) / total /
+    the larger overhead, beside `utils.memory.USABLE_FRACTION`, which must
+    not lie above it by more than 0.02. Printed, not held: the process's
+    peak reserved over its peak allocated on the replayed path, with what
+    earlier phases hold."""
+    import gc
+
+    from ignnition_tpu_torch.batch import to_device
+    from ignnition_tpu_torch.training import capture
+    from ignnition_tpu_torch.utils import memory
+
+    size, graphs = MEMORY_SIZES["flagship_x8"]
+
+    def path(calls: int, eager: bool) -> dict:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        _, trainer, state, [(arrays, meta)] = _train_setup(
+            flagship_description(), size, torch.bfloat16, SEED + 12, graphs)
+        batch = to_device(arrays, trainer.device)
+        step = trainer.train_step_fn(meta)
+        with capture.eager() if eager else contextlib.nullcontext():
+            for _ in range(calls):
+                step(state, batch)
+        torch.cuda.synchronize()
+        captured = trainer.graphs.captured[("train", meta, None)]
+        out = dict(allocated=torch.cuda.max_memory_allocated() - allocated,
+                   reserved=torch.cuda.max_memory_reserved() - reserved,
+                   process=torch.cuda.max_memory_reserved() / torch.cuda.max_memory_allocated(),
+                   before=(allocated, reserved), last=captured.last,
+                   pool=captured.pool_bytes or 0, static=trainer.graphs.static_bytes())
+        del state, batch, step, trainer, captured
+        return out
+
+    eager, replayed = path(2, eager=True), path(5, eager=False)
+    if (eager["last"], replayed["last"]) != ("eager", "replay"):
+        raise AssertionError(f"usable fraction: the paths ran {eager['last']} and "
+                             f"{replayed['last']}, not eager and replay")
+    gc.collect()
+    need = eager["allocated"]
+    overhead = {"eager": eager["reserved"] / need,
+                "replayed": replayed["reserved"] / (need + replayed["static"])}
+    free, total = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
+    left = (total - outside) / total
+    usable = {k: left / v for k, v in overhead.items()}
+    least = min(usable.values())
+    mib = lambda b: f"{b / 2**20:.0f} MiB"  # noqa: E731
+    print(f"[memory] usable fraction of the card: the context, libraries and kernels take "
+          f"{mib(outside)} of {total / 2**30:.2f} GiB ({left:.4f} left to the allocator). The "
+          f"flagship_x8 step from a fresh state allocates {mib(need)} at its eager peak (above "
+          f"the {mib(eager['before'][0])} allocated / {mib(eager['before'][1])} reserved "
+          f"before it). Eager, the allocator reserves {mib(eager['reserved'])}: "
+          f"{overhead['eager']:.4f}x, usable {usable['eager']:.4f}. Replayed (warm-up, "
+          f"capture, 3 replays), it reserves {mib(replayed['reserved'])} (pool "
+          f"{mib(replayed['pool'])}, static inputs {mib(replayed['static'])}) against "
+          f"{mib(need + replayed['static'])} with the static copies: "
+          f"{overhead['replayed']:.4f}x, usable {usable['replayed']:.4f}. The process's peak "
+          f"reserved / peak allocated on the replayed path, earlier phases' pools included: "
+          f"{replayed['process']:.4f}. utils.memory.USABLE_FRACTION holds "
+          f"{memory.USABLE_FRACTION} (the lesser usable: {least:.4f}); on {card}")
+    if memory.USABLE_FRACTION > least + 0.02:
+        raise AssertionError(f"USABLE_FRACTION {memory.USABLE_FRACTION} lies above this card's "
+                             f"{least:.4f}")
+    return dict(outside_mib=outside / 2**20, total_gib=total / 2**30, need_mib=need / 2**20,
+                overhead=overhead, usable=usable, least=least,
+                process_ratio=replayed["process"], pool_mib=replayed["pool"] / 2**20,
+                static_mib=replayed["static"] / 2**20, held=memory.USABLE_FRACTION)
 
 
 def _parallel_rows(dtype):
@@ -5228,7 +5551,7 @@ def parallel_rank(job_dir: str, port: str, rank: str, world: str, backend: str) 
                 losses.append(float(loss))
                 params.append({k: v.detach().float().cpu()
                                for k, v in flatten_params(state.params).items()})
-            launched = counts.read()
+            launched, held = counts.read(), counts.held()
             # one more step under the profiler: the all-reduces' share (the
             # model axis's, forward and backward, and the gradients'; each
             # call waits for its collective on the host)
@@ -5248,10 +5571,13 @@ def parallel_rank(job_dir: str, port: str, rank: str, world: str, backend: str) 
                 coords=mesh.coords, losses=losses, params=params if rank == 0 else None,
                 checksum=[float(sum(float(v.double().sum()) for v in p.values()))
                           for p in params],
-                launches=launched, step_ms=times, profiled_step_ms=wall,
-                allreduce_ms=reduce_ms)
+                launches=launched, held_launches=held, step_ms=times, profiled_step_ms=wall,
+                allreduce_ms=reduce_ms, captured=step.captured, why_eager=step.why_eager)
             del state, step, trainer, batches, stacked
             dist.barrier()
+    if job.get("compiled"):
+        out["compiled"] = compiled_mesh_rank(make_mesh(1, 1), counts,
+                                             torch.device("cuda", torch.cuda.current_device()))
     with open(os.path.join(job_dir, f"out_{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
@@ -5342,7 +5668,8 @@ def sharded_steps(card: str) -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
     t0 = time.perf_counter()
     worlds = {"gloo": spawn_parallel_world(4, "gloo", PARALLEL_MESHES, root)}
-    worlds["nccl"] = spawn_parallel_world(1, "nccl", ((1, 1),), root)
+    # the NCCL world also runs phase 15's work (`compiled_mesh_rank`)
+    worlds["nccl"] = spawn_parallel_world(1, "nccl", ((1, 1),), root, job={"compiled": True})
     print(f"[parallel] worlds spawned and run in {time.perf_counter() - t0:.1f} s (gloo: 4 "
           f"processes on one card, meshes {PARALLEL_MESHES}; nccl: 1 process)")
     total = {k: 0 for k in Counts().read()}
@@ -5387,12 +5714,21 @@ def sharded_steps(card: str) -> dict:
                                              f"single-device step's")
                     held = (f"losses {lead['losses']} against {ref['losses']} (max |diff| "
                             f"{max(diffs):.3e}, atol {BF16_STEP_ATOL})")
+                # a gloo mesh steps eagerly; the NCCL world of one replays
+                # its third step (the launches held: those from Python and
+                # each replay's recorded ones)
+                for g in got:
+                    if g["captured"] != (backend == "nccl") or (
+                            backend == "gloo" and "gloo" not in g["why_eager"]):
+                        raise AssertionError(f"{what}: captured {g['captured']}, "
+                                             f"{g['why_eager']}")
                 want = _expected_parallel_launches(shape[1])
                 for g in got:
-                    expect_counts(f"{what} rank {g['coords']}", g["launches"], **want)
+                    expect_counts(f"{what} rank {g['coords']}", g["held_launches"], **want)
                     for k, v in g["launches"].items():
                         total[k] += v
-                step_ms = float(np.median(lead["step_ms"][1:]))
+                # from the second step, or past the capture where it replays
+                step_ms = float(np.median(lead["step_ms"][2 if lead["captured"] else 1:]))
                 # the gradients are all-reduced over every mesh of 2 or more
                 # ranks, the model axis's partials over a model axis of 2 or more
                 must = ([GRADIENT_ALL_REDUCE] if shape[0] * shape[1] > 1 else []) + (
@@ -5403,8 +5739,12 @@ def sharded_steps(card: str) -> dict:
                                          f"in {unseen}")
                 reduce_ms = sum(lead["allreduce_ms"].values())
                 share = reduce_ms / lead["profiled_step_ms"]
+                print(f"[parallel] {what}: "
+                      + ("captured into CUDA graphs (NCCL)" if lead["captured"] else
+                         f"eager: {lead['why_eager']}"))
                 print(f"[parallel] {what}: {held}; step {step_ms:.1f} ms (median of steps "
-                      f"2-{PARALLEL_STEPS}, CUDA events, rank (0, 0)); profiled step "
+                      f"{3 if lead['captured'] else 2}-{PARALLEL_STEPS}, CUDA events, rank (0, "
+                      f"0)); profiled step "
                       f"{lead['profiled_step_ms']:.1f} ms, all-reduces {reduce_ms:.1f} ms "
                       f"({share:.1%}: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                     lead["allreduce_ms"].items())
@@ -5414,7 +5754,7 @@ def sharded_steps(card: str) -> dict:
                                  launches_per_rank=[g["launches"] for g in got])
     print("[parallel] launch counts, every rank of every world: "
           + ", ".join(f"{k} {v}" for k, v in total.items()))
-    return dict(launches=total, meshes=out)
+    return dict(launches=total, meshes=out, compiled_ranks=worlds["nccl"])
 
 
 def phase12_alone() -> None:
@@ -5673,6 +6013,7 @@ def destshard_rank(job_dir: str, port: str, rank: str, world: str, backend: str)
                         ms = e.time_range.elapsed_us() / 1e3
                         device[e.name] = device.get(e.name, 0.0) + ms
                         busy += ms
+                res.update(captured=step.captured, why_eager=step.why_eager)
                 res.update(losses=losses, step_ms=times, profiled_step_ms=wall, host_ms=host,
                            device_busy_ms=busy,
                            scatter_add_ms=sum(v for k, v in device.items()
@@ -5758,6 +6099,11 @@ def destshard_steps(card: str) -> dict:
                 if len({tuple(g["checksum"]) for g in got}) != 1:
                     raise AssertionError(f"{what}: the ranks' parameters differ")
                 lead = got[0]
+                if any(g["captured"] or "gloo" not in g["why_eager"] for g in got):
+                    raise AssertionError(f"{what}: a rank's step is not eager over gloo")
+                if order == DEST_ORDERS[0] and dtype == torch.float32:
+                    print(f"[dest_shard] {n_data}x{m}: every rank's step eager: "
+                          f"{lead['why_eager']}")
                 if dtype == torch.float32:
                     np.testing.assert_allclose(lead["losses"], ref["losses"], rtol=1e-5,
                                                err_msg=what)
@@ -5947,9 +6293,13 @@ def profiled_calls(fn, runs: int = 5) -> dict:
             if e.name.startswith(names):
                 host[kind] += 1
     host["kernel"] = max(0, host["kernel"] - 1)  # the sleep kernel's launch
+    names = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    htod = sum(e.time_range.elapsed_us() / 1e3 for e in events
+               if e.device_type == DeviceType.CUDA and "HtoD" in e.name)
     out = dict(busy_ms=busy / runs, device_activities=activities / runs,
-               port_kernels=port_kernels_by_name(
-                   [e.name for e in events if e.device_type == DeviceType.CUDA], runs))
+               port_kernels=port_kernels_by_name(names, runs),
+               nccl_kernels=sorted({n for n in names if "nccl" in n.lower()}),
+               htod_ms=htod / runs)
     out.update({f"host_{k}_launches": v / runs for k, v in host.items()})
     return out
 
@@ -6377,6 +6727,294 @@ def compiled_steps(dev, card: str, homogeneous_samples: dict, served: dict,
                 accumulation=accum, train_device_cache_ms=loop)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the compiled sharded steps (CUDA graphs over NCCL)
+# --------------------------------------------------------------------------
+
+COMPILED_MESH_CALLS = 5  # calls of each sharded function, eagerly and then replayed
+MESH_FUNCTIONS = ("data-parallel step", "destination-sharded step", "data-parallel forward",
+                  "destination-sharded forward")
+
+
+def compiled_mesh_inputs(ir) -> tuple:
+    """(padding, {"dp": (stacked, meta), "es": (stacked, local meta)}): one
+    flagship graph (2,048 links, 16,384 paths of length 8) stacked for a 1x1
+    mesh, and partitioned into its one cell (`edgeshard._partition`: one
+    shard, no halo)."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.parallel import edgeshard, stack_batches
+
+    padding = igt.PaddingConfig(mode="multiple", multiple=256, min_size=256)
+    rng = np.random.default_rng(SEED + 15)
+    arrays, meta = igt.build_batch([make_sample(rng, **FLAGSHIP)], ir, padding, training=True)
+    stacked, meta = stack_batches([(arrays, meta)], ir)
+    part, local = edgeshard._partition(arrays, meta, ir, 1)
+    return padding, dict(dp=(stacked, meta), es=({k: v[None] for k, v in part.items()}, local))
+
+
+def _mesh_function(name, trainer, mesh, inputs):
+    """(call(state) -> loss or predictions, the sharded step) of one of
+    `MESH_FUNCTIONS`, built with the trainer's graphs."""
+    from ignnition_tpu_torch import parallel as par
+
+    stacked, meta = inputs["dp" if name.startswith("data") else "es"]
+    kw = dict(compute_dtype=trainer.compute_dtype, graphs=trainer.graphs)
+    t = trainer
+    if name.endswith("step"):
+        make = (par.make_parallel_train_step if name.startswith("data")
+                else par.make_edgeshard_train_step)
+        step = make(t.model, t.optimizer, t.loss_fn, meta, mesh, **kw)
+        return (lambda state: step(state.params, state.opt_state, stacked,
+                                   generator=t.generator)[2]), step
+    make = par.make_parallel_apply if name.startswith("data") else par.make_edgeshard_apply
+    step = make(t.model, meta, mesh, **kw)
+    return (lambda state: step(state.params, stacked)), step
+
+
+def halo_exchange_replayed(mesh, dev) -> dict:
+    """The halo exchange's collectives through a sharded step of the world
+    of one: `all_to_all_start` / `all_to_all_wait` and the differentiable
+    `all_to_all` with its backward, 3 calls eagerly and 3 through the graphs
+    (a warm-up, a capture, a replay); returns how they ran and whether the
+    outputs and gradients of each call agree bitwise."""
+    from ignnition_tpu_torch.ops import _collectives as col
+    from ignnition_tpu_torch.parallel.steps import ShardedStep
+    from ignnition_tpu_torch.training import capture
+
+    group = mesh.model_group
+
+    def exchange(generator, w, inputs):
+        pending = col.all_to_all_start(inputs["x"] * w, group)
+        y = col.all_to_all_wait(pending)
+        z = col.all_to_all(y * 2.0, group)
+        (g,) = torch.autograd.grad((z * z).sum(), w)
+        # no output carries the autograd graph: a warm-up's graph through
+        # the exchanges, kept past it, fails the capture of the next call
+        return {"y": y.detach().clone(), "g": g}
+
+    x = torch.randn(512, HS, device=dev, generator=torch.Generator(dev).manual_seed(SEED))
+    w = torch.full((HS,), 0.5, device=dev, requires_grad=True)
+    sharded = ShardedStep("the halo exchange", mesh, dev, None,
+                          lambda i: sharded.run(("halo",), exchange, w, {"x": x + i}))
+    runs = {}
+    for way in ("eager", "replayed"):
+        with capture.eager() if way == "eager" else contextlib.nullcontext():
+            runs[way] = []
+            for i in range(3):
+                out = sharded(i)
+                runs[way].append((sharded.last.last, out["y"].cpu(), out["g"].cpu()))
+    equal = all(torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+                for a, b in zip(runs["eager"], runs["replayed"]))
+    return dict(captured=sharded.captured, why_eager=sharded.why_eager,
+                ran=[r[0] for r in runs["replayed"]], bitwise=equal)
+
+
+def compiled_mesh_rank(mesh, counts, dev) -> dict:
+    """Phase 15's work, in the NCCL world of one that phase 12 spawns (its
+    1x1 mesh): each of `MESH_FUNCTIONS` at full width from seed-0 weights, in
+    f32 and bf16, called `COMPILED_MESH_CALLS` times eagerly
+    (`capture.eager()`) and then through the trainer's graphs from the same
+    state: how each call ran, each call's launches from Python, the gap of
+    each replayed call's output (and parameters) from the eager one's, of
+    each leaf's largest entry; then, in bf16, each way's call time (median
+    of 20 after 3, CUDA events) and profile (busy, host launches, NCCL
+    kernels); in both dtypes the port's kernels by name held replayed
+    against eager (`hold_replayed_kernels`), and the capture's seconds,
+    pool and static inputs. The holds are phase 15's, in the parent."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.model.builder import flatten_params
+    from ignnition_tpu_torch.training import capture
+
+    ir = igt.parse_model_description(flagship_description(), FEATURE_DIMS)
+    tree = igt.build(ir).init(torch.Generator().manual_seed(SEED))
+    padding, inputs = compiled_mesh_inputs(ir)
+    snap = lambda tree: {k: v.detach().to("cpu", torch.float32, copy=True)  # noqa: E731
+                         for k, v in flatten_params(tree).items()}
+    out = {"halo": halo_exchange_replayed(mesh, dev)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in MESH_FUNCTIONS:
+            trainer = igt.Trainer(igt.build(ir), padding, compute_dtype=dtype)
+            call, step = _mesh_function(name, trainer, mesh, inputs)
+            runs = {}
+            for way in ("eager", "eager again", "replayed"):
+                state = trainer.init_state(params=tree)
+                trainer.generator.manual_seed(SEED)
+                got = dict(outputs=[], params=[], launches=[], ran=[])
+                with capture.eager() if way != "replayed" else contextlib.nullcontext():
+                    for _ in range(COMPILED_MESH_CALLS):
+                        counts.reset()
+                        y = call(state)
+                        got["launches"].append(counts.read())
+                        got["outputs"].append(y.detach().to("cpu", torch.float32, copy=True))
+                        got["ran"].append(step.last.last)
+                        if name.endswith("step"):
+                            got["params"].append(snap(state.params))
+                got["state"] = state
+                runs[way] = got
+            eager, replayed = runs["eager"], runs["replayed"]
+
+            def run_gaps(got, want):
+                """Each call's output gap and each call's parameter gap (the
+                optimizer state's after the last), of each leaf's largest."""
+                outs = [float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+                        for a, b in zip(got["outputs"], want["outputs"])]
+                params = [max(leaf_gaps(a, b).values())
+                          for a, b in zip(got["params"], want["params"])]
+                if name.endswith("step"):
+                    params.append(max(leaf_gaps(snap(got["state"].opt_state),
+                                                snap(want["state"].opt_state)).values()))
+                return outs, params
+
+            gaps, param_gaps = run_gaps(replayed, eager)
+            control = max(sum(run_gaps(runs["eager again"], eager), []))
+            last = step.last
+            res = dict(captured=step.captured, why_eager=step.why_eager, ran_eager=eager["ran"],
+                       ran_replayed=replayed["ran"], launches_eager=eager["launches"],
+                       launches_replayed=replayed["launches"], output_gaps=gaps,
+                       param_gaps=param_gaps, control_gap=control,
+                       bitwise=not any(gaps) and not any(param_gaps),
+                       capture_s=last.capture_seconds,
+                       pool_mib=None if last.pool_bytes is None else last.pool_bytes / 2**20,
+                       static_mib=trainer.graphs.static_bytes() / 2**20,
+                       recorded=dict(last.recorded))
+            state = replayed["state"]
+            ports = None
+            if dtype == torch.bfloat16:  # timed and profiled in bf16, the steps' dtype
+                ports = {}
+                for way in ("eager", "replayed"):
+                    with capture.eager() if way == "eager" else contextlib.nullcontext():
+                        ms = median_ms(lambda: call(state))
+                        prof = profiled_calls(lambda: call(state))
+                    ports[way] = prof.pop("port_kernels")
+                    res[way] = dict(ms=ms, idle_share=max(0.0, 1.0 - prof["busy_ms"] / ms),
+                                    **prof)
+                ports = (ports["eager"], ports["replayed"])
+            what = f"(15) {name} {str(dtype)[6:]}"
+            res["port_kernels"] = hold_replayed_kernels(what, lambda: call(state), first=ports)
+            if step.last.last != "replay":
+                raise AssertionError(f"{what}: the profiled call ran as {step.last.last}")
+            out[(name, str(dtype))] = res
+            del runs, state, step, trainer
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    return out
+
+
+def compiled_mesh(card: str, ranks: list) -> dict:
+    """Phase 15: what `compiled_mesh_rank` brought back from the NCCL world of
+    one, held and printed: every function captured (the mesh is NCCL), its
+    calls eager x5 and warm-up, capture, replay x3; each replayed call's
+    output and parameters within `COMPILED_TOL` of each leaf's largest entry
+    of the eager call's; the wrappers' counters of the warm-up and the
+    capture equal to an eager call's and none in a replay; the halo
+    exchange's collectives replayed bitwise. Prints each way's ms, busy,
+    idle share, host launches and NCCL kernels a call (bf16), the port's
+    kernels, the capture's seconds, pool and static inputs. Returns the
+    launches from Python (for the `kernels` line) and the figures."""
+    got = ranks[0]["compiled"]
+    halo = got.pop("halo")
+    print(f"[compiled mesh] the NCCL world of one (a 1x1 mesh) of phase 12; {card}")
+    if not (halo["captured"] and halo["bitwise"]
+            and halo["ran"] == ["warm-up", "capture", "replay"]):
+        raise AssertionError(f"(15) the halo exchange's collectives: {halo}")
+    print("  (15) the halo exchange (all_to_all_start / all_to_all_wait, all_to_all and its "
+          "backward) through a sharded step: warm-up, capture, replay, bitwise equal to eager")
+    total = {k: 0 for k in Counts().read()}
+    out = {}
+    want_ran = ["warm-up", "capture"] + ["replay"] * (COMPILED_MESH_CALLS - 2)
+    for (name, dtype), r in got.items():
+        what = f"(15) {name} {dtype[6:]}"
+        if not r["captured"] or r["why_eager"] is not None:
+            raise AssertionError(f"{what}: not captured on NCCL ({r['why_eager']})")
+        if r["ran_eager"] != ["eager"] * COMPILED_MESH_CALLS or r["ran_replayed"] != want_ran:
+            raise AssertionError(f"{what}: the calls ran as {r['ran_eager']} and "
+                                 f"{r['ran_replayed']}")
+        per_call = r["launches_eager"][0]
+        none = dict.fromkeys(per_call, 0)
+        if (not any(per_call.values())
+                or r["launches_eager"] != [per_call] * COMPILED_MESH_CALLS
+                or r["launches_replayed"] != [per_call] * 2 + [none] * (COMPILED_MESH_CALLS - 2)
+                or r["recorded"] != per_call):
+            raise AssertionError(f"{what}: the wrappers counted {r['launches_replayed']} "
+                                 f"replayed, {r['launches_eager']} eagerly")
+        for launches in r["launches_eager"] + r["launches_replayed"]:
+            for k, v in launches.items():
+                total[k] += v
+        worst = max(r["output_gaps"] + r["param_gaps"])
+        tol = COMPILED_TOL[torch.bfloat16 if "bfloat16" in dtype else torch.float32]
+        print(f"  {what}: {COMPILED_MESH_CALLS} calls eager and {' / '.join(want_ran)}: largest "
+              f"gap of an output {max(r['output_gaps']):.3e}"
+              + (f", of a parameter or optimizer-state leaf {max(r['param_gaps']):.3e}"
+                 if r["param_gaps"] else "")
+              + f" of its largest entry (limit {tol:g}; eager against eager again "
+              f"{r['control_gap']:.3e})"
+              + ("; bitwise equal" if r["bitwise"] else "")
+              + f"; launches a call from Python {({k: v for k, v in per_call.items() if v})}, "
+              "as many in the warm-up and the capture, none in a replay")
+        if not worst <= tol:
+            raise AssertionError(f"{what}: a replayed call lies {worst:.3e} from the eager one")
+        out[f"{name} {dtype[6:]}"] = dict(bitwise=r["bitwise"], worst_gap=worst,
+                                          capture_s=r["capture_s"], pool_mib=r["pool_mib"],
+                                          static_mib=r["static_mib"])
+        if "eager" not in r:
+            print(f"    the port's kernels a call by name, replayed as eager: "
+                  f"{sum(r['port_kernels'].values()):.0f} launches of {len(r['port_kernels'])} "
+                  f"kernels (torch.profiler); capture {r['capture_s']:.2f} s, graph pool "
+                  f"{r['pool_mib']:.0f} MiB, static inputs {r['static_mib']:.1f} MiB; {card}")
+            continue
+        e, p = r["eager"], r["replayed"]
+        print(f"    {e['ms']:.3f} ms eager -> {p['ms']:.3f} ms replayed (x{e['ms'] / p['ms']:.2f};"
+              f" median of 20 after 3, CUDA events); device busy {e['busy_ms']:.3f} -> "
+              f"{p['busy_ms']:.3f} ms, idle {e['idle_share']:.1%} -> {p['idle_share']:.1%}; "
+              f"host launches a call: kernels {e['host_kernel_launches']:.0f} -> "
+              f"{p['host_kernel_launches']:.0f}, graphs {e['host_graph_launches']:.0f} -> "
+              f"{p['host_graph_launches']:.0f}, copies {e['host_copy_launches']:.0f} -> "
+              f"{p['host_copy_launches']:.0f}; host-to-device copies {e['htod_ms']:.3f} -> "
+              f"{p['htod_ms']:.3f} ms of the busy time (torch.profiler, 5 calls); the port's "
+              "kernels a "
+              f"call by name, replayed as eager: {sum(r['port_kernels'].values()):.0f} launches "
+              f"of {len(r['port_kernels'])} kernels; NCCL kernels "
+              f"{e['nccl_kernels'] or 'none'} -> {p['nccl_kernels'] or 'none'}; capture "
+              f"{r['capture_s']:.2f} s, graph pool {r['pool_mib']:.0f} MiB, static inputs "
+              f"{r['static_mib']:.1f} MiB; {card}")
+        out[f"{name} {dtype[6:]}"].update(
+            eager_ms=e["ms"], replayed_ms=p["ms"], eager_busy_ms=e["busy_ms"],
+            replayed_busy_ms=p["busy_ms"], eager_idle=e["idle_share"],
+            replayed_idle=p["idle_share"], host_kernel_launches=(
+                e["host_kernel_launches"], p["host_kernel_launches"]),
+            htod_ms=(e["htod_ms"], p["htod_ms"]),
+            nccl_kernels=(e["nccl_kernels"], p["nccl_kernels"]))
+    print("[compiled mesh] launch counts from Python: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return dict(launches=total, functions=out)
+
+
+def phase15_alone() -> None:
+    """Phase 15 without the other phases (the kernels built first): its NCCL
+    world of one, which here steps no mesh of phase 12:
+    `python3 -c "import chip_smoke as c; c.phase15_alone()"`."""
+    import tempfile
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ignnition_tpu_torch.ops.cuda import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    t0 = time.perf_counter()
+    _build.library()
+    t1 = time.perf_counter()
+    ranks = spawn_parallel_world(1, "nccl", (), tempfile.mkdtemp(prefix="chip_smoke_mesh_"),
+                                 job={"compiled": True})
+    out = compiled_mesh(card, ranks)
+    print(f"[time] build {t1 - t0:.1f} s, phase 15 {time.perf_counter() - t1:.1f} s")
+    print(json.dumps({"launches": out["launches"], "card": card}))
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel name past the file's prefix, "N registers, ...", spill line)
     for each kernel that `-Xptxas=-v` reported on."""
@@ -6529,6 +7167,10 @@ def main() -> None:
     # ---- phase 14: the compiled steps against the eager ones ----
     compiled = compiled_steps(dev, card, homog_samples, served_models, api["pipeline"])
     seconds["compiled steps"] = time.perf_counter() - t_start - sum(seconds.values())
+
+    # ---- phase 15: the compiled sharded steps (run in phase 12's NCCL world) ----
+    compiled_meshed = compiled_mesh(card, meshed["parallel"].pop("compiled_ranks"))
+    seconds["compiled sharded steps"] = time.perf_counter() - t_start - sum(seconds.values())
     print("[time] seconds by phase (host clock): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; {sum(seconds.values()):.1f} in all")
@@ -6566,9 +7208,10 @@ def main() -> None:
         on_parallel = meshed["parallel"]["launches"][name]
         on_dest = dest["launches"][name]
         on_compiled = compiled["launches"][name]
+        on_compiled_mesh = compiled_meshed["launches"][name]
         launches = (on_serving + on_training + on_attention + on_qsize + on_mlp
                     + on_homogeneous + on_item1 + on_api + on_language + on_export
-                    + on_parallel + on_dest + on_compiled)
+                    + on_parallel + on_dest + on_compiled + on_compiled_mesh)
         if launches == 0:
             raise AssertionError(f"kernel {name} was launched on no main path")
         kernels.append(dict(
@@ -6580,6 +7223,7 @@ def main() -> None:
             launches_description_language=on_language,
             launches_serving_export=on_export, launches_parallel=on_parallel,
             launches_dest_shard=on_dest, launches_compiled_steps=on_compiled,
+            launches_compiled_sharded_steps=on_compiled_mesh,
             **checked[bf16], f32=checked[torch.float32],
         ))
     by_name = {k["name"]: k for k in kernels}
@@ -6627,12 +7271,15 @@ def main() -> None:
                           "memory": {k: {"estimate_mib": v["estimate_bytes"]["total_bytes"]
                                          / 2**20, "measured_mib": v["measured_bytes"] / 2**20,
                                          "ratio": v["ratio"]}
-                                     for k, v in meshed["memory"].items()},
+                                     for k, v in meshed["memory"].items()
+                                     if k != "usable_fraction"},
+                          "usable_fraction": meshed["memory"]["usable_fraction"],
                           "parallel": {k: {f: v[f] for f in ("losses", "step_ms",
                                                             "allreduce_share")}
                                        for k, v in meshed["parallel"]["meshes"].items()}},
                       "dest_shard": dest["meshes"],
                       "compiled_steps": {k: v for k, v in compiled.items() if k != "launches"},
+                      "compiled_sharded_steps": compiled_meshed["functions"],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -40,7 +40,11 @@ unchanged (`parallel/steps.py`): every rank's objective is scaled by
 1/(n_data * n_model), every all-reduce inside the model (`psum`) sums its
 cotangent in the backward, and one all-reduce over the mesh sums every
 parameter gradient. The halo's exchange is linear and its backward is its
-transpose (`ops/_collectives.all_to_all`), so the sum stays exact.
+transpose (`ops/_collectives.all_to_all`), so the sum stays exact. Both
+steps are `ShardedStep`s, compiled as `parallel/steps.py` says: on an
+NCCL mesh the graph also holds the halo's `all_to_all_start` /
+`all_to_all_wait`; the edge-domain forward's reassembly through
+`edge_origin_*` runs on the host after it.
 """
 
 from __future__ import annotations
@@ -49,15 +53,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..batch import resolve_device, to_device
 from ..data.graph import BatchMeta, adjacency_aux_arrays, infer_label_domain
-from ..model.builder import GnnModel, flatten_params, with_leaves
+from ..model.builder import GnnModel
 from ..ops._collectives import all_gather, psum
+from ..training.capture import Graphs
 from ..training.losses import loss_reduction
 from .mesh import Mesh
-from .steps import GRADIENT_ALL_REDUCE, _check_agreement, _shape_key
+from .steps import ShardedStep, _check_agreement, _reduce_and_update, _shape_key
 
 _HALO_MULTIPLE = 8  # round the halo height to keep shapes stable
 
@@ -106,6 +110,12 @@ def partition_batch(
     """
     if n_model < 2:
         raise EdgeShardError("edge partitioning needs n_model >= 2")
+    return _partition(arrays, meta, model_ir, n_model, pad_to)
+
+
+def _partition(arrays, meta, model_ir, n_model: int, pad_to=None):
+    """`partition_batch` for any n_model >= 1: one shard is the merged batch
+    in the local layout (no halo), what a 1 x 1 mesh steps on."""
     label_dom = infer_label_domain(model_ir)
 
     entities = model_ir.entities
@@ -354,15 +364,16 @@ def _local_cell(stacked: Dict[str, np.ndarray], mesh: Mesh, device) -> Dict[str,
     return to_device(out, device)
 
 
-def _checked(stacked, local_meta: BatchMeta, mesh: Mesh, checked: set) -> None:
+def _checked(stacked, local_meta: BatchMeta, mesh: Mesh, checked: set) -> tuple:
     """Before the first step of a shape: raise on every rank unless the
     mesh's ranks agree on the meta and the partition's shapes (a rank that
-    differs would issue other collectives and hang the mesh)."""
-    key = (_shape_key({k: v for k, v in stacked.items() if not _host_only(k)}),
-           repr(local_meta))
+    differs would issue other collectives and hang the mesh). Returns the
+    shape key."""
+    key = _shape_key({k: v for k, v in stacked.items() if not _host_only(k)})
     if key not in checked:
-        _check_agreement(key, mesh)
+        _check_agreement((key, repr(local_meta)), mesh)
         checked.add(key)
+    return key
 
 
 def make_edgeshard_train_step(
@@ -375,7 +386,8 @@ def make_edgeshard_train_step(
     model_axis: str = "model",
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
-) -> Callable:
+    graphs: Optional[Graphs] = None,
+) -> ShardedStep:
     """`train_step(params, opt_state, stacked_batch, generator=None) ->
     (params, opt_state, loss)` over destination-sharded batches.
 
@@ -392,7 +404,9 @@ def make_edgeshard_train_step(
     sum-reduction losses), the same on every rank; the L2 term is not in
     it. `generator` feeds the readout's random layers: each rank passes its
     own, seeded alike, so that the replicas draw one mask (the JAX step's
-    one replicated key). compute_dtype: as `GnnModel.apply`'s."""
+    one replicated key). compute_dtype: as `GnnModel.apply`'s. graphs: as
+    `parallel.make_parallel_train_step`'s; one CUDA graph per partition
+    shape on an NCCL mesh."""
     device = resolve_device(device)
     n_data = mesh.shape[data_axis]
     n_model = mesh.shape[model_axis]
@@ -400,9 +414,8 @@ def make_edgeshard_train_step(
     reduction = loss_reduction(loss_fn)
     checked: set = set()
 
-    def train_step(params, opt_state, stacked_batch, generator=None):
-        _checked(stacked_batch, local_meta, mesh, checked)
-        batch = _local_cell(stacked_batch, mesh, device)
+    def update(generator, bound, batch) -> Dict[str, torch.Tensor]:
+        params, opt_state = bound
         group = mesh.model_group
         preds = model.apply(params, batch, local_meta, compute_dtype=compute_dtype,
                             training=True, generator=generator, node_axis=group)
@@ -418,23 +431,19 @@ def make_edgeshard_train_step(
             else:
                 cnt = torch.sum(batch["label_mask"])
                 loss = psum(loss * cnt, group) / torch.clamp_min(psum(cnt, group), 1.0)
-        reg = model.regularization_loss(params)
-        scale = 1.0 if reduction == "sum" else 1.0 / n_data
-        objective = (loss * scale + reg / n_data) / n_model
-        leaves = list(flatten_params(params).values())
-        grads = torch.autograd.grad(objective, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        # one all-reduce over the mesh: every gradient, and the loss report
-        report = loss.detach().to(torch.float32).reshape(1) * (scale / n_model)
-        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads] + [report])
-        with torch.profiler.record_function(GRADIENT_ALL_REDUCE):
-            dist.all_reduce(flat, group=mesh.group)
-        parts = torch.split(flat[:-1], [g.numel() for g in grads])
-        grads = [p.reshape(g.shape).to(g.dtype) for p, g in zip(parts, grads)]
-        optimizer.step(params, with_leaves(params, grads), opt_state)
-        return params, opt_state, flat[-1]
+        return _reduce_and_update(model, optimizer, params, opt_state, loss, reduction,
+                                  n_data, n_model, mesh)
 
-    return train_step
+    def train_step(params, opt_state, stacked_batch, generator=None):
+        key = _checked(stacked_batch, local_meta, mesh, checked)
+        batch = _local_cell(stacked_batch, mesh, device)
+        out = sharded.run(("edgeshard_train", local_meta, key, generator), update,
+                          (params, opt_state), batch, generator)
+        return params, opt_state, out["loss"]
+
+    sharded = ShardedStep("the destination-sharded training step", mesh, device, graphs,
+                          train_step)
+    return sharded
 
 
 def make_edgeshard_apply(
@@ -445,7 +454,8 @@ def make_edgeshard_apply(
     model_axis: str = "model",
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
-) -> Callable:
+    graphs: Optional[Graphs] = None,
+) -> ShardedStep:
     """Sharded forward: `apply_fn(params, stacked_batch)` -> the stacked
     predictions, float32, on every rank of the mesh.
 
@@ -457,20 +467,24 @@ def make_edgeshard_apply(
     `edge_origin_*` back into the merged batch's edge order: [n_data,
     n_real_edges, ...], the real-edge prefix (padding edges have no origin
     row). Every rank holds the stacked batch, so every rank returns the
-    whole result."""
+    whole result. graphs: as `make_edgeshard_train_step`'s."""
     device = resolve_device(device)
     label_dom = infer_label_domain(model.ir)
     checked: set = set()
 
-    def apply_fn(params, stacked_batch):
-        _checked(stacked_batch, local_meta, mesh, checked)
-        batch = _local_cell(stacked_batch, mesh, device)
+    def forward(generator, params, batch) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             preds = model.apply(params, batch, local_meta, compute_dtype=compute_dtype,
                                 node_axis=mesh.model_group)
             if label_dom[0] != "graph":
                 preds = all_gather(preds, mesh.model_group, dim=0)
-            out = all_gather(preds[None], mesh.data_group, dim=0)
+            return {"preds": all_gather(preds[None], mesh.data_group, dim=0)}
+
+    def apply_fn(params, stacked_batch):
+        key = _checked(stacked_batch, local_meta, mesh, checked)
+        batch = _local_cell(stacked_batch, mesh, device)
+        out = sharded.run(("edgeshard_apply", local_meta, key), forward, params,
+                          batch)["preds"]
         if label_dom[0] != "edge":
             return out
         origin = np.asarray(stacked_batch[f"edge_origin_{label_dom[1]}"])
@@ -486,7 +500,8 @@ def make_edgeshard_apply(
                 out[d, rows]
         return res
 
-    return apply_fn
+    sharded = ShardedStep("the destination-sharded forward", mesh, device, graphs, apply_fn)
+    return sharded
 
 
 def halo_fractions(

@@ -24,10 +24,24 @@ by 1/(n_data * n_model); each all-reduce inside the model sums its
 cotangent in the backward (`ops/_collectives.psum`); one all-reduce over
 the mesh then sums every parameter gradient, and with it the loss that
 the step reports. Every rank applies the same update to its replica.
+
+Compiled steps: the JAX package jits each sharded function it builds, and
+here each is a `ShardedStep` whose calls go through the owner's
+`training.capture.Graphs`, one CUDA graph per key: the train steps' keys
+are `_shape_key` plus the meta (and the generator), the forwards'
+`_shape_key` plus the meta. The Python checks and the numpy slicing of the
+rank's part run on the host before the graph, as the JAX package's Python
+runs before its jitted call; the graph holds the forward, the loss and its
+collectives, the backward, the flat gradient all-reduce and the update.
+Whether a step captures is decided once, when it is built, from the
+mesh's backend: NCCL captures; gloo stages every collective through the
+host, which a graph cannot hold, so a gloo mesh steps eagerly, as the CPU
+always does. `captured` and `why_eager` say which and why.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +52,7 @@ from ..batch import resolve_device, to_device
 from ..data.graph import BatchMeta, infer_label_domain, merge_metas, repad_to_meta
 from ..model.builder import GnnModel, flatten_params, with_leaves
 from ..ops._collectives import all_gather, psum
+from ..training.capture import Graphs
 from ..training.losses import loss_reduction
 from .mesh import Mesh
 
@@ -168,6 +183,63 @@ def _check_agreement(key, mesh: Mesh) -> None:
         )
 
 
+def _why_eager(mesh: Mesh, graphs: Graphs) -> Optional[str]:
+    """Why a sharded step over `mesh` cannot be captured into CUDA graphs,
+    or None when it can: on the card, every process group of the mesh over
+    NCCL."""
+    if not graphs.on_card:
+        return f"it runs on {graphs.device.type}, where every step runs eagerly"
+    if mesh.coords is None:
+        return "this rank lies outside the mesh"
+    groups = (mesh.group, mesh.model_group, mesh.data_group)
+    backends = sorted({str(dist.get_backend(g)) for g in groups})
+    if backends != ["nccl"]:
+        return (f"the mesh's collectives run over {' and '.join(backends)}, which stages "
+                "them through the host: a CUDA graph cannot hold them")
+    return None
+
+
+class ShardedStep:
+    """A sharded step or forward over a mesh (what a factory of this module
+    or of `parallel.edgeshard` returns): calling it runs the step. Each key
+    goes through `graphs` (the owner's, or one of its own) as a captured
+    step (`training.capture`): on the card over NCCL a key's first call is
+    the warm-up, which reaches every collective of the step on the capture's
+    stream (NCCL builds a communicator at its first collective, which no
+    capture may hold), its second captures and replays, later calls replay.
+    `call`: what calling it runs, the factory's function, which steps
+    through `run`. `why_eager`: why its calls do not go through CUDA graphs
+    (a gloo mesh, the CPU), None when they do (`captured`); `last`: the
+    captured step of the latest call (`.last` says how that call ran)."""
+
+    def __init__(self, what: str, mesh: Mesh, device, graphs: Optional[Graphs],
+                 call: Callable):
+        self.what = what
+        self.graphs = graphs if graphs is not None else Graphs(device)
+        self.why_eager = _why_eager(mesh, self.graphs)
+        self.last = None
+        self._call = call
+
+    @property
+    def captured(self) -> bool:
+        return self.why_eager is None
+
+    def __call__(self, *args, **kwargs):
+        return self._call(*args, **kwargs)
+
+    def run(self, key, fn: Callable, bound, inputs: Dict[str, torch.Tensor],
+            generator: Optional[torch.Generator] = None):
+        """`fn(generator, bound, inputs)` through the captured step of
+        `key`, made at the key's first call. fn's outputs carry no autograd
+        graph: with torch 2.11 and NCCL 2.28 a warm-up's output attached to a
+        graph through an `all_to_all`, kept past the call, fails the capture
+        of the next (the steps here return detached tensors)."""
+        self.graphs.register(generator)
+        self.last = self.graphs.step(functools.partial(fn, generator), key, self.what,
+                                     owner=self, why_eager=self.why_eager)
+        return self.last(bound, inputs)
+
+
 def make_parallel_train_step(
     model: GnnModel,
     optimizer,
@@ -178,7 +250,8 @@ def make_parallel_train_step(
     model_axis: Optional[str] = "model",
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
-) -> Callable:
+    graphs: Optional[Graphs] = None,
+) -> ShardedStep:
     """`train_step(params, opt_state, stacked_batch, generator=None) ->
     (params, opt_state, loss)` over `mesh`.
 
@@ -193,7 +266,11 @@ def make_parallel_train_step(
     readout's random layers: each rank passes its own, seeded alike and
     advanced in step, so that the replicas draw one mask (the JAX package's
     one replicated key). The L2 term is not in the loss, as in the JAX
-    step. compute_dtype: as `GnnModel.apply`'s (the JAX step takes none)."""
+    step. compute_dtype: as `GnnModel.apply`'s (the JAX step takes none).
+    graphs: the owner's `training.capture.Graphs` (a `Trainer`'s), whose
+    pool, side stream and registered generators the step's CUDA graphs
+    share; by default one of its own. A `ShardedStep`: one CUDA graph per
+    batch shape on an NCCL mesh, eager on gloo and on the CPU."""
     device = resolve_device(device)
     n_data = mesh.shape[data_axis]
     n_model = mesh.shape.get(model_axis, 1) if model_axis else 1
@@ -202,15 +279,8 @@ def make_parallel_train_step(
     reduction = loss_reduction(loss_fn)
     checked = set()
 
-    def train_step(params, opt_state, stacked_batch, generator=None):
-        mesh.require_member()
-        key = _shape_key(stacked_batch)
-        if key not in checked:
-            _check_agreement((key, repr(meta)), mesh)
-            checked.add(key)
-        specs = batch_partition_specs(model.ir, stacked_batch, data_axis,
-                                      model_axis if use_model_axis else None)
-        batch = _local_batch(stacked_batch, specs, mesh, device)
+    def update(generator, bound, batch) -> Dict[str, torch.Tensor]:
+        params, opt_state = bound
         edge_group = mesh.model_group if use_model_axis else None
         preds = model.apply(params, batch, meta, compute_dtype=compute_dtype, training=True,
                             generator=generator, edge_axis=edge_group)
@@ -230,24 +300,45 @@ def make_parallel_train_step(
                 cnt = torch.sum(batch["label_mask"])
                 loss = psum(loss * cnt, edge_group) / torch.clamp_min(
                     psum(cnt, edge_group), 1.0)
-        reg = model.regularization_loss(params)
-        scale = 1.0 if reduction == "sum" else 1.0 / n_data
-        objective = (loss * scale + reg / n_data) / n_model
-        leaves = list(flatten_params(params).values())
-        grads = torch.autograd.grad(objective, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        # one all-reduce over the mesh: every gradient, and the loss report
-        report = loss.detach().to(torch.float32).reshape(1) * (scale / n_model)
-        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads] + [report])
-        with torch.profiler.record_function(GRADIENT_ALL_REDUCE):
-            dist.all_reduce(flat, group=mesh.group)
-        sizes = [g.numel() for g in grads]
-        parts = torch.split(flat[:-1], sizes)
-        grads = [p.reshape(g.shape).to(g.dtype) for p, g in zip(parts, grads)]
-        optimizer.step(params, with_leaves(params, grads), opt_state)
-        return params, opt_state, flat[-1]
+        return _reduce_and_update(model, optimizer, params, opt_state, loss, reduction,
+                                  n_data, n_model, mesh)
 
-    return train_step
+    def train_step(params, opt_state, stacked_batch, generator=None):
+        mesh.require_member()
+        key = _shape_key(stacked_batch)
+        if key not in checked:
+            _check_agreement((key, repr(meta)), mesh)
+            checked.add(key)
+        specs = batch_partition_specs(model.ir, stacked_batch, data_axis,
+                                      model_axis if use_model_axis else None)
+        batch = _local_batch(stacked_batch, specs, mesh, device)
+        out = sharded.run(("parallel_train", meta, key, generator), update,
+                          (params, opt_state), batch, generator)
+        return params, opt_state, out["loss"]
+
+    sharded = ShardedStep("the data-parallel training step", mesh, device, graphs, train_step)
+    return sharded
+
+
+def _reduce_and_update(model, optimizer, params, opt_state, loss, reduction, n_data, n_model,
+                       mesh) -> Dict[str, torch.Tensor]:
+    """The sharded train steps' tail: the scaled objective's gradients, one
+    all-reduce over the mesh of every gradient and the loss report, and the
+    update of this rank's replica; {"loss": the reported loss}."""
+    reg = model.regularization_loss(params)
+    scale = 1.0 if reduction == "sum" else 1.0 / n_data
+    objective = (loss * scale + reg / n_data) / n_model
+    leaves = list(flatten_params(params).values())
+    grads = torch.autograd.grad(objective, leaves, allow_unused=True, materialize_grads=True)
+    # one all-reduce over the mesh: every gradient, and the loss report
+    report = loss.detach().to(torch.float32).reshape(1) * (scale / n_model)
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads] + [report])
+    with torch.profiler.record_function(GRADIENT_ALL_REDUCE):
+        dist.all_reduce(flat, group=mesh.group)
+    parts = torch.split(flat[:-1], [g.numel() for g in grads])
+    grads = [p.reshape(g.shape).to(g.dtype) for p, g in zip(parts, grads)]
+    optimizer.step(params, with_leaves(params, grads), opt_state)
+    return {"loss": flat[-1]}
 
 
 def make_parallel_apply(
@@ -258,15 +349,26 @@ def make_parallel_apply(
     model_axis: Optional[str] = "model",
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
-) -> Callable:
+    graphs: Optional[Graphs] = None,
+) -> ShardedStep:
     """Sharded forward: `apply_fn(params, stacked_batch)` -> the stacked
     predictions [n_data, rows, ...], float32, on every rank of the mesh.
     Edge-domain predictions are gathered from the model axis's blocks back
-    into the global edge order."""
+    into the global edge order. graphs: as `make_parallel_train_step`'s; one
+    CUDA graph per batch shape on an NCCL mesh."""
     device = resolve_device(device)
     use_model_axis = _model_axis(mesh, model_axis)
     edge_labels = infer_label_domain(model.ir)[0] == "edge"
     checked = set()
+
+    def forward(generator, params, batch) -> Dict[str, torch.Tensor]:
+        edge_group = mesh.model_group if use_model_axis else None
+        with torch.no_grad():
+            preds = model.apply(params, batch, meta, compute_dtype=compute_dtype,
+                                edge_axis=edge_group)
+            if edge_group is not None and edge_labels:
+                preds = all_gather(preds, edge_group, dim=0)
+            return {"preds": all_gather(preds[None], mesh.data_group, dim=0)}
 
     def apply_fn(params, stacked_batch):
         mesh.require_member()
@@ -277,12 +379,7 @@ def make_parallel_apply(
         specs = batch_partition_specs(model.ir, stacked_batch, data_axis,
                                       model_axis if use_model_axis else None)
         batch = _local_batch(stacked_batch, specs, mesh, device)
-        edge_group = mesh.model_group if use_model_axis else None
-        with torch.no_grad():
-            preds = model.apply(params, batch, meta, compute_dtype=compute_dtype,
-                                edge_axis=edge_group)
-            if edge_group is not None and edge_labels:
-                preds = all_gather(preds, edge_group, dim=0)
-            return all_gather(preds[None], mesh.data_group, dim=0)
+        return sharded.run(("parallel_apply", meta, key), forward, params, batch)["preds"]
 
-    return apply_fn
+    sharded = ShardedStep("the data-parallel forward", mesh, device, graphs, apply_fn)
+    return sharded

@@ -37,7 +37,17 @@ fails raises `CaptureError`, naming the key: no step falls back to eager
 in silence.
 
 On the CPU, and inside `eager()` (the counterpart of `jax.disable_jit`),
-a step runs op by op from Python at every call, and no graph is touched.
+a step runs op by op from Python at every call, and no graph is touched. A
+step made with `why_eager` never captures either: the sharded steps of a
+mesh whose collectives run over gloo, which stages them through the host
+(`parallel.steps.ShardedStep`).
+
+The sharded steps (the steps made with an `owner`) keep a set of static
+buffers of their own (`sharded`): every rank of a mesh must warm up,
+capture and replay a key at the same call, since a collective captured on
+one rank and issued eagerly on another hangs the mesh. Their keys come in the same order on every rank, so their
+buffers grow, and drop graphs, alike on every rank; the owner's other steps
+(an evaluation that the first rank alone runs) grow only their own set.
 
 A captured step is a function of device tensors only: `fn(bound, inputs)`
 may change no Python state, because a replay does not run it. A cache kept
@@ -105,7 +115,7 @@ class Graphs:
 
     def __init__(self, device, generators: Sequence[torch.Generator] = ()):
         self.device = torch.device(device)
-        self.generators = tuple(generators)
+        self.generators = list(generators)
         self.captured: Dict[Hashable, CapturedStep] = {}
         self._pool = None
         self._stream = None
@@ -125,11 +135,17 @@ class Graphs:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
+    def register(self, generator: Optional[torch.Generator]) -> None:
+        """Register `generator` with every graph captured from now on."""
+        if generator is not None and all(g is not generator for g in self.generators):
+            self.generators.append(generator)
+
     def static_input(self, name: str, like: torch.Tensor, user: "CapturedStep") -> torch.Tensor:
         """A view of `like`'s shape and dtype into the shared buffer of
-        `name`. A buffer too small is replaced by one of `like`'s size, and
-        the graphs other than `user`'s that read the old one are dropped."""
-        slot = (name, like.dtype)
+        `name` in `user`'s set. A buffer too small is replaced by one of
+        `like`'s size, and the graphs other than `user`'s that read the old
+        one are dropped."""
+        slot = (user.sharded, name, like.dtype)
         buf = self._buffers.get(slot)
         if buf is None or buf.numel() < like.numel():
             if buf is not None:
@@ -144,12 +160,19 @@ class Graphs:
         """The device memory of the static input buffers."""
         return sum(b.numel() * b.element_size() for b in self._buffers.values())
 
-    def step(self, fn: Callable, key: Hashable, what: str) -> "CapturedStep":
-        """The captured step of `key` (made at its first request): `fn(bound,
-        inputs)` -> a tree of tensors."""
-        if key not in self.captured:
-            self.captured[key] = CapturedStep(fn, key, what, self)
-        return self.captured[key]
+    def step(self, fn: Callable, key: Hashable, what: str, owner=None,
+             why_eager: Optional[str] = None) -> "CapturedStep":
+        """The captured step of `key`, made at its first request, or at the
+        first request of another `owner` (the old one is dropped): `fn(bound,
+        inputs)` -> a tree of tensors. `owner`: the sharded step that makes
+        it, if any; `why_eager`: why this step never captures (None: it
+        captures on the card)."""
+        step = self.captured.get(key)
+        if step is None or step.owner is not owner:
+            if step is not None:
+                step.release()
+            step = self.captured[key] = CapturedStep(fn, key, what, self, owner, why_eager)
+        return step
 
 
 class CapturedStep:
@@ -159,8 +182,12 @@ class CapturedStep:
     `capture_seconds` its host time and `pool_bytes` the device memory it
     reserved (the pool's growth)."""
 
-    def __init__(self, fn: Callable, key: Hashable, what: str, graphs: Graphs):
+    def __init__(self, fn: Callable, key: Hashable, what: str, graphs: Graphs, owner=None,
+                 why_eager: Optional[str] = None):
         self.fn, self.key, self.what, self.graphs = fn, key, what, graphs
+        self.owner, self.why_eager = owner, why_eager
+        # the set of static buffers it reads: a sharded step's, or the owner's other steps'
+        self.sharded = owner is not None
         self.last: Optional[str] = None
         self.recorded: Dict[str, int] = {}
         self.capture_seconds: Optional[float] = None
@@ -171,7 +198,7 @@ class CapturedStep:
         self._outputs = None
 
     def __call__(self, bound, inputs: Mapping[str, torch.Tensor]):
-        if not self.graphs.on_card or is_eager():
+        if not self.graphs.on_card or self.why_eager is not None or is_eager():
             self.last = "eager"
             return self.fn(bound, inputs)
         binding = _binding(bound)
@@ -191,9 +218,10 @@ class CapturedStep:
         return _clone(self._outputs)
 
     def reads(self, slot: tuple) -> bool:
-        """Whether the graph reads the shared buffer of `slot` ((name, dtype))."""
+        """Whether the graph reads the shared buffer of `slot` ((sharded,
+        name, dtype))."""
         return self._graph is not None and any(
-            (k, v.dtype) == slot for k, v in self._static.items())
+            (self.sharded, k, v.dtype) == slot for k, v in self._static.items())
 
     @property
     def input_copies(self) -> int:

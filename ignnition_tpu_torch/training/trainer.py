@@ -32,7 +32,8 @@ Over a mesh (`train(mesh=...)`, `parallel.make_mesh`) each step runs on
 every rank the data- and edge-parallel step of `parallel/steps.py` or, with
 `model_strategy="dest_shard"`, the destination-sharded step of
 `parallel/edgeshard.py` over locality-renumbered samples
-(`parallel/locality.py`), and only the mesh's first rank writes
+(`parallel/locality.py`), through the trainer's `graphs` (captured on an
+NCCL mesh, eager over gloo), and only the mesh's first rank writes
 checkpoints, TensorBoard, the profile and the log.
 Checkpoints do not cross between the packages (orbax there, `torch.save`
 here).
@@ -588,7 +589,10 @@ class Trainer:
         `rng`, `PRNGKey(42)` by default). A resumed run starts the generator
         anew, as the JAX package does its key, so a resumed run of a model
         with a random readout layer draws other masks than one run without
-        a stop; without one it resumes exactly.
+        a stop; without one it resumes exactly. It also shuffles the batch
+        stream, on every path, so that a run repeats its order (the JAX
+        package draws a new order at each run on one process); several
+        `input_workers` still build batches in no fixed order.
         eval_fn: called with the state every `eval_secs` (host clock).
         accumulate_steps: each optimizer step consumes this many merged
         batches (stacked, then run one after another: accum_train_step_fn).
@@ -708,12 +712,12 @@ class Trainer:
             )
         elif accumulate_steps > 1:
             batch_iter = self._stacked_batch_iter(
-                data_dir, batch_size, accumulate_steps, shuffle,
+                data_dir, batch_size, accumulate_steps, shuffle, seed,
                 workers=input_workers, cache=cache_batches,
             )
         else:
             batch_iter = self.batches(
-                data_dir, batch_size, shuffle=shuffle, repeat=True,
+                data_dir, batch_size, shuffle=shuffle, repeat=True, seed=seed,
                 workers=input_workers, cache=cache_batches,
             )
         layouts: Dict[BatchMeta, Any] = {}
@@ -751,6 +755,7 @@ class Trainer:
                         step_cache[meta] = make(
                             self.model, self.optimizer, self.loss_fn, meta, mesh,
                             compute_dtype=self.compute_dtype, device=self.device,
+                            graphs=self.graphs,
                         )
                     _, _, loss = step_cache[meta](
                         state.params, state.opt_state, arrays, generator=self.generator
@@ -922,14 +927,16 @@ class Trainer:
                 continue  # grew mid-group; the next group is partitioned alike
             yield {k: np.stack([p[0][k] for p in parts], 0) for k in parts[0][0]}, parts[0][1]
 
-    def _stacked_batch_iter(self, data_dir, batch_size, n_accum, shuffle, workers=1, cache=False):
+    def _stacked_batch_iter(self, data_dir, batch_size, n_accum, shuffle, seed=None, workers=1,
+                            cache=False):
         """Group `n_accum` merged batches per optimizer step, stacked on a
         leading axis (re-padded to a common bucket)."""
         from ..parallel import stack_batches
 
         group = []
         for item in self.batches(
-            data_dir, batch_size, shuffle=shuffle, repeat=True, workers=workers, cache=cache,
+            data_dir, batch_size, shuffle=shuffle, repeat=True, seed=seed, workers=workers,
+            cache=cache,
         ):
             group.append(item)
             if len(group) == n_accum:

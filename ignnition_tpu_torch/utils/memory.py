@@ -22,8 +22,8 @@ The model is deliberately simple and padded-shape based (BatchMeta), like
 the roofline. `chip_smoke.py` (phase 12) holds it against
 `torch.cuda.max_memory_allocated` of the flagship training step at three
 sizes on the card: the estimate must not fall below the measured peak.
-The usable fraction (65%) is the JAX package's, measured on a TPU; the
-card's own ceiling is not measured yet.
+The usable fraction of the card's memory (`USABLE_FRACTION`) is the card's
+own, measured by `chip_smoke.py` (phase 12 (b), `usable_fraction`).
 """
 
 from __future__ import annotations
@@ -33,6 +33,14 @@ from typing import Dict, Optional
 
 # the H100's device memory; override for another card
 DEFAULT_HBM_GB = float(os.environ.get("IGNNITION_TPU_HBM_GB", 80.0))
+# the share of it a training step can use: what the CUDA context, the
+# libraries and the kernels leave (0.9897 of the card), over what the
+# caching allocator reserves for what the flagship_x8 step needs, the lesser
+# of two paths from a fresh trainer: eager (1.1651x: 0.8494) and replayed
+# from CUDA graphs, with the static input copies (1.1532x: 0.8582); the
+# least reading so far, 0.8340 (an eager step alone), rounded down; measured
+# on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py's `usable_fraction`
+USABLE_FRACTION = 0.83
 
 
 def estimate_train_hbm(
@@ -133,14 +141,9 @@ def estimate_train_hbm(
 
 def recommended_shards(total_bytes: float, hbm_gb: float = None) -> int:
     """Destination shards (the mesh's model axis under dest_shard) needed to
-    fit. 1 = fits on one card.
-
-    The usable fraction (65%) is the JAX package's calibration against a
-    TPU's measured single-chip boundary (allocator fragmentation and
-    compiler workspace kept the practical ceiling well under the
-    nameplate). It stays until the H100's own ceiling is measured."""
+    fit. 1 = fits on one card: `USABLE_FRACTION` of its memory."""
     hbm = (hbm_gb or DEFAULT_HBM_GB) * 1e9
-    usable = 0.65 * hbm
+    usable = USABLE_FRACTION * hbm
     m = 1
     while total_bytes / m > usable and m < 4096:
         m *= 2
@@ -157,11 +160,11 @@ def maybe_warn_capacity(model_ir, meta, batch_bytes=None, log=None, captured=Fal
     m = recommended_shards(total)
     if m > 1 and log is not None:
         log.warning(
-            "estimated training footprint %.1f GB exceeds the usable 65%% of "
+            "estimated training footprint %.1f GB exceeds the usable %.0f%% of "
             "one card's memory (%.0f GB): train over a mesh with "
             "model_strategy='dest_shard' and a model axis of >=%d "
             "(Trainer.train(mesh=..., model_strategy='dest_shard')) to split "
             "it, or use a smaller batch_size",
-            total / 1e9, DEFAULT_HBM_GB, m,
+            total / 1e9, 100 * USABLE_FRACTION, DEFAULT_HBM_GB, m,
         )
     return m

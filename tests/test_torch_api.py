@@ -717,6 +717,19 @@ def test_profile_and_tensorboard(data, tmp_path, monkeypatch):
                  tensorboard_dir=str(tmp_path / "tb2"))
 
 
+@pytest.mark.parametrize("kw", [{}, {"cache_batches": True}, {"accumulate_steps": 2}],
+                         ids=["stream", "cached", "accumulated"])
+def test_shuffled_training_repeats_under_its_seed(data, kw):
+    """`Trainer.train(shuffle=True, seed=...)` shuffles the batch stream by
+    its seed: two runs from one initial state end at the same parameters,
+    on the streamed, the cached and the accumulating path."""
+    _, _, tt, _ = _pair(_desc())
+    runs = [tt.train(tt.init_state(torch.Generator().manual_seed(0)), str(data / "train"), 4,
+                     batch_size=2, shuffle=True, log_every=0, seed=7, **kw) for _ in range(2)]
+    for k, v in flatten_params(runs[0].params).items():
+        torch.testing.assert_close(flatten_params(runs[1].params)[k], v, rtol=0, atol=0)
+
+
 def test_unported_options_raise_naming_their_roadmap_item(data):
     """What the entry points still refuse: a mesh that is not the port's
     `parallel.Mesh` (TypeError), an unknown model strategy (ValueError),

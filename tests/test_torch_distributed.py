@@ -15,6 +15,7 @@ the destination-sharded ones (the `es_*` cases); the tests here need no JAX:
 two-process run, as `tests/test_distributed.py` runs the JAX functions.
 """
 
+import contextlib
 import os
 import pickle
 import socket
@@ -36,10 +37,11 @@ def _free_port() -> int:
 
 def spawn_world(world: int, cases: list, job_dir: str, init: str = "worker",
                 timeout: float = WORLD_SECONDS) -> list:
-    """Run `cases` in a world of `world` gloo ranks; returns each rank's
+    """Run `cases` in a world of `world` ranks; returns each rank's
     {case name: result}. init: "worker" joins the world with
     `dist.init_process_group`, "initialize" with the port's
-    `distributed.initialize`."""
+    `distributed.initialize`, "nccl" with it on the card (NCCL: one rank a
+    card)."""
     os.makedirs(job_dir, exist_ok=True)
     with open(os.path.join(job_dir, "job.pkl"), "wb") as f:
         pickle.dump({"cases": cases, "init": init}, f)
@@ -97,17 +99,17 @@ def _model(case):
     return igt.build(ir)
 
 
-def _trainer(case):
+def _trainer(case, device="cpu"):
     from ignnition_tpu_torch.training.trainer import Trainer
 
-    trainer = Trainer(_model(case), device="cpu")
+    trainer = Trainer(_model(case), device=device)
     return trainer, trainer.init_state(params=case["params"])
 
 
 def _flat(params):
     from ignnition_tpu_torch.model.builder import flatten_params
 
-    return {k: v.detach().numpy().copy() for k, v in flatten_params(params).items()}
+    return {k: v.detach().cpu().numpy().copy() for k, v in flatten_params(params).items()}
 
 
 def _raised(fn):
@@ -135,7 +137,8 @@ def case_step(case, mesh):
 
     trainer, state = _trainer(case)
     step = make_parallel_train_step(trainer.model, trainer.optimizer, trainer.loss_fn,
-                                    case["meta"], mesh, device="cpu")
+                                    case["meta"], mesh, device="cpu",
+                                    graphs=trainer.graphs if case.get("shared_graphs") else None)
     stacked = case["stacked_by_rank"][mesh.coords] if "stacked_by_rank" in case else (
         case["stacked"])
     losses = []
@@ -143,7 +146,9 @@ def case_step(case, mesh):
         _, _, loss = step(state.params, state.opt_state, stacked,
                           generator=trainer.generator)
         losses.append(float(loss))
-    return {"losses": losses, "params": _flat(state.params)}
+    return {"losses": losses, "params": _flat(state.params),
+            "graphs_are_the_trainers": step.graphs is trainer.graphs,
+            "ran": step.last.last, "why_eager": step.why_eager}
 
 
 def case_step_raises(case, mesh):
@@ -266,7 +271,8 @@ def case_es_step(case, mesh):
 
     trainer, state = _trainer(case)
     step = make_edgeshard_train_step(trainer.model, trainer.optimizer, trainer.loss_fn,
-                                     case["meta"], mesh, device="cpu")
+                                     case["meta"], mesh, device="cpu",
+                                     graphs=trainer.graphs if case.get("shared_graphs") else None)
     stacked = case["stacked_by_rank"][mesh.coords] if "stacked_by_rank" in case else (
         case["stacked"])
     losses = []
@@ -274,7 +280,9 @@ def case_es_step(case, mesh):
         _, _, loss = step(state.params, state.opt_state, stacked,
                           generator=trainer.generator)
         losses.append(float(loss))
-    return {"losses": losses, "params": _flat(state.params)}
+    return {"losses": losses, "params": _flat(state.params),
+            "graphs_are_the_trainers": step.graphs is trainer.graphs,
+            "ran": step.last.last, "why_eager": step.why_eager}
 
 
 def case_es_step_raises(case, mesh):
@@ -355,6 +363,140 @@ def case_es_pool_tie(case, mesh):
     return {"value": y.detach().numpy(), "grad": g.numpy()}
 
 
+def _factories(trainer, dp, es, mesh, graphs, device="cpu"):
+    """The four sharded factories over `mesh`, each with `graphs` (None: one
+    of its own), for the data-parallel item `dp` and the partitioned item
+    `es` ({"stacked", "meta"}): {name: (step, its stacked batch)}."""
+    from ignnition_tpu_torch import parallel as par
+
+    t, kw = trainer, dict(device=device, graphs=graphs)
+    return {
+        "parallel_train": (par.make_parallel_train_step(
+            t.model, t.optimizer, t.loss_fn, dp["meta"], mesh, **kw), dp["stacked"]),
+        "parallel_apply": (par.make_parallel_apply(t.model, dp["meta"], mesh, **kw),
+                           dp["stacked"]),
+        "edgeshard_train": (par.make_edgeshard_train_step(
+            t.model, t.optimizer, t.loss_fn, es["meta"], mesh, **kw), es["stacked"]),
+        "edgeshard_apply": (par.make_edgeshard_apply(t.model, es["meta"], mesh, **kw),
+                            es["stacked"]),
+    }
+
+
+def case_capture_factories(case, mesh):
+    """Each sharded factory built with the trainer's `Graphs` and with one of
+    its own, for each of two batch shapes (the second called inside
+    `capture.eager()`), once from the same state: what each step reports
+    (captured, why_eager, how its call ran, whether its graphs are its
+    own), its outputs, and the keys (kind, shape key) of the trainer's
+    graphs and of each step's own."""
+    import torch
+
+    from ignnition_tpu_torch.training import capture
+
+    out = {}
+    for shared in (True, False):
+        trainer, _ = _trainer(case)
+        for i, (dp, es) in enumerate(zip(case["dp"], case["es"])):
+            steps = _factories(trainer, dp, es, mesh, trainer.graphs if shared else None)
+            for name, (step, stacked) in steps.items():
+                state = trainer.init_state(params=case["params"])
+                with capture.eager() if i else contextlib.nullcontext():
+                    if name.endswith("train"):
+                        gen = torch.Generator().manual_seed(1)
+                        _, _, got = step(state.params, state.opt_state, stacked, generator=gen)
+                        got = float(got)
+                    else:
+                        got = step(state.params, stacked).numpy()
+                out[(name, shared, i)] = dict(
+                    captured=step.captured, why_eager=step.why_eager, ran=step.last.last,
+                    own=step.graphs is not trainer.graphs, output=got,
+                    keys=[(k[0], k[2]) for k in step.graphs.captured],
+                    params=_flat(state.params) if name.endswith("train") else None)
+        if shared:
+            out["trainer_keys"] = [(k[0], k[2], v.owner.graphs is trainer.graphs)
+                                   for k, v in trainer.graphs.captured.items()]
+    return out
+
+
+def case_capture_decision(case, mesh):
+    """The backend decision of `parallel.steps`: the CPU's reason, a gloo
+    mesh's on the card (a `Graphs` of a CUDA device, which nothing here
+    allocates on), none for a mesh whose groups report NCCL; a step over a
+    gloo mesh with a card's `Graphs` runs its calls eagerly."""
+    import torch
+    import torch.distributed as dist
+
+    from ignnition_tpu_torch.parallel import steps
+    from ignnition_tpu_torch.training.capture import Graphs
+
+    card = Graphs(torch.device("cuda", 0))
+    out = {"cpu": steps._why_eager(mesh, Graphs("cpu")),
+           "gloo_on_card": steps._why_eager(mesh, card)}
+    real = dist.get_backend
+    steps.dist.get_backend = lambda group=None: "nccl"
+    try:
+        out["nccl_on_card"] = steps._why_eager(mesh, card)
+    finally:
+        steps.dist.get_backend = real
+    sharded = steps.ShardedStep(
+        "a step", mesh, "cpu", card,
+        lambda x: sharded.run(("k",), lambda gen, bound, inputs: {"y": inputs["x"] * bound},
+                              x, {"x": x}))
+    y = sharded(torch.arange(4.0))["y"]
+    out["gloo_step"] = (sharded.captured, sharded.last.last, y.tolist())
+    return out
+
+
+def case_capture_trainer(case, mesh):
+    """`Trainer.train(mesh=...)` for 2 steps, replicated and destination
+    sharded: the keys of the trainer's graphs, each with whether its step
+    shares the trainer's `Graphs` and how its latest call ran."""
+    import ignnition_tpu_torch as igt
+    from ignnition_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    for strategy in ("replicated", "dest_shard"):
+        trainer = Trainer(_model(case), padding=igt.PaddingConfig(**case["padding"]),
+                          device="cpu")
+        state = trainer.init_state(params=case["params"])
+        trainer.train(state, case["data"], max_steps=2, batch_size=2, shuffle=False,
+                      log_every=0, mesh=mesh, model_strategy=strategy)
+        out[strategy] = [(k[0], v.owner.graphs is trainer.graphs, v.last, v.owner.why_eager)
+                         for k, v in trainer.graphs.captured.items()]
+    return out
+
+
+def case_replay_vs_eager(case, mesh):
+    """On the card over NCCL: each sharded factory called `calls` times from
+    one state eagerly (`capture.eager()`) and then through its graphs (a
+    warm-up, a capture, replays): how each call ran, the losses or
+    predictions and the parameters of both runs."""
+    import torch
+
+    from ignnition_tpu_torch.training import capture
+
+    out = {}
+    for name in ("parallel_train", "parallel_apply", "edgeshard_train", "edgeshard_apply"):
+        for way in ("eager", "replayed"):
+            trainer, state = _trainer(case, "cuda")
+            step, stacked = _factories(trainer, case["dp"][0], case["es"][0], mesh,
+                                       trainer.graphs, "cuda")[name]
+            got, ran = [], []
+            with capture.eager() if way == "eager" else contextlib.nullcontext():
+                for _ in range(case["calls"]):
+                    if name.endswith("train"):
+                        _, _, loss = step(state.params, state.opt_state, stacked,
+                                          generator=trainer.generator)
+                        got.append(loss.cpu().numpy())
+                    else:
+                        got.append(step(state.params, stacked).cpu().numpy())
+                    ran.append(step.last.last)
+            torch.cuda.synchronize()
+            out[(name, way)] = dict(ran=ran, outputs=got, captured=step.captured,
+                                    params=_flat(state.params))
+    return out
+
+
 CASES = {
     "apply": case_apply, "step": case_step, "step_raises": case_step_raises,
     "single_step": case_single_step, "serial_step": case_serial_step,
@@ -363,6 +505,8 @@ CASES = {
     "es_apply": case_es_apply, "es_step": case_es_step,
     "es_step_raises": case_es_step_raises, "es_train": case_es_train,
     "es_gather": case_es_gather, "es_pool_tie": case_es_pool_tie,
+    "capture_factories": case_capture_factories, "capture_decision": case_capture_decision,
+    "capture_trainer": case_capture_trainer, "replay_vs_eager": case_replay_vs_eager,
 }
 
 
@@ -378,6 +522,10 @@ def _worker(job_dir: str, port: str, rank: int, world: int) -> None:
         from ignnition_tpu_torch.parallel import distributed
 
         distributed.initialize(f"localhost:{port}", world, rank, device="cpu")
+    elif job["init"] == "nccl":
+        from ignnition_tpu_torch.parallel import distributed
+
+        distributed.initialize(f"localhost:{port}", world, rank)
     else:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 world_size=world, rank=rank)

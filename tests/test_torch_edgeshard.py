@@ -367,6 +367,9 @@ def world(tmp_path_factory):
         torch.Generator().manual_seed(1)))
     jobs = [c.job() for c in cases.values()] + _gather_jobs(cases) + _train_jobs(tmp, params)
     jobs.append(dict(name="pool_tie_1x2", kind="es_pool_tie", mesh=(1, 2), x=TIE_X))
+    # the steps built with the trainer's `Graphs`, as its mesh loop builds them
+    jobs += [dict(cases[n].job(), name=n + "_shared_graphs", shared_graphs=True)
+             for n in ("step_1x2_one_graph", "step_2x2")]
     # ranks whose partitions differ in shape: every rank raises
     jobs.append(dict(cases["step_1x2_one_graph"].job(), name="differing_1x2",
                      kind="es_step_raises",
@@ -472,6 +475,19 @@ def test_train_step_matches_the_serial_step_and_jax(world, name):
     if name in ("step_1x2_one_graph", "step_2x2", "reference_step_1x2", "kl_step_1x2"):
         assert case.halo_rows() > 0
     got = _on_every_rank(ranks, name, case.mesh[0] * case.mesh[1])
+    _hold_step(got, case)
+
+
+@pytest.mark.parametrize("name", ["step_1x2_one_graph", "step_2x2"])
+def test_step_with_the_trainers_graphs_matches_the_serial_step_and_jax(world, name):
+    """The destination-sharded step built with the trainer's `Graphs` (the
+    trainer's mesh loop hands them over; eager on gloo and says so) held as
+    the step of its own graphs is."""
+    cases, ranks = world
+    case = cases[name]
+    got = _on_every_rank(ranks, name + "_shared_graphs", case.mesh[0] * case.mesh[1])
+    assert got["graphs_are_the_trainers"] and got["ran"] == "eager"
+    assert "runs on cpu" in got["why_eager"]
     _hold_step(got, case)
 
 

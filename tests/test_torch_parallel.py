@@ -317,7 +317,10 @@ def world(tmp_path_factory):
     # a 1x1 mesh (ranks 1-3 outside it) and the single-device trainer step
     serial += [cases["step_1x2"].job("step", "_1x1", (1, 1)),
                cases["step_1x2"].job("single_step", "_single", (1, 1))]
-    ranks = spawn_world(4, [c.job() for c in cases.values()] + serial + loops,
+    # the steps built with the trainer's `Graphs`, as its mesh loop builds them
+    shared = [dict(cases[n].job(suffix="_shared_graphs"), shared_graphs=True)
+              for n in ("step_2x2", "step_1x2")]
+    ranks = spawn_world(4, [c.job() for c in cases.values()] + serial + loops + shared,
                         os.path.join(tmp, "world"))
     return cases, ranks, tmp
 
@@ -394,6 +397,21 @@ def test_train_step_matches_the_serial_mean_and_jax(world, name):
     cases, ranks, _ = world
     case = cases[name]
     got = _on_every_rank(ranks, name, case.mesh[0] * case.mesh[1])
+    serial = ranks[0][name + "_serial"]
+    _hold_step(got, case, serial["losses"], serial["params"])
+    _hold_step(got, case, *case.j_step(), firm=case.firm())
+
+
+@pytest.mark.parametrize("name", ["step_2x2", "step_1x2"])
+def test_step_with_the_trainers_graphs_matches_jax(world, name):
+    """The step built with the trainer's `Graphs` (the trainer's mesh loop
+    hands them over; eager on gloo and says so) against the serial mean and
+    the JAX step at the same mesh, as the step of its own graphs is."""
+    cases, ranks, _ = world
+    case = cases[name]
+    got = _on_every_rank(ranks, name + "_shared_graphs", case.mesh[0] * case.mesh[1])
+    assert got["graphs_are_the_trainers"] and got["ran"] == "eager"
+    assert "runs on cpu" in got["why_eager"]
     serial = ranks[0][name + "_serial"]
     _hold_step(got, case, serial["losses"], serial["params"])
     _hold_step(got, case, *case.j_step(), firm=case.firm())

@@ -287,8 +287,9 @@ def test_estimate_scales_and_itemizes():
 
 def test_recommended_shards():
     assert t_memory.recommended_shards(1e9) == 1
-    assert t_memory.recommended_shards(60e9) == 2  # past 65% of 80 GB
-    assert t_memory.recommended_shards(120e9) == 4
+    assert t_memory.recommended_shards(60e9) == 1  # within 83% of 80 GB
+    assert t_memory.recommended_shards(70e9) == 2  # past it
+    assert t_memory.recommended_shards(140e9) == 4
     assert t_memory.recommended_shards(0.9 * 80e9) == 2
     assert t_memory.recommended_shards(20e9, hbm_gb=16.0) == 2
 
@@ -324,4 +325,4 @@ def test_trainer_warns_before_a_too_big_meta_once():
         trainer.train_step_fn(_meta(512))
     finally:
         logger.removeHandler(handler)
-    assert len(seen) == 1 and "exceeds the usable 65%" in seen[0].getMessage()
+    assert len(seen) == 1 and "exceeds the usable 83%" in seen[0].getMessage()
