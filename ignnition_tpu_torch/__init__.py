@@ -54,6 +54,7 @@ from .frontend import (
     parse_model_description,
     parse_model_file,
 )
+from .frontend import ir
 from .model import GnnModel, build, params_from_jax
 from .nn.layers import register_layer
 from .serving import ServingModel
@@ -86,6 +87,7 @@ __all__ = [
     "find_dataset_dimensions",
     "get_loss",
     "get_normalization",
+    "ir",
     "iter_samples",
     "load_description",
     "params_from_jax",

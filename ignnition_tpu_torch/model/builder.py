@@ -43,8 +43,12 @@ Aggregations, by branch, in the JAX package's order:
     (`_one_source_sum`, kernel A); a factored last layer is applied to
     each part at node rate (`_finish`); the parts add;
   * `attention` (GAT): in the `per_destination` softmax mode over one
-    source, block-diagonal or dense attention over the int8 incidence
-    matrix (message tables; kernels D and E), else the per-edge form
+    source, under `_SLOT_ATTN` (off by default: the JAX package's default
+    is on) a softmax over the slots of the slice map while they stay under
+    `IR.SLOT_PAD_CAP` times the edges (`_slot_attention`: a per-edge
+    network's slot tensor, or a message table without an incidence matrix),
+    else block-diagonal or dense attention over the int8 incidence matrix
+    (message tables; kernels D and E), else the per-edge form
     (`_attention`): over the sorted edge messages with row pointers the
     fused softmax-sum (kernel A), else `seg.segment_softmax` and a sum; the
     `reference` mode (the reference's softmax over each graph's
@@ -56,6 +60,10 @@ Aggregations, by branch, in the JAX package's order:
     (message tables), else by the sorted sum (kernel A with row pointers),
     plus the destination's own state, over max(in-degree, 1), then the
     aggregation's activation.
+Each choice between two lowerings of one function follows the JAX
+package's switches (`_SLICE_MLP`, `_SLOT_SUM`, `_SLOT_ATTN`, `_SPLIT_FIRST`,
+`_FACTOR_LAST`, `_HALO_OVERLAP`), and `_ITER_REMAT` recomputes each
+iteration in the backward.
 After a vector aggregation (sum, attention, convolution) the update is one
 recurrent cell step or a feed-forward network over [aggregated, state]
 (`{dst}_ff_update`, shared per destination).
@@ -112,6 +120,7 @@ registers the leaves flat under `flatten_params`' names.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
@@ -119,6 +128,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.graph import BatchMeta, infer_readout_domains
 from ..data.graph import interleave_tag as IVT
@@ -135,6 +145,48 @@ class BuildError(ValueError):
 
 
 _SEQUENCE_AGGS = ("ordered", "concat", "interleave")
+
+# The JAX package's exact-lowering switches, under its names and defaults
+# (its `docs/knobs.md`). Each picks between two lowerings of the same
+# function, under the JAX package's conditions. The JAX package reads them
+# from `IGNNITION_TPU_*` variables for A/B runs on the TPU; no workload of the
+# port wants another value than the default, so the first five are module
+# attributes only, which the tests set to hold each branch to the JAX
+# package's. A step captured on the card is not bound to them: set them
+# before the first step.
+# an ordered update over a per-edge network over {hs_source, hs_dest,
+# edge_params} runs the network over the [L, n_dst] slot tensor of the slice
+# map (`_slot_messages`), else over the sorted edge messages
+# (`RNN.masked_update_from_edges`)
+_SLICE_MLP = True
+# a sum over such a network at slot rate (`_slot_rate_sum`), else the
+# per-edge messages' sorted sum
+_SLOT_SUM = True
+# a first Dense layer over {hs_source, hs_dest, edge_params} as per-part
+# matmuls at node rate, else over the per-edge concatenation (and no slot
+# route for such a network)
+_SPLIT_FIRST = True
+# under a sum, a network's last linear Dense layer applied after the sum, at
+# node rate (`_finish`), else per edge
+_FACTOR_LAST = True
+# destination sharding's source gathers overlapped with the halo exchange
+# (`_halo_gather`), else extend-then-gather
+_HALO_OVERLAP = True
+# per-destination attention at slot rate (`_slot_attention`), for per-edge
+# networks and for message tables without an incidence matrix, else the
+# per-edge form. IGNNITION_TPU_SLOT_ATTN=1 turns it on. The JAX package's
+# default is on, for the TPU; the port's is off: on an H100 the
+# per-edge form is the faster of the two on both workloads measured (the
+# attention family at x4 and the mlp_message network into attention; README)
+_SLOT_ATTN = os.environ.get("IGNNITION_TPU_SLOT_ATTN", "0") != "0"
+# 'always': each message-passing iteration of a step that records gradients
+# runs under `torch.utils.checkpoint` (the JAX `jax.checkpoint`): its
+# activations are recomputed in the backward instead of kept, for batches
+# that memory bounds; 'never' (the default) keeps them
+_ITER_REMAT = os.environ.get("IGNNITION_TPU_ITER_REMAT", "never")
+# the lowering switches that a user sets, from the environment: a captured
+# step is bound to them (`training.capture.switches`)
+SWITCHES = ("_SLOT_ATTN", "_ITER_REMAT")
 
 
 _SPLIT_INPUTS = ("hs_source", "hs_dest", "edge_params")
@@ -299,8 +351,8 @@ def _halo_gather(batch, a, table, node_axis):
     local block while it travels, then the boundary edges gather from the
     received rows, and the two masked passes add. Equal to
     `halo_extend(table)[src]` on real edges, zero on padding edges. Without
-    the batch's interior mask, the synchronous extend-then-gather; without a
-    halo, the local gather. The gathers index plainly: their backward is
+    the batch's interior mask, or with `_HALO_OVERLAP` off, the synchronous
+    extend-then-gather; without a halo, the local gather. The gathers index plainly: their backward is
     autograd's scatter-add. An edge that a pass masks out reads row
     (edge % rows) there, not one clamped row: the scatter-add's sorted
     backward walks a run of equal indices one at a time: a run of every
@@ -311,7 +363,7 @@ def _halo_gather(batch, a, table, node_axis):
     if send is None:
         return table[src_idx]
     imask = batch.get(f"interior_emask_{a}")
-    if imask is None:
+    if not _HALO_OVERLAP or imask is None:
         return seg.halo_extend(table, send, node_axis)[src_idx]
     bmask = batch[f"boundary_emask_{a}"]
     b = table.shape[0]
@@ -656,10 +708,22 @@ class GnnModel(nn.Module):
         # loop-invariant per-batch tensors (incidence matrices upcast for the
         # sum's library products; attention reads them as int8)
         cache: Dict[Any, torch.Tensor] = {}
+        iteration = self._message_passing_iteration
+        if _ITER_REMAT == "always" and torch.is_grad_enabled():
+            # each iteration's activations recomputed in the backward. The
+            # recompute of the first iteration finds the upcasts that its
+            # forward put in `cache` (and `seg.gather_state_slices` the
+            # whole sort it kept on its tensor), where the forward made
+            # them: a cast saves nothing for the backward, so both runs save
+            # the same tensors in the same order. The iteration draws no
+            # random numbers, so no RNG state is kept, which a CUDA graph's
+            # capture could not read. Under `node_axis` the recompute sends
+            # the iteration's halo exchanges again, on every rank in the
+            # same order: ranks run the same backward
+            def iteration(*args, _fn=self._message_passing_iteration):
+                return checkpoint(_fn, *args, use_reentrant=False, preserve_rng_state=False)
         for _ in range(ir.num_iterations):
-            states = self._message_passing_iteration(
-                params, batch, meta, states, cache, edge_axis, node_axis
-            )
+            states = iteration(params, batch, meta, states, cache, edge_axis, node_axis)
 
         preds = self._readout(params, batch, meta, states, training, generator, edge_axis,
                               node_axis)
@@ -708,7 +772,7 @@ class GnnModel(nn.Module):
                     elif kind == "attention":
                         part = self._attention_aggregate(
                             params["aggregation"][f"s{si}/m{mi}"], mp, sources,
-                            dst_states, batch, meta, n_dst, edge_axis, node_axis,
+                            dst_states, new_states, batch, meta, n_dst, edge_axis, node_axis,
                         )
                     else:
                         part = self._convolution(
@@ -772,7 +836,8 @@ class GnnModel(nn.Module):
         ops = src.ops
         last = len(ops) - 1
         factor_last = (
-            mp.aggregation.kind == "sum"
+            _FACTOR_LAST
+            and mp.aggregation.kind == "sum"
             and ops[last].kind == "mlp"
             and not ops[last].output_name
             and len(ops[last].mlp.layers) >= 2
@@ -803,7 +868,8 @@ class GnnModel(nn.Module):
                 p = keys(oi)
                 prefix = factor_last and oi == last
                 if (
-                    MLP.can_split_first(op.mlp)
+                    _SPLIT_FIRST
+                    and MLP.can_split_first(op.mlp)
                     and op.inputs
                     and all(n in _SPLIT_INPUTS for n in op.inputs)
                 ):
@@ -843,7 +909,7 @@ class GnnModel(nn.Module):
         return _Source(batch, src, pkey=pkey, post=post, make=make)
 
     def _slot_messages(self, s, dst_states, states, batch, meta, n_dst,
-                       want_prefix=False, capped=True):
+                       want_prefix=False, capped=True, enabled=True):
         """The [L, n_dst, D] slot tensor of one source over its in-degree
         slice map, or None where the batch or the chain does not allow it: a
         message table's slice gather, or for a per-edge network over
@@ -853,10 +919,12 @@ class GnnModel(nn.Module):
         network's tail (or, with `want_prefix`, all but its last layer) over
         the whole tensor: every layer acts on the last axis. `capped` skips
         slot counts past `IR.SLOT_PAD_CAP` times the edges (an ordered update
-        scans the slot layout anyway, so it passes False). Invalid slots hold
-        finite values that every consumer masks by the in-degree."""
+        scans the slot layout anyway, so it passes False). `enabled`: the
+        caller's switch. A per-edge network needs `_SPLIT_FIRST`. Invalid
+        slots hold finite values that every consumer masks by the
+        in-degree."""
         a = s.adj
-        if f"slice_src_{a}" not in batch or f"lens_{a}" not in batch:
+        if not enabled or f"slice_src_{a}" not in batch or f"lens_{a}" not in batch:
             return None
         L = meta.maxlen(a)
         if capped and L * n_dst > IR.SLOT_PAD_CAP * meta.edges(a):
@@ -864,7 +932,7 @@ class GnnModel(nn.Module):
         if s.table is not None:
             return _slices(batch, s.table, "slice_src", "slice_sort", a)
         ops, pkey = s.spec.ops, s.pkey
-        if pkey is None or not IR.is_slot_eligible(ops) or (
+        if not _SPLIT_FIRST or pkey is None or not IR.is_slot_eligible(ops) or (
             "edge_params" in ops[0].inputs and f"params_slice_{a}" not in batch
         ):
             return None
@@ -929,7 +997,10 @@ class GnnModel(nn.Module):
             agg.kind == "ordered" and len(sources) == 1 and f"row_ptr_{a0}" in batch
             and not sharded
         ):
-            xs = self._slot_messages(s0, dst_states, states, batch, meta, n_dst, capped=False)
+            # a message table's slices always; a per-edge network's slot
+            # tensor under `_SLICE_MLP`
+            xs = self._slot_messages(s0, dst_states, states, batch, meta, n_dst, capped=False,
+                                     enabled=_SLICE_MLP or s0.table is not None)
             if xs is not None:
                 return RNN.masked_update_stacked(spec, up, xs, batch[f"lens_{a0}"], dst_states)
             return RNN.masked_update_from_edges(
@@ -998,7 +1069,8 @@ class GnnModel(nn.Module):
         if s.table is not None:
             return None
         slots = self._slot_messages(
-            s, dst_states, states, batch, meta, n_dst, want_prefix=s.post is not None
+            s, dst_states, states, batch, meta, n_dst, want_prefix=s.post is not None,
+            enabled=_SLOT_SUM,
         )
         if slots is None:
             return None
@@ -1053,22 +1125,28 @@ class GnnModel(nn.Module):
             s.messages, s.dst_idx, n_dst, row_ptr=row_ptr, indices_are_sorted=True
         )
 
-    def _attention_aggregate(self, ap, mp, sources, dst_states, batch, meta, n_dst,
+    def _attention_aggregate(self, ap, mp, sources, dst_states, states, batch, meta, n_dst,
                              edge_axis=None, node_axis=None):
         """GAT attention by the best lowering the batch and the messages
-        allow, in the JAX package's order: in the `per_destination` mode
-        over one message table, block-diagonal attention > dense attention
-        over the incidence matrix (both kernels D and E; the int8 matrix
-        goes in as it is); else, and always in the `reference` mode or over
-        several sources, the per-edge form (`_attention`). The JAX package's
-        slot-rate lowering (`_slot_attention`), which it would try first for
-        per-edge networks and for tables without an incidence matrix, is not
-        ported: the per-edge form computes the same function. Under
-        `edge_axis` always the per-edge form."""
+        allow, in the JAX package's order, in the `per_destination` mode
+        over one source: at slot rate (`_slot_attention`, under `_SLOT_ATTN`)
+        for a per-edge network and for a message table without an incidence
+        matrix; block-diagonal attention > dense attention over the
+        incidence matrix for a message table (both kernels D and E; the int8
+        matrix goes in as it is); else, and always in the `reference` mode
+        or over several sources, the per-edge form (`_attention`). Under
+        `edge_axis` always the per-edge form; under `node_axis` the local
+        batch has neither slice map nor incidence."""
         s = sources[0]
         a, table = s.adj, s.table
         reference = mp.aggregation.attention_softmax == "reference"
-        if len(sources) == 1 and not reference and table is not None and edge_axis is None:
+        one = len(sources) == 1 and not reference and edge_axis is None
+        incidence = f"inc_blocks_{a}" in batch or f"dense_inc_{a}" in batch
+        if one and node_axis is None and _SLOT_ATTN and not (table is not None and incidence):
+            out = self._slot_attention(ap, s, dst_states, states, batch, meta, n_dst)
+            if out is not None:
+                return out
+        if one and table is not None:
             if f"inc_blocks_{a}" in batch:
                 return seg.dense_attention_aggregate_blocks(
                     table, dst_states, batch[f"inc_blocks_{a}"],
@@ -1081,6 +1159,40 @@ class GnnModel(nn.Module):
                 )
         return self._attention(ap, mp, sources, dst_states, batch, meta, n_dst, edge_axis,
                                node_axis)
+
+    def _slot_attention(self, ap, s, dst_states, states, batch, meta, n_dst):
+        """Per-destination GAT at slot rate (the JAX `_slot_attention`) over
+        the [L, n_dst] slot tensor of the source's slice map
+        (`_slot_messages`: a message table's slices or a per-edge network's
+        slot tensor): scores[t, d] = LeakyReLU(a1 . (K1 m[t, d]) + a2 . (K2
+        h_d)), a softmax over each destination's slots t < in-degree with
+        its statistics in f32, out[d] = sum_t w[t, d] m[t, d]. No per-edge
+        gather, no segment sum and no incidence matrix, forward or
+        backward; the slice gather's backward is kernel A. A slot past the
+        in-degree holds finite values and gets weight 0: its score is
+        masked before `exp` sees it, and the max of a destination without
+        messages is taken as 0 (its row comes out zero), so no gradient
+        meets an infinity. The max is detached: the softmax does not depend
+        on it. Nothing is read back to the host. None where the slot tensor
+        is not allowed."""
+        slots = self._slot_messages(s, dst_states, states, batch, meta, n_dst)
+        if slots is None:
+            return None
+        length, n, dm = slots.shape
+        d1 = ap["kernel1"].shape[1]
+        s_src = ((slots.reshape(length * n, dm) @ ap["kernel1"]) @ ap["attn_kernel"][:d1])
+        s_dst = (dst_states @ ap["kernel2"]) @ ap["attn_kernel"][d1:]
+        scores = F.leaky_relu(s_src.reshape(length, n) + s_dst.reshape(1, n), 0.2)
+        t = torch.arange(length, device=slots.device)
+        valid = t[:, None] < batch[f"lens_{s.adj}"][None, :]
+        sf = scores.to(torch.float32)
+        mx = torch.where(valid, sf, torch.full_like(sf, float("-inf"))).amax(dim=0).detach()
+        mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+        zero = torch.zeros_like(sf)
+        ex = torch.where(valid, torch.exp(torch.where(valid, sf - mx, zero)), zero)
+        den = ex.sum(dim=0)
+        w = (ex / torch.where(den > 0, den, torch.ones_like(den))).to(slots.dtype)
+        return torch.einsum("ln,lnd->nd", w, slots)
 
     def _attention(self, ap, mp, sources, dst_states, batch, meta, n_dst, edge_axis=None,
                    node_axis=None):

@@ -1,1 +1,5 @@
 """Segment primitives and the hand-written CUDA kernels behind them."""
+
+from . import segment
+
+__all__ = ["segment"]

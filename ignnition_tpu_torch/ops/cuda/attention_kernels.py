@@ -53,7 +53,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, takes_plain
 
 # launches made from Python in this process, eager or recorded into a CUDA
 # graph; a graph's replays launch again uncounted (`ops.cuda`)
@@ -236,7 +236,10 @@ torch.library.register_fake(f"{_build.OPS}::flash_gat_backward", _backward_fake,
 def flash_gat_forward(ssrc, sdst, x, m, stab) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, den) of the contract above: the operator `flash_gat_forward`. A
     CPU tensor takes the plain version; a CUDA tensor launches kernel D (and
-    raises if it cannot)."""
+    raises if it cannot). Under 'never' the plain version on any device;
+    under 'always' a CPU tensor raises."""
+    if takes_plain(x, "flash-attn", "flash_gat_forward"):
+        return flash_gat_forward_plain(ssrc, sdst, x, m, stab)
     return torch.ops.ignnition_tpu_torch.flash_gat_forward(ssrc, sdst, x, m, stab)
 
 
@@ -245,7 +248,10 @@ def flash_gat_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dtab_plus, d_sdst) of the contract above: the operator
     `flash_gat_backward`. A CPU tensor takes the plain version; a CUDA tensor
-    launches kernel E (and raises if it cannot)."""
+    launches kernel E (and raises if it cannot). The switches as for
+    `flash_gat_forward`."""
+    if takes_plain(x, "flash-attn", "flash_gat_backward"):
+        return flash_gat_backward_plain(ssrc, sdst, x, m, stab, den, ct, srow)
     return torch.ops.ignnition_tpu_torch.flash_gat_backward(
         ssrc, sdst, x, m, stab, den, ct, srow
     )

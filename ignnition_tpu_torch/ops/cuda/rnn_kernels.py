@@ -36,12 +36,19 @@ from typing import Mapping
 
 import torch
 
-from . import _build
+from . import _build, takes_plain
+from . import set_mode as cuda_set_mode
 
 # launches made from Python in this process, eager or recorded into a CUDA
 # graph; a graph's replays launch again uncounted (`ops.cuda`)
 launch_count = 0  # launches of kernel B (forward)
 bwd_launch_count = 0  # launches of kernel C (backward)
+
+def set_mode(mode: str) -> None:
+    """The mode of kernels B and C, 'auto', 'never' or 'always' (the JAX
+    package's `rnn_kernels.set_mode`; the table is `ops.cuda`'s)."""
+    cuda_set_mode("fused-rnn", mode)
+
 
 _HOPPER_BLOCK_SMEM = 232448  # bytes of shared memory one block can use
 _SWEEP_MMA_WARPS = 4  # warps a block of C's tensor-core sweep (kSweepMmaWarps)
@@ -442,7 +449,11 @@ def masked_gru_scan(
 
     The operator `masked_gru_scan`: a CPU tensor takes the plain version
     (and autograd's backward of it); a CUDA tensor launches kernel B, and
-    kernel C in the backward (and raises if it cannot)."""
+    kernel C in the backward (and raises if it cannot). Under the fused-rnn
+    switch's 'never' the plain version on any device, differentiated by
+    autograd; under 'always' a CPU tensor raises."""
+    if takes_plain(xs, "fused-rnn", "masked_gru_scan"):
+        return masked_gru_scan_plain(xs, lens, h0, params)
     dtype = xs.dtype
     wx, wh, b = _cast_params(params, dtype)
     args = (xs, lens.to(torch.int32), h0.to(dtype), wx, wh, b)

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, takes_plain
 
 # launches made from Python in this process, eager or recorded into a CUDA
 # graph; a graph's replays launch again uncounted (`ops.cuda`)
@@ -280,7 +280,11 @@ def sorted_segment_sum_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.T
     edge's segment (ids derived from `row_ptr`); padding edges get zero.
 
     The operator `csr_segment_sum`: a CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (and raises if it cannot)."""
+    CUDA tensor launches the kernel (and raises if it cannot). Under the
+    pallas switch's 'never' the plain version on any device, differentiated
+    by autograd; under 'always' a CPU tensor raises."""
+    if takes_plain(data, "pallas", "sorted_segment_sum_csr"):
+        return sorted_segment_sum_csr_plain(data, row_ptr)
     if _wants_grad(data):
         return _CsrSegmentSum.apply(data, row_ptr)
     return torch.ops.ignnition_tpu_torch.csr_segment_sum(data, row_ptr, row_ptr.shape[0] - 1)
@@ -296,7 +300,9 @@ def sorted_segment_sum_csr_windows(
 
     The operator `csr_segment_sum_windows`: a CPU tensor takes the plain
     version; a CUDA tensor launches kernel A once (and raises if it
-    cannot)."""
+    cannot). The pallas switch as for `sorted_segment_sum_csr`."""
+    if takes_plain(data, "pallas", "sorted_segment_sum_csr_windows"):
+        return sorted_segment_sum_csr_windows_plain(data.detach(), row_ptr, num_segments)
     return torch.ops.ignnition_tpu_torch.csr_segment_sum_windows(
         data.detach(), row_ptr, num_segments)
 
@@ -312,12 +318,14 @@ def sorted_segment_sum_ids(
 
     The operator `segment_sum_ids`: a CPU tensor takes the plain version; a
     CUDA tensor launches the id-keyed kernel once (and raises if it
-    cannot)."""
+    cannot). The pallas switch as for `sorted_segment_sum_csr`."""
     if segment_ids.dim() != 1 or segment_ids.shape[0] != data.shape[0]:
         raise ValueError(
             f"sorted_segment_sum_ids: {tuple(segment_ids.shape)} ids for data "
             f"{tuple(data.shape)}"
         )
+    if takes_plain(data, "pallas", "sorted_segment_sum_ids"):
+        return sorted_segment_sum_ids_plain(data, segment_ids, num_segments)
     if _wants_grad(data):
         return _IdsSegmentSum.apply(data, segment_ids, num_segments)
     return torch.ops.ignnition_tpu_torch.segment_sum_ids(data, segment_ids, num_segments)

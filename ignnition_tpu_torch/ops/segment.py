@@ -41,12 +41,19 @@ import torch
 import torch.nn.functional as F
 
 from ._collectives import all_to_all, all_to_all_start, pmax, psum
+from .cuda import set_mode
 from .cuda.attention_kernels import flash_gat_backward, flash_gat_forward
 from .cuda.segment_kernels import (
     sorted_segment_sum_csr,
     sorted_segment_sum_csr_windows,
     sorted_segment_sum_ids,
 )
+
+def set_pallas_mode(mode: str) -> None:
+    """The mode of kernel A, its windowed form and the id-keyed kernel, and
+    with the flash-attn switch of D and E: 'auto', 'never' or 'always' (the
+    JAX package's `set_pallas_mode`; the table is `ops.cuda`'s)."""
+    set_mode("pallas", mode)
 
 
 def _whole_sort_perm(sort_perm: torch.Tensor, n_windows: int) -> torch.Tensor:

@@ -36,7 +36,8 @@ collectives, the backward, the flat gradient all-reduce and the update.
 Whether a step captures is decided once, when it is built, from the
 mesh's backend: NCCL captures; gloo stages every collective through the
 host, which a graph cannot hold, so a gloo mesh steps eagerly, as the CPU
-always does. `captured` and `why_eager` say which and why.
+always does; so does every step while the pallas kernel switch is 'never'
+(`training.capture`). `captured` and `why_eager` say which and why.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from ..batch import resolve_device, to_device
 from ..data.graph import BatchMeta, infer_label_domain, merge_metas, repad_to_meta
 from ..model.builder import GnnModel, flatten_params, with_leaves
 from ..ops._collectives import all_gather, psum
-from ..training.capture import Graphs
+from ..training.capture import Graphs, kernel_modes_why_eager
 from ..training.losses import loss_reduction
 from .mesh import Mesh
 
@@ -209,16 +210,23 @@ class ShardedStep:
     capture may hold), its second captures and replays, later calls replay.
     `call`: what calling it runs, the factory's function, which steps
     through `run`. `why_eager`: why its calls do not go through CUDA graphs
-    (a gloo mesh, the CPU), None when they do (`captured`); `last`: the
+    (a gloo mesh, the CPU, the pallas switch at 'never'), None when they do
+    (`captured`); `last`: the
     captured step of the latest call (`.last` says how that call ran)."""
 
     def __init__(self, what: str, mesh: Mesh, device, graphs: Optional[Graphs],
                  call: Callable):
         self.what = what
         self.graphs = graphs if graphs is not None else Graphs(device)
-        self.why_eager = _why_eager(mesh, self.graphs)
+        self._why_eager = _why_eager(mesh, self.graphs)
         self.last = None
         self._call = call
+
+    @property
+    def why_eager(self) -> Optional[str]:
+        """The mesh's reason, else the kernel switches' (as a captured
+        step's `why_eager`)."""
+        return self._why_eager or kernel_modes_why_eager()
 
     @property
     def captured(self) -> bool:
@@ -236,7 +244,7 @@ class ShardedStep:
         of the next (the steps here return detached tensors)."""
         self.graphs.register(generator)
         self.last = self.graphs.step(functools.partial(fn, generator), key, self.what,
-                                     owner=self, why_eager=self.why_eager)
+                                     owner=self, why_eager=self._why_eager)
         return self.last(bound, inputs)
 
 

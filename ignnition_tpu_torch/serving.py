@@ -293,7 +293,15 @@ def export_serving(
     dict, stored so that the loaded model can batch raw samples. device:
     where the program is exported and will run, by default the current CUDA
     device (device="cpu" for the CPU; without a CUDA device the default
-    raises)."""
+    raises).
+
+    The program records the ops that the kernel switches (`ops.cuda`) pick
+    while it is traced: under 'auto' and 'always' the kernels' operators,
+    whose CUDA bodies launch the kernels where the artifact runs; under
+    'never' the plain versions' own ops, and no kernel. Kernel A's plain sum
+    reads a row pointer back to the host, which `torch.export` refuses (a
+    data-dependent size): a model whose forward reaches it (a sum past the
+    dense-incidence cap) exports under 'auto' or 'always' only."""
     device = resolve_device(device)
     inputs = _serving_arrays(arrays)
     model_ir = gnn.ir

@@ -3,7 +3,7 @@
 from .losses import get_loss, loss_reduction
 from .metrics import MetricAccumulator
 from .optimizers import build_optimizer, build_schedule
-from .trainer import Trainer, TrainState
+from .trainer import Trainer, TrainState, restore_checkpoint, save_checkpoint, warm_start
 
 __all__ = [
     "get_loss",
@@ -13,4 +13,7 @@ __all__ = [
     "build_schedule",
     "Trainer",
     "TrainState",
+    "restore_checkpoint",
+    "save_checkpoint",
+    "warm_start",
 ]

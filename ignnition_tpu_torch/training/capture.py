@@ -34,13 +34,21 @@ updates a state it was not called with. The generators the owner names
 (the trainer's, for dropout and noise) are registered with every graph, so
 each replay draws anew from them, as the eager step would. A capture that
 fails raises `CaptureError`, naming the key: no step falls back to eager
-in silence.
+in silence. The cyclic garbage collector is paused while a step captures
+(`paused_gc`).
 
 On the CPU, and inside `eager()` (the counterpart of `jax.disable_jit`),
 a step runs op by op from Python at every call, and no graph is touched. A
 step made with `why_eager` never captures either: the sharded steps of a
 mesh whose collectives run over gloo, which stages them through the host
-(`parallel.steps.ShardedStep`).
+(`parallel.steps.ShardedStep`). Nor does any step while the pallas kernel
+switch (`ops.cuda`) is 'never': kernel A's plain sum reads a row pointer back
+to the host, which a capture cannot hold (`kernel_modes_why_eager`); the
+other switches' plain versions read nothing back and capture. A graph is
+bound to the switches it was captured under as well, the kernel switches and
+the lowering switches that a user sets (`switches`): a call under others
+drops it, so that no graph stands in for another choice of kernels or
+lowerings.
 
 The sharded steps (the steps made with an `owner`) keep a set of static
 buffers of their own (`sharded`): every rank of a mesh must warm up,
@@ -62,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import gc
 import time
 from typing import Callable, Dict, Hashable, Mapping, Optional, Sequence
 
@@ -87,6 +96,47 @@ def eager():
 def is_eager() -> bool:
     """Whether `eager()` is in force."""
     return _EAGER.get()
+
+
+def switches() -> tuple:
+    """What a graph is bound to besides its tensors: the kernel switches
+    (`ops.cuda.modes`) and the lowering switches that a user sets
+    (`model.builder.SWITCHES`), as they stand."""
+    from ..model import builder
+    from ..ops import cuda
+
+    return cuda.modes() + tuple(getattr(builder, name) for name in builder.SWITCHES)
+
+
+def kernel_modes_why_eager() -> Optional[str]:
+    """Why no step captures under the kernel switches as they stand, or None:
+    the pallas switch at 'never' gives kernel A's plain sum, which reads a row
+    pointer's first entry back to the host, and a CUDA graph cannot hold a
+    read back. The other plain versions (B and C's scan, D and E's
+    attention) read nothing back: under their switches alone steps capture."""
+    from ..ops import cuda
+
+    if cuda.mode("pallas") != "never":
+        return None
+    return ("IGNNITION_TPU_PALLAS 'never': kernel A's plain sum reads a row pointer back to "
+            "the host, which a CUDA graph cannot hold")
+
+
+@contextlib.contextmanager
+def paused_gc():
+    """The cyclic garbage collector paused for a block (a capture). A dead
+    cycle can hold another step's CUDA graph (a trainer or server no longer
+    used), and a collection that runs while this thread captures would
+    destroy that graph there: a CUDA call that a capture forbids on its
+    thread, which invalidates the capture. torch no longer collects before a
+    capture, so such a collection can come at any allocation."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class CaptureError(RuntimeError):
@@ -185,7 +235,7 @@ class CapturedStep:
     def __init__(self, fn: Callable, key: Hashable, what: str, graphs: Graphs, owner=None,
                  why_eager: Optional[str] = None):
         self.fn, self.key, self.what, self.graphs = fn, key, what, graphs
-        self.owner, self.why_eager = owner, why_eager
+        self.owner, self._why_eager = owner, why_eager
         # the set of static buffers it reads: a sharded step's, or the owner's other steps'
         self.sharded = owner is not None
         self.last: Optional[str] = None
@@ -197,15 +247,20 @@ class CapturedStep:
         self._static: Optional[Dict[str, torch.Tensor]] = None
         self._outputs = None
 
+    @property
+    def why_eager(self) -> Optional[str]:
+        """Why this step runs eagerly on the card, or None: the reason it was
+        made with, else the kernel switches' (`kernel_modes_why_eager`)."""
+        return self._why_eager or kernel_modes_why_eager()
+
     def __call__(self, bound, inputs: Mapping[str, torch.Tensor]):
-        if not self.graphs.on_card or self.why_eager is not None or is_eager():
+        if not self.graphs.on_card or is_eager() or self.why_eager is not None:
             self.last = "eager"
             return self.fn(bound, inputs)
-        binding = _binding(bound)
-        if binding != self._binding:
+        if (_binding(bound), switches()) != self._binding:
             self.release()
             out = self._warm_up(bound, inputs)
-            self._binding = _binding(bound)
+            self._binding = (_binding(bound), switches())
             self.last = "warm-up"
             return out
         if self._graph is None:
@@ -275,8 +330,9 @@ class CapturedStep:
         try:
             # thread_local: the input pipeline's threads may pin and copy
             # while this thread records
-            with torch.cuda.graph(graph, pool=self.graphs.pool(), stream=self.graphs.stream(),
-                                  capture_error_mode="thread_local"):
+            with paused_gc(), torch.cuda.graph(graph, pool=self.graphs.pool(),
+                                               stream=self.graphs.stream(),
+                                               capture_error_mode="thread_local"):
                 outputs = self.fn(bound, self._static)
         except Exception as err:
             self._binding = None

@@ -16,12 +16,16 @@ destination shards does it need?". Itemization:
     time slices (plus the scan's per-step carries), each per-edge chain its
     [E, units] interior activations, and every entity its per-iteration
     state table;
-  * workspace: transient scratch, ~2x the largest live edge-rate tensor.
+  * workspace: transient scratch, ~2x the largest live edge-rate tensor;
+  * library workspace: what cuBLAS keeps per handle and stream
+    (`LIBRARY_WORKSPACE_BYTES`), the card's alone: the JAX package's
+    estimate has no such term.
 
 The model is deliberately simple and padded-shape based (BatchMeta), like
 the roofline. `chip_smoke.py` (phase 12) holds it against
 `torch.cuda.max_memory_allocated` of the flagship training step at three
-sizes on the card: the estimate must not fall below the measured peak.
+sizes on the card, each the first captured step of a fresh trainer in a
+process of its own: the estimate must not fall below the measured peak.
 The usable fraction of the card's memory (`USABLE_FRACTION`) is the card's
 own, measured by `chip_smoke.py` (phase 12 (b), `usable_fraction`).
 """
@@ -41,6 +45,17 @@ DEFAULT_HBM_GB = float(os.environ.get("IGNNITION_TPU_HBM_GB", 80.0))
 # least reading so far, 0.8340 (an eager step alone), rounded down; measured
 # on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py's `usable_fraction`
 USABLE_FRACTION = 0.83
+# cuBLAS's workspaces: PyTorch gives each (cuBLAS handle, stream) pair one of
+# 32 MiB on Hopper, from the caching allocator, and keeps it for the life of
+# the process. A trainer's first step meets two new pairs on its own stream
+# (the captured steps' side stream): the forward's matmuls on the calling
+# thread's handle, the backward's on autograd's thread's. A process that has
+# run other steps may reuse pairs (PyTorch hands out streams from a pool of
+# 32), a fresh one, as a user's is, pays both: 2 x 32.0 MiB at the peak of
+# the flagship's first captured bf16 step, from `torch.cuda.memory`'s
+# snapshot (`at::cuda::setWorkspaceForHandle`), NVIDIA H100 80GB HBM3
+CUBLAS_WORKSPACE_BYTES = 32 * 2**20
+LIBRARY_WORKSPACE_BYTES = 2 * CUBLAS_WORKSPACE_BYTES
 
 
 def estimate_train_hbm(
@@ -129,12 +144,14 @@ def estimate_train_hbm(
     workspace = 2.0 * biggest
 
     total = params_bytes + batch_bytes + residual + dense_bytes + workspace
+    total += LIBRARY_WORKSPACE_BYTES
     return {
         "params_bytes": params_bytes,
         "batch_bytes": float(batch_bytes),
         "residual_bytes": residual,
         "dense_inc_bytes": dense_bytes,
         "workspace_bytes": workspace,
+        "library_workspace_bytes": float(LIBRARY_WORKSPACE_BYTES),
         "total_bytes": total,
     }
 

@@ -17,6 +17,8 @@ on the CPU and (cases marked `cuda`) on the card.
   after the state was swapped; a failed capture.
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -425,6 +427,61 @@ def test_replay_after_the_state_was_swapped(cuda_device):
     _equal_trees(second.params, eager_second.params, "params")
     for k, v in flatten_params(first.params).items():
         assert torch.equal(v, kept[k]), k
+
+
+def test_paused_gc_restores_the_collector():
+    """`paused_gc` turns the cyclic collector off for its block and back to
+    what it was after, also when the block raises."""
+    assert gc.isenabled()
+    with capture.paused_gc():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(KeyError):
+        with capture.paused_gc():
+            raise KeyError("x")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with capture.paused_gc():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_a_collection_during_a_capture_destroys_no_graph(cuda_device):
+    """A dead cycle holding a CUDA graph that another capture made, left for
+    the collector while a step captures, with the collector set to run at
+    every allocation: the step still captures and replays (the collector is
+    paused for the capture; destroying a graph there is a CUDA call that
+    invalidates the capture), and the step's function sees the collector off
+    only while it is captured."""
+    x = torch.ones(4, device=cuda_device)
+    dead = [torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(dead[0]):
+        x * 3
+    graphs = capture.Graphs(cuda_device)
+    collecting = []
+
+    def fn(bound, inputs):
+        collecting.append(gc.isenabled())
+        if len(collecting) == 2:
+            cycle = [dead.pop()]
+            cycle.append(cycle)
+            del cycle
+            [[] for _ in range(1000)]
+        return inputs["x"] * 2
+
+    step = graphs.step(fn, ("probe", 8), "a probe")
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        outs = [step((), {"x": x}) for _ in range(3)]
+    finally:
+        gc.set_threshold(*threshold)
+    assert collecting == [True, False] and step.last == "replay"
+    assert all(torch.equal(o, x * 2) for o in outs)
 
 
 @pytest.mark.cuda

@@ -343,6 +343,37 @@ def case_es_gather(case, mesh):
     return out
 
 
+def case_es_grads(case, mesh):
+    """This rank's gradients of the destination-sharded loss (the steps'
+    mask-weighted mean over the model axis, before the gradients'
+    all-reduce) under each setting of `model.builder`'s switches in
+    `case["settings"]` ({name: {switch: value}}): {name: {leaf: array}}."""
+    import torch
+
+    from ignnition_tpu_torch.model.builder import flatten_params, with_leaves
+    from ignnition_tpu_torch.ops._collectives import psum
+    from ignnition_tpu_torch.parallel.edgeshard import _local_cell
+
+    trainer, state = _trainer(case)
+    batch = _local_cell(case["stacked"], mesh, "cpu")
+    group = mesh.model_group
+    names = list(flatten_params(state.params))
+    out = {}
+    for name, setting in case["settings"].items():
+        with _builder_switches(setting):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in flatten_params(state.params).values()]
+            preds = trainer.model.apply(with_leaves(state.params, leaves), batch, case["meta"],
+                                        training=True, generator=trainer.generator,
+                                        node_axis=group)
+            loss = trainer.loss_fn(batch["label"], preds, batch["label_mask"])
+            cnt = torch.sum(batch["label_mask"])
+            loss = psum(loss * cnt, group) / torch.clamp_min(psum(cnt, group), 1.0)
+            grads = torch.autograd.grad(loss, leaves)
+        out[name] = {k: g.numpy().copy() for k, g in zip(names, grads)}
+    return out
+
+
 def case_es_pool_tie(case, mesh):
     """`graph_pool(..., "max", group)` over this rank's rows of a column with
     a maximum tied across ranks: the pooled value and the gradient for this
@@ -504,10 +535,26 @@ CASES = {
     "distributed": case_distributed,
     "es_apply": case_es_apply, "es_step": case_es_step,
     "es_step_raises": case_es_step_raises, "es_train": case_es_train,
-    "es_gather": case_es_gather, "es_pool_tie": case_es_pool_tie,
+    "es_gather": case_es_gather, "es_pool_tie": case_es_pool_tie, "es_grads": case_es_grads,
     "capture_factories": case_capture_factories, "capture_decision": case_capture_decision,
     "capture_trainer": case_capture_trainer, "replay_vs_eager": case_replay_vs_eager,
 }
+
+
+@contextlib.contextmanager
+def _builder_switches(setting: dict):
+    """`model.builder`'s switches (`_HALO_OVERLAP`, ...) set as a case asks,
+    for that case alone."""
+    from ignnition_tpu_torch.model import builder
+
+    saved = {k: getattr(builder, k) for k in setting}
+    try:
+        for k, v in setting.items():
+            setattr(builder, k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(builder, k, v)
 
 
 def _worker(job_dir: str, port: str, rank: int, world: int) -> None:
@@ -541,7 +588,8 @@ def _worker(job_dir: str, port: str, rank: int, world: int) -> None:
             meshes[shape] = make_mesh(*shape)
         mesh = meshes[shape]
         if mesh.coords is not None:
-            out[case["name"]] = CASES[case["kind"]](case, mesh)
+            with _builder_switches(case.get("builder", {})):
+                out[case["name"]] = CASES[case["kind"]](case, mesh)
         dist.barrier()
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "ignnition_tpu."))
               or m == "ignnition_tpu"]

@@ -64,6 +64,9 @@ def test_port_imports_with_jax_blocked():
         "import ignnition_tpu_torch.ops, ignnition_tpu_torch.ops.segment\n"
         "import ignnition_tpu_torch.ops.cuda.segment_kernels\n"
         "import ignnition_tpu_torch.ops.cuda.rnn_kernels\n"
+        "import ignnition_tpu_torch.ops.cuda, ignnition_tpu_torch.ops.cuda.attention_kernels\n"
+        "import ignnition_tpu_torch.nn, ignnition_tpu_torch.nn.rnn\n"
+        "import ignnition_tpu_torch.model.builder, ignnition_tpu_torch.training.capture\n"
         "import ignnition_tpu_torch.batch\n"
         "import ignnition_tpu_torch.training, ignnition_tpu_torch.training.trainer\n"
         "import ignnition_tpu_torch.training.losses, ignnition_tpu_torch.training.metrics\n"

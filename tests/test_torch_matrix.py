@@ -25,6 +25,7 @@ import torch
 import ignnition_tpu.model.builder as j_builder
 import ignnition_tpu.nn.layers as j_layers
 import ignnition_tpu_torch as igt
+import ignnition_tpu_torch.model.builder as t_builder
 import ignnition_tpu_torch.nn.layers as t_layers
 from ignnition_tpu.data import SampleSpec as JSampleSpec
 from ignnition_tpu.data import build_batch as j_build_batch
@@ -439,7 +440,9 @@ ATTENTION_CASES = {
 def _attention_trainers(case, monkeypatch):
     make, entry, *batch_desc = ATTENTION_CASES[case]
     desc = make()
-    monkeypatch.setattr(j_builder, "_SLOT_ATTN", False)
+    # the per-edge routes: slot-rate attention off in both packages
+    for builder in (j_builder, t_builder):
+        monkeypatch.setattr(builder, "_SLOT_ATTN", False)
     j_ir, t_ir, j_arrays, t_arrays, meta = prepared_batches(
         batch_desc[0]() if batch_desc else desc, entry, monkeypatch)
     if batch_desc:

@@ -38,6 +38,7 @@ import ignnition_tpu.model.builder as j_builder
 import ignnition_tpu_torch as igt
 import ignnition_tpu_torch.data.graph as t_graph
 import ignnition_tpu_torch.frontend.ir as t_ir
+import ignnition_tpu_torch.model.builder as t_builder
 from ignnition_tpu.data import SampleSpec as JSampleSpec
 from ignnition_tpu.data import build_batch as j_build_batch
 from ignnition_tpu.data import convert_sample as j_convert
@@ -221,9 +222,10 @@ def case_batches(name, monkeypatch):
         if knob in knobs:
             for mod in (j_ir, t_ir):
                 monkeypatch.setattr(mod, "SLOT_PAD_CAP", cap)
-    # the JAX package's slot-rate attention is not ported: both take the
-    # per-edge form, which computes the same function
-    monkeypatch.setattr(j_builder, "_SLOT_ATTN", False)
+    # these cases hold the per-edge attention form: slot-rate attention off
+    # in both packages (`test_torch_surface.py` holds it on)
+    for builder in (j_builder, t_builder):
+        monkeypatch.setattr(builder, "_SLOT_ATTN", False)
     qsize = any(e["name"] == "node" for e in desc["entities"])
     dims = dict(QSIZE_DIMS if qsize else DIMS)
     if "params" in knobs:

@@ -26,6 +26,7 @@ import ignnition_tpu.data.graph as j_graph
 import ignnition_tpu.model.builder as j_builder
 import ignnition_tpu_torch as igt
 import ignnition_tpu_torch.data.graph as t_graph
+import ignnition_tpu_torch.model.builder as t_builder
 from ignnition_tpu.data import SampleSpec as JSampleSpec
 from ignnition_tpu.data import build_batch as j_build_batch
 from ignnition_tpu.data import convert_sample as j_convert
@@ -137,11 +138,13 @@ def to_attention(d):
 
 def patch_branch(monkeypatch, cap0):
     """Past the dense-incidence cap in both packages (their knobs are
-    distinct objects), with the JAX package on its per-edge attention."""
+    distinct objects), both on the per-edge attention form (slot-rate
+    attention off)."""
     if cap0:
         monkeypatch.setattr(j_graph, "_DENSE_INC_MAX_ENTRIES", 0)
         monkeypatch.setattr(t_graph, "_DENSE_INC_MAX_ENTRIES", 0)
-        monkeypatch.setattr(j_builder, "_SLOT_ATTN", False)
+        for builder in (j_builder, t_builder):
+            monkeypatch.setattr(builder, "_SLOT_ATTN", False)
 
 
 def flagship_dict(num_iterations=2, hs=8, mutate=None):

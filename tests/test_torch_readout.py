@@ -193,7 +193,10 @@ def case_batches(name, monkeypatch, training=True):
     """(JAX ir, port ir, JAX arrays, port arrays, meta) of a case, with its
     knobs patched in both packages."""
     make_desc, kind, sizes, knobs, drop = CASES[name]
-    monkeypatch.setattr(j_builder, "_SLOT_ATTN", False)
+    # the attention cases hold the per-edge form and the incidence products:
+    # slot-rate attention off in both packages
+    for builder in (j_builder, t_builder):
+        monkeypatch.setattr(builder, "_SLOT_ATTN", False)
     if "cap0" in knobs:
         for g in (j_graph, t_graph):
             monkeypatch.setattr(g, "_DENSE_INC_MAX_ENTRIES", 0)
@@ -615,8 +618,10 @@ def test_every_example_is_tested():
 def test_every_example_builds_predicts_and_trains(name, monkeypatch):
     """Each `examples/*/model_description.yaml` as written: the port builds
     it, predicts like the JAX package from the same parameters on a batch of
-    two small graphs, and takes one training step with a finite loss."""
-    monkeypatch.setattr(j_builder, "_SLOT_ATTN", False)
+    two small graphs, and takes one training step with a finite loss. Both
+    packages on the JAX package's default of `_SLOT_ATTN` (on; the port's is
+    off): slot-rate attention where the JAX package takes it."""
+    monkeypatch.setattr(t_builder, "_SLOT_ATTN", j_builder._SLOT_ATTN)
     for register in (ig.register_normalization, igt.register_normalization):
         register("normalization_routenet", _normalization_routenet)
         register("normalization_queue_size", _normalization_queue_size)

@@ -113,13 +113,22 @@ def test_step_cost_items_equal_the_jax_package(name):
         j_ir, j_meta, 10.0, hw=spec)
 
 
+def _assert_memory_items(got: dict, want: dict):
+    """The JAX package's items, and the card's cuBLAS workspaces on top of
+    its total (the JAX package has no such term)."""
+    library = got.pop("library_workspace_bytes")
+    assert library == t_memory.LIBRARY_WORKSPACE_BYTES == 2 * 32 * 2**20
+    got["total_bytes"] -= library
+    _assert_items(got, want)
+
+
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_memory_items_equal_the_jax_package(name):
     j_ir, t_ir, j_meta, t_meta = _both(name)
     for batch_bytes in (None, 12345.0):
         want = j_memory.estimate_train_hbm(j_ir, j_meta, batch_bytes=batch_bytes)
         got = t_memory.estimate_train_hbm(t_ir, t_meta, batch_bytes=batch_bytes)
-        _assert_items(got, want)
+        _assert_memory_items(got, want)
 
 
 def test_h100_spec():
@@ -276,13 +285,13 @@ def test_estimate_scales_and_itemizes():
     small = t_memory.estimate_train_hbm(ir, _meta(1))
     big = t_memory.estimate_train_hbm(ir, _meta(16))
     assert set(small) == {"params_bytes", "batch_bytes", "residual_bytes", "dense_inc_bytes",
-                          "workspace_bytes", "total_bytes"}
+                          "workspace_bytes", "library_workspace_bytes", "total_bytes"}
     assert small["total_bytes"] == pytest.approx(
         sum(v for k, v in small.items() if k != "total_bytes"))
     assert big["residual_bytes"] > 10 * small["residual_bytes"]
     j_ir = j_parser.parse_model_description(
         copy.deepcopy(routenet_description(num_iterations=8, hs=32)), dict(DIMS))
-    _assert_items(small, j_memory.estimate_train_hbm(j_ir, _meta(1, JBatchMeta)))
+    _assert_memory_items(small, j_memory.estimate_train_hbm(j_ir, _meta(1, JBatchMeta)))
 
 
 def test_recommended_shards():
