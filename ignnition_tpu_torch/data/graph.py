@@ -28,6 +28,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 import ml_dtypes
 import numpy as np
 
+from ..utils.trace import DATA_BUILD_BATCH, span
 from .dataset import GraphSample
 
 # --------------------------------------------------------------------------
@@ -577,6 +578,11 @@ def build_batch(
     (model_ir.additional_inputs) still pad by `padding` — their sizes are
     not recorded in BatchMeta.
     """
+    with span(DATA_BUILD_BATCH):
+        return _build_batch(samples, model_ir, padding, training, normalizations, target)
+
+
+def _build_batch(samples, model_ir, padding, training, normalizations, target):
     padding = padding or PaddingConfig()
     if normalizations is None:
         from ..utils.registry import normalizations as _global_registry

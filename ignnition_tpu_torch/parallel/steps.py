@@ -55,11 +55,13 @@ from ..model.builder import GnnModel, flatten_params, with_leaves
 from ..ops._collectives import all_gather, psum
 from ..training.capture import Graphs, kernel_modes_why_eager
 from ..training.losses import loss_reduction
+from ..utils.trace import span
 from .mesh import Mesh
 
 
-# the profiler's name for a step's gradient all-reduce (the model axis's
-# all-reduces show as `_AllReduceSum` and `_AllReduceSumBackward`)
+# the profiler's name for a step's gradient all-reduce, a span of
+# `utils.trace` (the model axis's all-reduces show as `_AllReduceSum` and
+# `_AllReduceSumBackward`)
 GRADIENT_ALL_REDUCE = "parallel.all_reduce_gradients"
 
 
@@ -341,7 +343,7 @@ def _reduce_and_update(model, optimizer, params, opt_state, loss, reduction, n_d
     # one all-reduce over the mesh: every gradient, and the loss report
     report = loss.detach().to(torch.float32).reshape(1) * (scale / n_model)
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads] + [report])
-    with torch.profiler.record_function(GRADIENT_ALL_REDUCE):
+    with span(GRADIENT_ALL_REDUCE):
         dist.all_reduce(flat, group=mesh.group)
     parts = torch.split(flat[:-1], [g.numel() for g in grads])
     grads = [p.reshape(g.shape).to(g.dtype) for p, g in zip(parts, grads)]

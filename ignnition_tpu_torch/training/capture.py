@@ -63,7 +63,16 @@ on an input tensor (`ops.segment._whole_sort_perm`) is safe: a capture reads
 the static buffers, on which no eager call made a cache, and what it caches
 there is recomputed by every replay before it is read. The kernel wrappers'
 launch counters see a capture (the launches are made from Python once, while
-recording) but not a replay; `recorded` keeps what the capture counted.
+recording) but not a replay; `recorded` keeps what the capture counted,
+and every replay adds it to the counter `capture.replayed_launches`.
+
+Each call runs inside spans named by what it does (`utils.trace`):
+`igt.capture.check` (the test that picks its path), then
+`igt.capture.eager`, `igt.capture.warm_up`, or `igt.capture.fill` (the
+input copies enqueued), `igt.capture.record` (a capture) and
+`igt.capture.launch` (the replay), and `igt.capture.outputs` (the clones);
+the counters `capture.calls.*`, `capture.drops.*`, `capture.input_copies`
+and `capture.input_bytes` count the same boundaries.
 """
 
 from __future__ import annotations
@@ -78,6 +87,8 @@ import torch
 
 from ..model.builder import flatten_params, map_params
 from ..ops.cuda import launch_counts
+from ..utils import trace
+from ..utils.trace import count, span
 
 _EAGER = contextvars.ContextVar("ignnition_tpu_torch_eager", default=False)
 
@@ -152,6 +163,11 @@ def _binding(tree) -> tuple:
     )
 
 
+# the counter of each way a call runs
+_CALLS = {"eager": "capture.calls.eager", "warm-up": "capture.calls.warm_up",
+          "capture": "capture.calls.capture", "replay": "capture.calls.replay"}
+
+
 def _clone(tree):
     return map_params(lambda v: v.clone() if isinstance(v, torch.Tensor) else v, tree)
 
@@ -202,6 +218,7 @@ class Graphs:
                 for step in self.captured.values():
                     if step is not user and step.reads(slot):
                         step.release()
+                        count("capture.drops.buffer")
             buf = self._buffers[slot] = torch.empty(like.numel(), dtype=like.dtype,
                                                     device=self.device)
         return buf[: like.numel()].view(like.shape)
@@ -221,6 +238,7 @@ class Graphs:
         if step is None or step.owner is not owner:
             if step is not None:
                 step.release()
+                count("capture.drops.owner")
             step = self.captured[key] = CapturedStep(fn, key, what, self, owner, why_eager)
         return step
 
@@ -245,6 +263,7 @@ class CapturedStep:
         self._binding: Optional[tuple] = None
         self._graph = None
         self._static: Optional[Dict[str, torch.Tensor]] = None
+        self._static_bytes = 0
         self._outputs = None
 
     @property
@@ -254,23 +273,44 @@ class CapturedStep:
         return self._why_eager or kernel_modes_why_eager()
 
     def __call__(self, bound, inputs: Mapping[str, torch.Tensor]):
-        if not self.graphs.on_card or is_eager() or self.why_eager is not None:
+        with span(trace.CAPTURE_CHECK):
+            run, binding = self._path(bound)
+        count(_CALLS[run])
+        if run == "eager":
             self.last = "eager"
-            return self.fn(bound, inputs)
-        if (_binding(bound), switches()) != self._binding:
+            with span(trace.CAPTURE_EAGER):
+                return self.fn(bound, inputs)
+        if run == "warm-up":
             self.release()
             out = self._warm_up(bound, inputs)
-            self._binding = (_binding(bound), switches())
+            self._binding = binding
             self.last = "warm-up"
             return out
-        if self._graph is None:
+        if run == "capture":
             self._capture(bound, inputs)
             self.last = "capture"
         else:
             self._fill(inputs)
+            count("capture.replayed_launches", sum(self.recorded.values()))
             self.last = "replay"
-        self._graph.replay()
-        return _clone(self._outputs)
+        with span(trace.CAPTURE_LAUNCH):
+            self._graph.replay()
+        with span(trace.CAPTURE_OUTPUTS):
+            return _clone(self._outputs)
+
+    def _path(self, bound) -> tuple:
+        """How this call runs ("eager", "warm-up", "capture", "replay"), and
+        the binding it runs under (None when eager). A key that starts again
+        counts why: its bound tensors, or else the switches, changed."""
+        if not self.graphs.on_card or is_eager() or self.why_eager is not None:
+            return "eager", None
+        binding = (_binding(bound), switches())
+        if binding != self._binding:
+            if self._binding is not None:
+                count("capture.drops.binding" if binding[0] != self._binding[0]
+                      else "capture.drops.switches")
+            return "warm-up", binding
+        return ("capture" if self._graph is None else "replay"), binding
 
     def reads(self, slot: tuple) -> bool:
         """Whether the graph reads the shared buffer of `slot` ((sharded,
@@ -290,34 +330,39 @@ class CapturedStep:
 
     def _warm_up(self, bound, inputs):
         """The eager step on the side stream the capture will use."""
-        side = self.graphs.stream()
-        current = torch.cuda.current_stream(self.graphs.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            out = self.fn(bound, inputs)
-        current.wait_stream(side)
-        return out
+        with span(trace.CAPTURE_WARM_UP):
+            side = self.graphs.stream()
+            current = torch.cuda.current_stream(self.graphs.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                out = self.fn(bound, inputs)
+            current.wait_stream(side)
+            return out
 
     def _fill(self, inputs: Mapping[str, torch.Tensor]) -> None:
         """Copy `inputs` into the static buffers, on the current stream."""
-        static = self._static
-        if set(inputs) != set(static):
-            raise ValueError(
-                f"{self.what} for key {self.key!r} was captured with inputs "
-                f"{sorted(static)}, called with {sorted(inputs)}"
-            )
-        for k, v in inputs.items():
-            buf = static[k]
-            if tuple(v.shape) != tuple(buf.shape) or v.dtype != buf.dtype:
+        with span(trace.CAPTURE_FILL):
+            static = self._static
+            if set(inputs) != set(static):
                 raise ValueError(
-                    f"{self.what} for key {self.key!r}: input '{k}' is "
-                    f"{tuple(v.shape)} {v.dtype}, captured as {tuple(buf.shape)} {buf.dtype}"
+                    f"{self.what} for key {self.key!r} was captured with inputs "
+                    f"{sorted(static)}, called with {sorted(inputs)}"
                 )
-            buf.copy_(v, non_blocking=True)
+            for k, v in inputs.items():
+                buf = static[k]
+                if tuple(v.shape) != tuple(buf.shape) or v.dtype != buf.dtype:
+                    raise ValueError(
+                        f"{self.what} for key {self.key!r}: input '{k}' is "
+                        f"{tuple(v.shape)} {v.dtype}, captured as {tuple(buf.shape)} {buf.dtype}"
+                    )
+                buf.copy_(v, non_blocking=True)
+        count("capture.input_copies", len(static))
+        count("capture.input_bytes", self._static_bytes)
 
     def _capture(self, bound, inputs: Mapping[str, torch.Tensor]) -> None:
         device = self.graphs.device
         self._static = {k: self.graphs.static_input(k, v, self) for k, v in inputs.items()}
+        self._static_bytes = sum(v.numel() * v.element_size() for v in self._static.values())
         self._fill(inputs)
         graph = torch.cuda.CUDAGraph()
         for gen in self.graphs.generators:
@@ -330,9 +375,10 @@ class CapturedStep:
         try:
             # thread_local: the input pipeline's threads may pin and copy
             # while this thread records
-            with paused_gc(), torch.cuda.graph(graph, pool=self.graphs.pool(),
-                                               stream=self.graphs.stream(),
-                                               capture_error_mode="thread_local"):
+            with span(trace.CAPTURE_RECORD), paused_gc(), torch.cuda.graph(
+                graph, pool=self.graphs.pool(), stream=self.graphs.stream(),
+                capture_error_mode="thread_local",
+            ):
                 outputs = self.fn(bound, self._static)
         except Exception as err:
             self._binding = None

@@ -57,6 +57,8 @@ from ..batch import resolve_device, to_device
 from ..data import SampleSpec, build_batch, iter_samples
 from ..data.graph import BatchMeta, PaddingConfig
 from ..model.builder import GnnModel, flatten_params, map_params, with_leaves
+from ..utils import trace
+from ..utils.trace import span
 from .capture import Graphs
 from .losses import get_loss, loss_reduction
 from .metrics import MetricAccumulator
@@ -475,7 +477,9 @@ class Trainer:
         def worker():
             try:
                 for arrays, meta in batch_iter:
-                    if not put((*stage(arrays), meta)):
+                    with span(trace.DATA_PREFETCH):
+                        staged = stage(arrays)
+                    if not put((*staged, meta)):
                         return  # consumer gone: drop the staged batches
             except BaseException as e:  # surface errors to the consumer
                 put(e)
@@ -613,7 +617,9 @@ class Trainer:
         tf.summary, generate_model.py:754-756, 792-793).
         profile_dir: a torch.profiler trace of the steps in
         [profile_steps[0], profile_steps[1]), written as a chrome trace, also
-        when the loop ends before the second bound.
+        when the loop ends before the second bound; it holds the program's
+        spans (`utils.trace`: the loop's `igt.train.*`, the compiled step's
+        `igt.capture.*`, and the input threads' `igt.data.*`).
         mesh: a `parallel.Mesh` ('data' x 'model' ranks of the initialized
         process group): every rank of the mesh calls `train` with the same
         arguments, and each step consumes mesh.shape['data'] merged batches
@@ -739,7 +745,12 @@ class Trainer:
 
         profiler = None
         try:
-            for arrays, meta in batch_iter:
+            while True:
+                with span(trace.TRAIN_NEXT_BATCH):
+                    item = next(batch_iter, None)
+                if item is None:
+                    break
+                arrays, meta = item
                 if state.step >= max_steps:
                     break
                 if profile_dir and writes and state.step == profile_steps[0]:
@@ -770,26 +781,29 @@ class Trainer:
                         if accumulate_steps > 1
                         else self.train_step_fn(meta, layout=lay)
                     )
-                    state, logs = step_fn(
-                        state, to_device(arrays, self.device, non_blocking=True)
-                    )
+                    with span(trace.TRAIN_TO_DEVICE):
+                        batch = to_device(arrays, self.device, non_blocking=True)
+                    state, logs = step_fn(state, batch)
                 if log_every and writes and state.step % log_every == 0:
-                    loss, reg, total = (float(logs[k]) for k in ("loss", "reg", "total"))
-                    log.info("step %d  loss=%.6f  reg=%.6f  total=%.6f",
-                             state.step, loss, reg, total)
-                    if writer is not None:
-                        writer.add_scalar("loss", loss, state.step)
-                        writer.add_scalar("regularization_loss", reg, state.step)
-                        writer.add_scalar("total_loss", total, state.step)
+                    with span(trace.TRAIN_LOG):
+                        loss, reg, total = (float(logs[k]) for k in ("loss", "reg", "total"))
+                        log.info("step %d  loss=%.6f  reg=%.6f  total=%.6f",
+                                 state.step, loss, reg, total)
+                        if writer is not None:
+                            writer.add_scalar("loss", loss, state.step)
+                            writer.add_scalar("regularization_loss", reg, state.step)
+                            writer.add_scalar("total_loss", total, state.step)
                 if writer is not None and histogram_every and state.step % histogram_every == 0:
                     for name, leaf in flatten_params(state.params).items():
                         writer.add_histogram(name, _numpy(leaf), state.step)
                 now = time.time()
                 if manager is not None and now - last_save >= save_secs:
-                    save_checkpoint(manager, state)
+                    with span(trace.TRAIN_CHECKPOINT):
+                        save_checkpoint(manager, state)
                     last_save = now
                 if eval_fn is not None and writes and now - last_eval >= eval_secs:
-                    results = eval_fn(state)
+                    with span(trace.TRAIN_EVAL):
+                        results = eval_fn(state)
                     log.info("eval @ step %d: %s", state.step, results)
                     last_eval = now
         finally:
@@ -1049,7 +1063,8 @@ def _state_step(update: Callable) -> Callable:
     runs no Python of the update."""
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        metrics = update((state.params, state.opt_state), batch)
+        with span(trace.TRAIN_STEP):
+            metrics = update((state.params, state.opt_state), batch)
         state.step += 1
         return state, metrics
 
@@ -1071,7 +1086,13 @@ def _start_profiler(device: torch.device):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    profiler = torch.profiler.profile(activities=activities)
+    # every thread's ops and spans: the input workers' `build_batch` and the
+    # device prefetch run off the loop's thread, and the profiler records
+    # only the thread that starts it unless asked
+    profiler = torch.profiler.profile(
+        activities=activities,
+        experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True),
+    )
     profiler.start()
     return profiler
 
